@@ -2,21 +2,40 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from `latticeurbanwind_tpu_torch/csrc/`, then:
+Builds the port's CUDA kernels from `latticeurbanwind_tpu_torch/csrc/` (one
+nvcc per source, in parallel), then:
 
   1. prints the card (nvidia-smi name and power limit), torch/CUDA versions,
-     the build time and the kernels' register use;
+     the build time and the kernels' register use, and checks that float32
+     matrix products run in full float32 (no TF32: the VK inlet's mode sum
+     is one);
   2. runs each kernel against its plain PyTorch version on the card: K-SC
-     (stream-collide) for 5 steps at an odd shape with the LUW shell, solids,
-     nudging, sponge and Coriolis in f32 and bf16 plus the volume-force-off
-     flagship config, and again at the main path's grid; K-AVG (averaging)
-     for 4 samples against update_fields + welford_update;
-  3. times both kernels with CUDA events at 256^3 (the flagship config in
-     bf16 and f32, and bf16 with nudging + sponge) against a device-to-device
-     copy bandwidth measured here, and the plain versions at the same shapes;
-  4. runs the example profile deck at 1.5 m cells (424x424x118 = 21.2M cells,
-     bf16, VK inlet off, one angle) through the port's `run_deck`, checks its
-     VTKs and that the main path launched K-SC 400 and K-AVG 50 times.
+     (stream-collide) for 5 steps at an odd shape with the LUW shell,
+     solids, nudging, sponge and Coriolis in all four storages (f32, bf16,
+     f16, fp16c) plus the volume-force-off flagship config, and again at the
+     main path's grid in bf16 and fp16c; K-SC with VK inlet sites, random
+     0/1 masks on the four side faces and the top plane, and with a real
+     inlet hook refreshing the FaceBC every step, in all four storages and
+     in bf16 and fp16c at the main grid; K-AVG (averaging) for 4 samples
+     against update_fields + welford_update after each of those K-SC runs;
+     the device codecs bit for bit against the torch codecs (all 65,536
+     fp16c and f16 codes, a dense sweep of every float32 exponent band with
+     ties);
+  3. times the kernels with CUDA events at 256^3 (the flagship config in
+     every storage, bf16 with nudging + sponge) against a device-to-device
+     copy bandwidth measured here, and the plain versions at the same
+     shapes; K-SC with VK sites and K-AVG at the main grid;
+  4. runs the example profile deck at 1.5 m cells (424x424x118 = 21.2M
+     cells, one angle) through the port's `run_deck` as it ships, with the
+     VK inlet on: bf16 for 400 steps (the main path; K-SC 400 launches with
+     sites, K-AVG 50, the inlet on faces {0,1,2,3}, the upstream face's raw
+     u at t = 200 and 400 off the initial profile by an RMS within
+     [0.3, 3] sigma), then the inlet-off deck for 100 steps and the inlet-on
+     deck in fp16c for 200 steps; each run's launch counts are zeroed just
+     before it and read just after.  After each inlet-on run its step loop
+     is taken apart with the run's own configuration, forcing and inlet
+     hook: K-SC without and with sites, the FaceBC refresh and the whole
+     step (refresh + K-SC), each by device time and by host enqueue time.
 
 The second-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero; so
@@ -38,10 +57,18 @@ import torch
 
 REPO = Path(__file__).resolve().parent
 EXAMPLE = REPO / "examples" / "example_ProfileResearch_noDEM"
-TOL = {"f32": 6e-6, "bf16": 2e-4}      # the JAX kernel's own (test_pallas_kernel.py)
+STORAGES = ("f32", "bf16", "f16", "fp16c")
+# the JAX kernel's own tolerances against its reference
+# (tests/test_pallas_kernel.py), on decoded values
+TOL = {"f32": 6e-6, "bf16": 2e-4, "f16": 2e-5, "fp16c": 2e-5}
 AVG_TOL = 1e-5                          # the JAX fused pass's own (test_avg_kernel.py)
-BYTES_PER_CELL = {"f32": 153, "bf16": 77}   # 2*19*sizeof(storage) + 1 flag byte
+# 2*19*sizeof(storage) + 1 flag byte
+BYTES_PER_CELL = {"f32": 153, "bf16": 77, "f16": 77, "fp16c": 77}
 NUDGE_BYTES = 5                             # nudge sigma (4) + face id (1)
+MAIN_CELL_M = 1.5                           # the example deck's main-path cells
+MAIN_SHAPE = (118, 424, 424)                # its grid at that cell size
+CUBE = (256, 256, 256)                      # the flagship timing shape
+DEVICE = "cuda"
 
 
 def log(msg: str = "") -> None:
@@ -63,9 +90,11 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return a.elapsed_time(b) / reps
 
 
-def make_case(shape, storage, *, forcing=True, seed=0, device="cuda"):
+def make_case(shape, storage, *, forcing=True, seed=0, inflow=0.0,
+              device=None):
     """LUW-shell case (TYPE_E outer faces, solid ground, solid blocks) from a
-    numpy seed: (config, state, forcing, dyn row)."""
+    numpy seed, with an optional uniform inflow along x added to the random
+    velocities: (config, state, forcing, dyn row)."""
     from latticeurbanwind_tpu_torch.lbm.forcing import (
         NudgeSpec, SpongeSpec, build_forcing,
     )
@@ -75,11 +104,13 @@ def make_case(shape, storage, *, forcing=True, seed=0, device="cuda"):
         make_initial_state,
     )
 
+    device = device or DEVICE
     Z, Y, X = shape
     rng = np.random.default_rng(seed)
     cfg = StepConfig(omega=omega_from_nu(0.03), storage=storage,
                      volume_force=forcing)
     u = (0.02 * rng.standard_normal((3, Z, Y, X))).astype(np.float32)
+    u[0] += np.float32(inflow)
     rho = (1.0 + 0.001 * rng.standard_normal(shape)).astype(np.float32)
     flags = np.zeros(shape, np.uint8)
     flags[-1] = TYPE_E
@@ -105,8 +136,41 @@ def make_case(shape, storage, *, forcing=True, seed=0, device="cuda"):
     return cfg, state, frc, dyn_row(dyn, device)
 
 
-def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
-    return float((a.float() - b.float()).abs().max())
+def vk_hook(state, seed=7):
+    """A real inlet hook for `state` (all four side faces; stride 2 with
+    interpolation, so the carried anchors are exercised too)."""
+    from latticeurbanwind_tpu_torch.bc.vk_inlet import (
+        VkConfig, build_vk_runtime, make_vk_pre_step,
+    )
+
+    cfg = VkConfig(ti=0.08, L_lbm=20.0, nmodes=256, seed=seed,
+                   update_stride=2, stride_interpolation=True)
+    rt = build_vk_runtime(cfg, state.flags.cpu().numpy(), state.u.cpu().numpy())
+    if rt is None:
+        raise AssertionError("no active inlet face in the VK case")
+    return make_vk_pre_step(cfg, rt, device=state.fi.device), rt
+
+
+def random_sites(shape, seed=3):
+    """Random 0/1 masks on the four side faces and the top plane."""
+    Z, Y, X = shape
+    rng = np.random.default_rng(seed)
+
+    def m(*s):
+        return torch.from_numpy((rng.random(s) < 0.5).astype(np.float32)).to(DEVICE)
+
+    return {"sites": (("lane0", "uw"), ("laneL", "ue"), ("row0", "us"),
+                      ("rowL", "un"), ("planeL", "ut")),
+            "masks": {"uw": m(Z, 1, Y), "ue": m(Z, 1, Y), "us": m(Z, 1, X),
+                      "un": m(Z, 1, X), "ut": m(Y, X)}}
+
+
+def max_err(a: torch.Tensor, b: torch.Tensor, storage: str = "f32") -> float:
+    """Largest difference of the decoded values."""
+    from latticeurbanwind_tpu_torch.lbm.state import decode_ddf
+
+    return float((decode_ddf(a, storage).float()
+                  - decode_ddf(b, storage).float()).abs().max())
 
 
 # ---------------------------------------------------------------- phases
@@ -121,54 +185,92 @@ def phase_card() -> dict:
     log(f"nvidia-smi: {smi}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        raise AssertionError("float32 matmuls would run in TF32: the VK mode "
+                             "sum needs full float32")
+    log("float32 matmul precision: highest, allow_tf32 False")
     from latticeurbanwind_tpu_torch.utils import cuda_build
 
     t0 = time.perf_counter()
     _, build_log = cuda_build.build()
     cuda_build.load_library()
-    log(f"kernel build + load: {time.perf_counter() - t0:.1f} s")
+    log(f"kernel build + load ({len(cuda_build.sources())} sources in "
+        f"parallel): {time.perf_counter() - t0:.1f} s")
+    regs, spilled, name = {}, [], None
     for line in build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if "'" in line else line
+        elif "Used" in line and "registers" in line and name:
+            regs[name] = int(line.split("Used")[1].split("registers")[0])
+        elif "spill" in line and name and (" 0 bytes spill stores" not in line
+                                           or " 0 bytes spill loads" not in line):
+            spilled.append(name)
+    log(f"  ptxas: {len(regs)} kernels, registers {min(regs.values(), default=0)}"
+        f"-{max(regs.values(), default=0)}, {len(set(spilled))} with spills")
+    for k in sorted(set(spilled)):
+        log(f"  ptxas spills in {k}")
     return {"smi": smi}
 
 
-def phase_compare(main_shape) -> dict:
-    """Kernel against plain version on the card; returns max errors."""
-    from latticeurbanwind_tpu_torch.lbm.fields import update_fields
-    from latticeurbanwind_tpu_torch.lbm.state import DynParams, TYPE_S
-    from latticeurbanwind_tpu_torch.ops.avg_kernel import avg_update
+def compare_steps(shape, storage, forcing, steps, *, vk=None, hook=False,
+                  inflow=0.0):
+    """K-SC against its plain version over `steps` steps; returns the max
+    decoded difference (and the K-AVG difference for 4 samples after)."""
     from latticeurbanwind_tpu_torch.ops.stream_collide import (
         build_face_bc, stream_collide, stream_collide_plain,
     )
+
+    cfg, st, frc, row = make_case(shape, storage, forcing=forcing, inflow=inflow)
+    pre = None
+    if hook:
+        pre, _ = vk_hook(st)
+        vk = pre.ddf.kernel_spec
+    fbc = build_face_bc(st.u) if (forcing or vk is not None) else None
+    fk = st.fi
+    fp = st.fi.clone()
+    aux = pre.ddf.init_aux(0) if pre is not None else None
+    for t in range(steps):
+        if pre is not None:
+            fbc, aux = pre.ddf(fbc, t, aux)
+        fk = stream_collide(fk, st.flags, row, cfg, frc, fbc, vk=vk)
+        fp = stream_collide_plain(fp, st.flags, row, cfg, frc, fbc, vk=vk)
+    torch.cuda.synchronize()
+    from latticeurbanwind_tpu_torch.lbm.state import decode_ddf
+
+    e = max_err(fk, fp, storage)
+    finite = bool(torch.isfinite(decode_ddf(fk, storage)).all())
+    return e, finite, (cfg, st, frc, row, fbc, fk)
+
+
+def phase_compare() -> dict:
+    """Kernels against plain versions on the card; returns the errors."""
+    from latticeurbanwind_tpu_torch.lbm.fields import update_fields
+    from latticeurbanwind_tpu_torch.lbm.state import DynParams, TYPE_S
+    from latticeurbanwind_tpu_torch.ops.avg_kernel import avg_update
+    from latticeurbanwind_tpu_torch.ops.stream_collide import stream_collide
     from latticeurbanwind_tpu_torch.run.welford import init_avg, welford_update
 
     log("== phase 2: kernels against their plain versions on the card")
-    errs = {"stream_collide": 0.0, "avg_update": 0.0}
-    runs = [((24, 72, 136), s, f, 5) for s in ("f32", "bf16") for f in (True, False)]
-    runs.append((main_shape, "bf16", True, 2))
+    errs = {"stream_collide": {}, "avg_update": {}}
+    small = (24, 72, 136)
+    runs = [(small, s, f, 5) for s in STORAGES for f in (True, False)]
+    runs += [(MAIN_SHAPE, s, True, 2) for s in ("bf16", "fp16c")]
     for shape, storage, forcing, steps in runs:
-        cfg, st, frc, row = make_case(shape, storage, forcing=forcing)
-        fbc = build_face_bc(st.u) if forcing else None
-        fk = st.fi
-        fp = st.fi.clone()
-        for _ in range(steps):
-            fk = stream_collide(fk, st.flags, row, cfg, frc, fbc)
-            fp = stream_collide_plain(fp, st.flags, row, cfg, frc, fbc)
-        torch.cuda.synchronize()
-        e = max_err(fk, fp)
-        ok = e <= TOL[storage] and bool(torch.isfinite(fk.float()).all())
-        log(f"K-SC {shape} {storage} volume_force={forcing} {steps} steps: "
-            f"max|kernel-plain| = {e:.3e} (tol {TOL[storage]:.0e}) "
-            f"{'ok' if ok else 'FAIL'}")
+        e, finite, (cfg, st, frc, row, fbc, fk) = compare_steps(
+            shape, storage, forcing, steps)
+        name = f"{storage} {'nudge+sponge' if forcing else 'flagship'} {shape}"
+        ok = e <= TOL[storage] and finite
+        log(f"K-SC {name} {steps} steps: max|kernel-plain| = {e:.3e} "
+            f"(tol {TOL[storage]:.0e}) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"K-SC disagrees with its plain version: {e}")
-        errs["stream_collide"] = max(errs["stream_collide"], e)
+        errs["stream_collide"][name] = e
 
         # K-AVG: 4 samples from the DDFs of successive kernel steps
         dyn = DynParams(force=row[:3].cpu(), omega_coriolis=row[3:6].cpu())
-        ak = init_avg(shape, False, "cuda")
-        ap = init_avg(shape, False, "cuda")
+        ak = init_avg(shape, False, DEVICE)
+        ap = init_avg(shape, False, DEVICE)
         fi = fk
         for k in range(4):
             ak = avg_update(fi, st.flags, row, 1.0 / (k + 1), ak, cfg)
@@ -176,24 +278,98 @@ def phase_compare(main_shape) -> dict:
             fi = stream_collide(fi, st.flags, row, cfg, frc, fbc)
         torch.cuda.synchronize()
         fluid = (st.flags & TYPE_S) == 0
-        e = max(max_err(ak.mean_u[:, fluid], ap.mean_u[:, fluid]),
-                max_err(ak.m2_u[fluid], ap.m2_u[fluid]),
-                max_err(ak.mean_rho[fluid], ap.mean_rho[fluid]))
+        e = max(float((ak.mean_u[:, fluid] - ap.mean_u[:, fluid]).abs().max()),
+                float((ak.m2_u[fluid] - ap.m2_u[fluid]).abs().max()),
+                float((ak.mean_rho[fluid] - ap.mean_rho[fluid]).abs().max()))
         ok = e <= AVG_TOL and bool(torch.isfinite(ak.mean_u).all())
-        log(f"K-AVG {shape} {storage} volume_force={forcing} 4 samples: "
-            f"max|kernel-plain| at fluid cells = {e:.3e} (tol {AVG_TOL:.0e}) "
-            f"{'ok' if ok else 'FAIL'}")
+        log(f"K-AVG {name} 4 samples: max|kernel-plain| at fluid cells = "
+            f"{e:.3e} (tol {AVG_TOL:.0e}) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"K-AVG disagrees with its plain version: {e}")
-        errs["avg_update"] = max(errs["avg_update"], e)
-        del st, fk, fp, fi, ak, ap, frc, fbc
+        errs["avg_update"][name] = e
+        del st, fk, fi, ak, ap, frc, fbc
         torch.cuda.empty_cache()
+
+    # K-SC with VK inlet sites
+    vk_runs = [(small, s, kind, 5) for s in STORAGES for kind in ("random", "hook")]
+    vk_runs += [(MAIN_SHAPE, s, "hook", 2) for s in ("bf16", "fp16c")]
+    for shape, storage, kind, steps in vk_runs:
+        vk = random_sites(shape) if kind == "random" else None
+        e, finite, _ = compare_steps(shape, storage, True, steps, vk=vk,
+                                     hook=kind == "hook", inflow=0.05)
+        name = f"{storage} nudge+sponge VK {kind} sites {shape}"
+        ok = e <= TOL[storage] and finite
+        log(f"K-SC {name} {steps} steps: max|kernel-plain| = {e:.3e} "
+            f"(tol {TOL[storage]:.0e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"K-SC with VK sites disagrees: {e}")
+        errs["stream_collide"][name] = e
+        torch.cuda.empty_cache()
+
+    phase_codecs()
     return errs
+
+
+def f32_sweep() -> np.ndarray:
+    """Every float32 exponent band at a stride through the mantissa, the
+    round-to-nearest-even ties and their neighbours at the fp16c (bit 11)
+    and f16/bf16 cut points, both signs, infinities and NaNs."""
+    exps = np.arange(0, 256, dtype=np.uint32) << 23
+    ties = np.array([0x7FF, 0x800, 0x801, 0xFFF, 0x1000, 0x1800, 0x17FF,
+                     0x1801, 0xFFF, 0x2000, 0x3000, 0x6000, 0x7FFF, 0x8000,
+                     0x8001, 0xFFFF, 0x10000, 0x18000, 0x7FFFFF, 0, 1],
+                    np.uint32)
+    mants = np.unique(np.concatenate([np.arange(0, 1 << 23, 509, dtype=np.uint32),
+                                      ties,
+                                      (np.arange(1 << 11, dtype=np.uint32) << 12)
+                                      | 0x800]))
+    bits = (exps[:, None] | mants[None, :]).ravel()
+    bits = np.concatenate([bits, bits | np.uint32(0x80000000)])
+    return bits.view(np.float32)
+
+
+def phase_codecs() -> None:
+    """The device codecs against lbm/state.py, bit for bit."""
+    from latticeurbanwind_tpu_torch.lbm.state import decode_ddf, encode_ddf
+    from latticeurbanwind_tpu_torch.ops import codec
+
+    x = torch.from_numpy(f32_sweep())
+    xd = x.to(DEVICE)
+    codes = torch.arange(65536, dtype=torch.int32).to(torch.int16).view(torch.uint16)
+    for storage in STORAGES:
+        want = encode_ddf(x, storage)
+        got = codec.encode(xd, storage).cpu()
+        if storage in ("f16", "bf16"):     # NaN payloads: compare NaN-ness
+            nan = torch.isnan(x)
+            same = bool(torch.equal(got[~nan].view(torch.int16),
+                                    want[~nan].view(torch.int16))
+                        and torch.isnan(got[nan].float()).all())
+        else:
+            same = torch.equal(got.view(torch.int16 if storage == "fp16c"
+                                        else torch.int32),
+                               want.view(torch.int16 if storage == "fp16c"
+                                         else torch.int32))
+        n_enc = x.numel()
+        dec_note = ""
+        if storage in ("f16", "fp16c"):
+            bits = codes.view(torch.float16) if storage == "f16" else codes
+            dw = decode_ddf(bits, storage)
+            dg = codec.decode(bits.to(DEVICE), storage).cpu()
+            nan = torch.isnan(dw)
+            dsame = bool(torch.equal(dg[~nan].view(torch.int32),
+                                     dw[~nan].view(torch.int32))
+                         and torch.isnan(dg[nan]).all())
+            dec_note = f", decode of all 65536 codes {'bit-exact' if dsame else 'DIFFERS'}"
+            same = same and dsame
+        log(f"codec {storage}: encode of {n_enc} float32 values "
+            f"{'bit-exact' if same else 'DIFFERS'}{dec_note}")
+        if not same:
+            raise AssertionError(f"device codec {storage} is not bit-exact")
 
 
 def copy_bandwidth() -> float:
     """Device-to-device copy bandwidth in GB/s (read + write of 4 GiB)."""
-    src = torch.empty(1 << 30, dtype=torch.float32, device="cuda")
+    src = torch.empty(1 << 30, dtype=torch.float32, device=DEVICE)
     dst = torch.empty_like(src)
     ms = cuda_ms(lambda: dst.copy_(src), reps=10)
     bw = 2 * src.numel() * 4 / (ms * 1e-3) / 1e9
@@ -202,23 +378,29 @@ def copy_bandwidth() -> float:
     return bw
 
 
-def time_step_kernel(shape, storage, forcing, *, plain_reps=3):
+def time_step_kernel(shape, storage, forcing, *, vk=None, plain_reps=3):
     """(kernel ms/step, plain ms/step) at `shape`."""
     from latticeurbanwind_tpu_torch.ops.stream_collide import (
         build_face_bc, stream_collide, stream_collide_plain,
     )
 
-    cfg, st, frc, row = make_case(shape, storage, forcing=forcing)
-    fbc = build_face_bc(st.u) if forcing else None
+    cfg, st, frc, row = make_case(shape, storage, forcing=forcing,
+                                  inflow=0.05 if vk else 0.0)
+    spec = None
+    if vk:
+        pre, _ = vk_hook(st)
+        spec = pre.ddf.kernel_spec
+    fbc = build_face_bc(st.u) if (forcing or spec) else None
     bufs = [st.fi, torch.empty_like(st.fi)]
 
     def step():
-        stream_collide(bufs[0], st.flags, row, cfg, frc, fbc, out=bufs[1])
+        stream_collide(bufs[0], st.flags, row, cfg, frc, fbc, out=bufs[1],
+                       vk=spec)
         bufs.reverse()
 
     ms = cuda_ms(step, reps=50, warmup=5)
     plain = cuda_ms(lambda: stream_collide_plain(bufs[0], st.flags, row, cfg,
-                                                 frc, fbc),
+                                                 frc, fbc, vk=spec),
                     reps=plain_reps, warmup=1)
     return ms, plain
 
@@ -231,7 +413,7 @@ def time_avg_kernel(shape, storage):
     from latticeurbanwind_tpu_torch.run.welford import init_avg
 
     cfg, st, _, row = make_case(shape, storage, forcing=False)
-    avg = init_avg(shape, False, "cuda")
+    avg = init_avg(shape, False, DEVICE)
     ms = cuda_ms(lambda: avg_update(st.fi, st.flags, row, 0.5, avg, cfg),
                  reps=20, warmup=3)
     plain = cuda_ms(lambda: avg_update_plain(st.fi, st.flags, row, 0.5, avg,
@@ -240,30 +422,101 @@ def time_avg_kernel(shape, storage):
     return ms, plain
 
 
-def phase_timing(main_shape) -> dict:
+def run_ahead(fn, n: int = 16, sleep_cycles: int = 400_000_000):
+    """(host ms, device ms) per call of `fn`: n calls enqueued behind a
+    device sleep (~0.2 s), so the host runs ahead of the card and the events
+    around the calls time the device work alone.  Raises when the sleep
+    ended before the host had enqueued the n calls."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(sleep_cycles)
+    a.record()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / n
+    ahead = not a.query()
+    b.record()
+    b.synchronize()
+    if not ahead:
+        raise AssertionError("the device sleep ended before the host had "
+                             f"enqueued {n} calls ({host_ms:.3f} ms each)")
+    return host_ms, a.elapsed_time(b) / n
+
+
+def step_loop_breakdown(case, fi: torch.Tensor) -> dict:
+    """The deck's step loop taken apart with the run's own configuration,
+    forcing and inlet hook, from its final DDFs `fi`: ms/step of K-SC
+    without and with the sites and of the whole step (refresh + K-SC with
+    sites, as the stepper runs it) by CUDA events, and the refresh, the
+    K-SC call and the whole step by host enqueue time and device time."""
+    from latticeurbanwind_tpu_torch.lbm.state import dyn_row
+    from latticeurbanwind_tpu_torch.ops.stream_collide import (
+        build_face_bc, stream_collide,
+    )
+
+    pre = case.pre_step.ddf
+    spec = pre.kernel_spec
+    row = dyn_row(case.dyn, DEVICE)
+    flags = case.state.flags
+    bufs = [fi.clone(), torch.empty_like(fi)]
+    cell = {"fbc": build_face_bc(case.state.u), "aux": pre.init_aux(0), "t": 0}
+
+    def refresh():
+        cell["fbc"], cell["aux"] = pre(cell["fbc"], cell["t"], cell["aux"])
+        cell["t"] += 1
+
+    def step(vk=spec):
+        stream_collide(bufs[0], flags, row, case.config, case.forcing,
+                       cell["fbc"], out=bufs[1], vk=vk)
+        bufs.reverse()
+
+    def whole():
+        refresh()
+        step()
+
+    out = {"sc_novk_ms": cuda_ms(lambda: step(None), reps=50, warmup=3),
+           "sc_vk_ms": cuda_ms(step, reps=50, warmup=3),
+           "step_ms": cuda_ms(whole, reps=100, warmup=5)}
+    for name, fn in (("refresh", refresh), ("sc_vk", step), ("step", whole)):
+        out[f"{name}_host_ms"], out[f"{name}_device_ms"] = run_ahead(fn)
+    del bufs
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_timing() -> dict:
     log("== phase 3: timing (CUDA events, after warm-up)")
     bw = copy_bandwidth()
     log(f"device-to-device copy bandwidth: {bw:.1f} GB/s")
-    cube = (256, 256, 256)
+    cube = CUBE
     cells = float(np.prod(cube))
-    out = {"copy_gbps": bw}
-    for storage, forcing in (("bf16", False), ("f32", False), ("bf16", True)):
+    out = {"copy_gbps": bw, "configs": {}}
+    for storage, forcing in ([(s, False) for s in STORAGES] + [("bf16", True)]):
         ms, plain = time_step_kernel(cube, storage, forcing)
         bpc = BYTES_PER_CELL[storage] + (NUDGE_BYTES if forcing else 0)
         mlups = cells / (ms * 1e-3) / 1e6
         roof = mlups * 1e6 * bpc / 1e9 / bw * 100.0
-        log(f"K-SC 256^3 {storage} {'nudge+sponge' if forcing else 'flagship'}: "
-            f"{ms:.3f} ms/step, {mlups:.0f} MLUPs, {roof:.1f}% of the "
-            f"{bpc} B/cell copy roofline; plain version {plain:.2f} ms/step "
+        name = f"{cube[0]}^3 {storage} {'nudge+sponge' if forcing else 'flagship'}"
+        log(f"K-SC {name}: {ms:.3f} ms/step, {mlups:.0f} MLUPs, {roof:.1f}% of "
+            f"the {bpc} B/cell copy roofline; plain version {plain:.2f} ms/step "
             f"({plain / ms:.1f}x the kernel)")
+        out["configs"][f"K-SC {name}"] = {"ms": ms, "plain_ms": plain,
+                                          "roofline_pct": roof}
         torch.cuda.empty_cache()
-    ms, plain = time_avg_kernel(cube, "bf16")
-    log(f"K-AVG 256^3 bf16: {ms:.3f} ms/sample; plain version "
-        f"{plain:.2f} ms/sample ({plain / ms:.1f}x the kernel)")
+    for storage in ("bf16", "fp16c"):
+        ms, plain = time_avg_kernel(cube, storage)
+        log(f"K-AVG {cube[0]}^3 {storage}: {ms:.3f} ms/sample; plain version "
+            f"{plain:.2f} ms/sample ({plain / ms:.1f}x the kernel)")
+        out["configs"][f"K-AVG {cube[0]}^3 {storage}"] = {"ms": ms,
+                                                          "plain_ms": plain}
+        torch.cuda.empty_cache()
     # at the main path's grid and configuration (these go into the record)
-    sc_ms, sc_plain = time_step_kernel(main_shape, "bf16", True)
-    av_ms, av_plain = time_avg_kernel(main_shape, "bf16")
-    log(f"K-SC {main_shape} bf16 nudge+sponge: {sc_ms:.3f} ms/step "
+    sc_ms, sc_plain = time_step_kernel(MAIN_SHAPE, "bf16", True, vk=True)
+    av_ms, av_plain = time_avg_kernel(MAIN_SHAPE, "bf16")
+    log(f"K-SC {MAIN_SHAPE} bf16 nudge+sponge with VK sites: {sc_ms:.3f} ms/step "
         f"(plain {sc_plain:.2f}); K-AVG: {av_ms:.3f} ms/sample "
         f"(plain {av_plain:.2f})")
     torch.cuda.empty_cache()
@@ -271,98 +524,200 @@ def phase_timing(main_shape) -> dict:
     return out
 
 
-def phase_main_path(work: Path) -> dict:
+def run_example_deck(work: Path, tag: str, *, storage: str, steps: int,
+                     vk: bool) -> dict:
+    """The example deck at 1.5 m, angle 0, through run_deck on the card,
+    with the launch counts zeroed just before and read just after."""
+    import latticeurbanwind_tpu_torch.run.modes as modes
     from latticeurbanwind_tpu_torch.deck import load_deck
     from latticeurbanwind_tpu_torch.io.vtk import read_structured_points
     from latticeurbanwind_tpu_torch.ops.avg_kernel import avg_update
     from latticeurbanwind_tpu_torch.ops.stream_collide import stream_collide
-    from latticeurbanwind_tpu_torch.run.modes import run_deck
 
-    log("== phase 4: the example profile deck at 1.5 m through run_deck")
-    case = work / "profile"
+    case = work / tag
     shutil.copytree(EXAMPLE, case)
     deck = load_deck(case / "conf.luwpf")
-    deck.set_float("cell_size", 1.5)
-    deck.set_text("turb_inflow_enable", "false")
+    if deck.get_raw("turb_inflow_enable") is not None:
+        raise AssertionError("the example deck sets turb_inflow_enable")
+    deck.set_float("cell_size", MAIN_CELL_M)
+    deck.set_text("lbm_storage", storage)
     deck.set_list("angle", [0.0])
+    if not vk:
+        deck.set_text("turb_inflow_enable", "false")
+    purge = {400: 100, 200: 40, 100: 20}[steps]   # the deck: 400 and 100
+    deck.set_int("run_nstep", steps)
+    deck.set_int("unsteady_output", steps // 2)
+    deck.set_int("purge_avg", purge)
     deck.save()
 
-    torch.cuda.reset_peak_memory_stats()
-    stream_collide.launches = 0
-    avg_update.launches = 0
-    t0 = time.perf_counter()
-    results = run_deck(case / "conf.luwpf", device="cuda", quiet=False)
-    wall = time.perf_counter() - t0
-    launches = {"stream_collide": stream_collide.launches,
-                "avg_update": avg_update.launches}
+    # record what the run builds for its inlet (configuration and runtime)
+    # and the case it solves
+    seen = {}
+    real_cfg, real_rt = modes.vk_config_from_deck, modes.build_vk_runtime
+    real_run = modes.run_case
+
+    def cfg_spy(deck_, *, units, downstream_bc):
+        seen.update(units=units, downstream=downstream_bc)
+        return real_cfg(deck_, units=units, downstream_bc=downstream_bc)
+
+    def rt_spy(cfg, flags, u):
+        rt = real_rt(cfg, flags, u)
+        seen.update(cfg=cfg, rt=rt, u0=np.array(u))
+        return rt
+
+    def run_spy(case_, **kw):
+        seen["case"] = case_
+        return real_run(case_, **kw)
+
+    modes.vk_config_from_deck, modes.build_vk_runtime = cfg_spy, rt_spy
+    modes.run_case = run_spy
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        stream_collide.launches = 0
+        stream_collide.launches_vk = 0
+        avg_update.launches = 0
+        t0 = time.perf_counter()
+        results = modes.run_deck(case / "conf.luwpf", device=DEVICE, quiet=False)
+        wall = time.perf_counter() - t0
+        launches = {"stream_collide": stream_collide.launches,
+                    "stream_collide_vk": stream_collide.launches_vk,
+                    "avg_update": avg_update.launches}
+    finally:
+        modes.vk_config_from_deck, modes.build_vk_runtime = real_cfg, real_rt
+        modes.run_case = real_run
     peak = torch.cuda.max_memory_allocated()
 
     (r,) = results
     shape = tuple(r.state.rho.shape)
     names = sorted(f.name for f in r.files)
-    log(f"grid (Z, Y, X) = {shape}, {np.prod(shape) / 1e6:.2f}M cells, "
-        f"storage {r.state.fi.dtype}")
-    log(f"files: {names}")
-    log(f"launches on the main path: {launches}")
-    log(f"solver {r.solver_seconds:.2f} s, {r.timing['mlups']:.0f} MLUPs "
+    log(f"[{tag}] grid (Z, Y, X) = {shape}, {np.prod(shape) / 1e6:.2f}M cells, "
+        f"storage {r.state.fi.dtype}; launches {launches}")
+    log(f"[{tag}] solver {r.solver_seconds:.2f} s, {r.timing['mlups']:.0f} MLUPs "
         f"(RunInfo calibration), averaging phase "
-        f"{r.timing.get('avg_steps_per_second', 0.0):.1f} steps/s, "
-        f"voxelizer {r.timing['voxelize_seconds']:.2f} s, whole run_deck "
-        f"{wall:.1f} s, peak device memory {peak / 2**30:.2f} GiB")
+        f"{r.timing.get('avg_steps_per_second', 0.0):.1f} steps/s, voxelizer "
+        f"{r.timing['voxelize_seconds']:.2f} s, whole run_deck {wall:.1f} s, "
+        f"peak device memory {peak / 2**30:.2f} GiB")
+    if shape != MAIN_SHAPE:
+        raise AssertionError(f"deck grid {shape} != {MAIN_SHAPE}")
 
-    want = ["20260101120000_raw_u-000000200.vtk",
-            "20260101120000_raw_u-000000400.vtk",
-            "20260101120000_raw_rho-000000400.vtk",
-            "20260101120000_avg-000000400.vtk"]
+    half = steps // 2
+    pre = "20260101120000"
+    want = [f"{pre}_raw_u-{half:09d}.vtk", f"{pre}_raw_u-{steps:09d}.vtk",
+            f"{pre}_raw_rho-{steps:09d}.vtk", f"{pre}_avg-{steps:09d}.vtk"]
     missing = [n for n in want if n not in names]
     if missing:
-        raise AssertionError(f"missing outputs {missing}")
-    if launches != {"stream_collide": 400, "avg_update": 50}:
-        raise AssertionError(f"unexpected launch counts {launches}")
-    avg_file = next(f for f in r.files if f.name == want[-1])
-    _, fields = read_structured_points(avg_file)
+        raise AssertionError(f"[{tag}] missing outputs {missing}")
+    n_avg = purge // 2                  # stride 2; the last step is no sample
+    expect = {"stream_collide": steps, "stream_collide_vk": steps if vk else 0,
+              "avg_update": n_avg}
+    if launches != expect:
+        raise AssertionError(f"[{tag}] launch counts {launches} != {expect}")
+    files = {f.name: f for f in r.files}
+    _, fields = read_structured_points(files[want[-1]])
     fluid = fields["fluid"] > 0.5
     for key, arr in fields.items():
         if not np.isfinite(arr[..., fluid]).all():
-            raise AssertionError(f"non-finite {key} at fluid cells")
+            raise AssertionError(f"[{tag}] non-finite {key} at fluid cells")
     u_avg = fields["u_avg"]
     if u_avg.shape[1:] != fluid.shape or not u_avg[1][fluid].mean() < -0.5:
-        raise AssertionError("u_avg is not the expected -y inflow (angle 0)")
-    log(f"_avg VTK: fields {sorted(fields)}, shape {u_avg.shape}, finite at "
-        f"fluid cells, mean v = {float(u_avg[1][fluid].mean()):.3f} m/s")
-    return {"launches": launches, "shape": shape}
+        raise AssertionError(f"[{tag}] u_avg is not the expected -y inflow")
+    log(f"[{tag}] _avg VTK: fields {sorted(fields)}, shape {u_avg.shape}, "
+        f"finite at fluid cells, mean v = {float(u_avg[1][fluid].mean()):.3f} m/s")
+
+    out = {"launches": launches, "solver_seconds": r.solver_seconds,
+           "mlups": r.timing["mlups"], "wall": wall}
+    if not vk:
+        if seen.get("rt") is not None:
+            raise AssertionError(f"[{tag}] the inlet is active with it off")
+        return out
+    rt = seen["rt"]
+    faces = sorted(set(rt.face_of.tolist()))
+    if faces != [0, 1, 2, 3]:
+        raise AssertionError(f"[{tag}] inlet faces {faces} != [0, 1, 2, 3]")
+    # the upstream face: opposite the downstream one ("-y" at angle 0)
+    upstream = {"-x": 1, "+x": 0, "-y": 3, "+y": 2}[seen["downstream"]]
+    u_si = seen["units"].si_u(1.0)
+    sel = rt.face_of == upstream
+    zi, yi, xi = (a[sel] for a in rt.idx)
+    keep = zi < fields["u_avg"].shape[1]        # outputs crop the sponge rows
+    zi, yi, xi = zi[keep], yi[keep], xi[keep]
+    base = seen["u0"][:, zi, yi, xi] * u_si
+    sigma = float(rt.sigma[sel][keep].mean()) * u_si
+    ratios = {}
+    for t in (half, steps):
+        _, raw = read_structured_points(files[f"{pre}_raw_u-{t:09d}.vtk"])
+        du = raw["data"][:, zi, yi, xi] - base
+        ratios[t] = float(np.sqrt((du ** 2).sum(axis=0).mean())) / sigma
+    log(f"[{tag}] inlet: {len(rt.sigma)} points on faces {faces}; upstream "
+        f"face {upstream}: raw u RMS off the initial profile / sigma "
+        f"(sigma = TI |u| = {sigma:.4f} m/s) = "
+        + ", ".join(f"{v:.3f} at t={t}" for t, v in ratios.items()))
+    if not all(0.3 < v < 3.0 for v in ratios.values()):
+        raise AssertionError(f"[{tag}] upstream RMS/sigma {ratios} outside [0.3, 3]")
+    stride = seen["cfg"].update_stride
+    loop = step_loop_breakdown(seen["case"], r.state.fi)
+    log(f"[{tag}] step loop ({len(rt.sigma)} inlet points, {seen['cfg'].nmodes} "
+        f"modes, stride {stride}), ms/step by events: K-SC without sites "
+        f"{loop['sc_novk_ms']:.4f}, with sites {loop['sc_vk_ms']:.4f}, whole "
+        f"step (refresh + K-SC) {loop['step_ms']:.4f}; host enqueue / device "
+        f"ms per call: refresh {loop['refresh_host_ms']:.4f} / "
+        f"{loop['refresh_device_ms']:.4f}, K-SC with sites "
+        f"{loop['sc_vk_host_ms']:.4f} / {loop['sc_vk_device_ms']:.4f}, whole "
+        f"step {loop['step_host_ms']:.4f} / {loop['step_device_ms']:.4f}")
+    out.update(faces=faces, rms_over_sigma=ratios, points=int(len(rt.sigma)),
+               update_stride=stride, step_loop=loop)
+    return out
+
+
+def phase_main_path(work: Path) -> dict:
+    log("== phase 4: the example profile deck at 1.5 m through run_deck")
+    main = run_example_deck(work, "vk-bf16-400", storage="bf16", steps=400, vk=True)
+    off = run_example_deck(work, "novk-bf16-100", storage="bf16", steps=100, vk=False)
+    fp16c = run_example_deck(work, "vk-fp16c-200", storage="fp16c", steps=200,
+                             vk=True)
+    return {"main": main, "paths": {"vk-bf16-400": main, "novk-bf16-100": off,
+                                    "vk-fp16c-200": fp16c}}
 
 
 def main() -> int:
     card = phase_card()
     from latticeurbanwind_tpu_torch.utils.cuda_build import BUILD_DIR
 
-    # the main-path grid of phase 4 (cell 1.5 m on the example deck)
-    main_shape = (118, 424, 424)
-    errs = phase_compare(main_shape)
-    timing = phase_timing(main_shape)
+    errs = phase_compare()
+    timing = phase_timing()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_", dir=BUILD_DIR))
     try:
-        main = phase_main_path(work)
+        deck = phase_main_path(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    if main["shape"] != main_shape:
-        raise AssertionError(f"main path grid {main['shape']} != {main_shape}")
 
+    launches = deck["main"]["launches"]
+    by_path = {tag: p["launches"] for tag, p in deck["paths"].items()}
     record = {"kernels": [
         {"name": "stream_collide", "route": "cuda",
          "source": "latticeurbanwind_tpu_torch/csrc/stream_collide.cu",
          "replaces": "latticeurbanwind_tpu/ops/stream_collide.py:408",
-         "launches": main["launches"]["stream_collide"],
-         "max_abs_err": errs["stream_collide"],
-         "ms": timing["sc_ms"], "plain_ms": timing["sc_plain"]},
+         "launches": launches["stream_collide"],
+         "launches_with_vk_sites": launches["stream_collide_vk"],
+         "max_abs_err": max(errs["stream_collide"].values()),
+         "ms": timing["sc_ms"], "plain_ms": timing["sc_plain"],
+         "launches_by_path": {k: v["stream_collide"] for k, v in by_path.items()},
+         "max_abs_err_by_config": errs["stream_collide"],
+         "times_by_config": {k: v for k, v in timing["configs"].items()
+                             if k.startswith("K-SC")},
+         "step_loop_by_path": {k: v["step_loop"] for k, v in deck["paths"].items()
+                               if "step_loop" in v}},
         {"name": "avg_update", "route": "cuda",
          "source": "latticeurbanwind_tpu_torch/csrc/avg_update.cu",
          "replaces": "latticeurbanwind_tpu/ops/avg_kernel.py:85",
-         "launches": main["launches"]["avg_update"],
-         "max_abs_err": errs["avg_update"],
-         "ms": timing["av_ms"], "plain_ms": timing["av_plain"]},
+         "launches": launches["avg_update"],
+         "max_abs_err": max(errs["avg_update"].values()),
+         "ms": timing["av_ms"], "plain_ms": timing["av_plain"],
+         "launches_by_path": {k: v["avg_update"] for k, v in by_path.items()},
+         "max_abs_err_by_config": errs["avg_update"],
+         "times_by_config": {k: v for k, v in timing["configs"].items()
+                             if k.startswith("K-AVG")}},
     ]}
     log(card["smi"])
     print(json.dumps(record), flush=True)

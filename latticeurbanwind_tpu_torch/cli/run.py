@@ -5,8 +5,10 @@
 Counterpart of `latticeurbanwind_tpu/cli/run.py`.  There is no --impl
 switch: the run uses the first CUDA device when there is one (the
 hand-written kernels, built on first use) and the CPU otherwise (their
-plain torch versions); `--device` picks the device explicitly.  Other deck
-kinds raise `NotImplementedError` naming their ROADMAP item.
+plain torch versions); `--device` picks the device explicitly.  The deck
+runs as written, the VK synthetic-turbulence inlet and every `lbm_storage`
+included.  Other deck kinds raise `NotImplementedError` naming their
+ROADMAP item.
 """
 
 from __future__ import annotations

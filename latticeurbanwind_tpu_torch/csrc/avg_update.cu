@@ -10,19 +10,23 @@
 // the moments of their own frozen equilibria -- and then updates the Welford
 // accumulators mean_u (3,Z,Y,X), m2_u (the variance trace) and mean_rho in
 // place with the inv_n = 1/(n+1) the host passes in.  Solid cells hold their
-// accumulators.  Storage is f32 or bf16 in the (19, Z, Y, X) SoA layout.
+// accumulators.  Storage is any codec of codec.cuh (f32, bf16, f16, fp16c;
+// the f16/fp16c decoders are the `dec` of the Pallas kernel's _make_codec)
+// in the (19, Z, Y, X) SoA layout.
 //
 // Bound on the H100: device memory.  A sample reads 19 DDFs and the flags
-// (39 B for bf16, 77 B for f32 with the neighbour reads served by L1/L2) and
-// reads and writes 5 f32 accumulators (40 B): ~80-120 B per cell.
+// (39 B for the 2-byte storages, 77 B for f32 with the neighbour reads served
+// by L1/L2) and reads and writes 5 f32 accumulators (40 B): ~80-120 B per
+// cell.
 //
 // Design: the same coalesced x-fastest thread layout and pull as the
 // stream-collide kernel; fluid cells read only the pulled values (plus the
 // own opposite where a source is solid), TYPE_E cells only their own 19.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "codec.cuh"
 
 namespace {
 
@@ -30,19 +34,6 @@ constexpr uint8_t kTypeS = 0x01;
 constexpr uint8_t kTypeE = 0x02;
 constexpr float kCs = 0.57735027f;
 constexpr int kThreads = 128;
-
-template <typename S>
-__device__ __forceinline__ float load(const S* __restrict__ p, long long i);
-template <>
-__device__ __forceinline__ float load<float>(const float* __restrict__ p,
-                                             long long i) {
-  return __ldg(p + i);
-}
-template <>
-__device__ __forceinline__ float load<__nv_bfloat16>(
-    const __nv_bfloat16* __restrict__ p, long long i) {
-  return __bfloat162float(p[i]);
-}
 
 __device__ __forceinline__ float clamp_cs(float v) {
   return fminf(fmaxf(v, -kCs), kCs);
@@ -52,9 +43,10 @@ __device__ __forceinline__ int wrap(int i, int n) {
   return i < 0 ? i + n : (i >= n ? i - n : i);
 }
 
-template <typename S>
+template <class C>
 __global__ void __launch_bounds__(kThreads)
-avg_update_kernel(const S* __restrict__ fi, const uint8_t* __restrict__ flags,
+avg_update_kernel(const typename C::T* __restrict__ fi,
+                  const uint8_t* __restrict__ flags,
                   const float* __restrict__ dyn, float inv_n,
                   float* __restrict__ mean_u, float* __restrict__ m2_u,
                   float* __restrict__ mean_rho, int Z, int Y, int X) {
@@ -75,18 +67,18 @@ avg_update_kernel(const S* __restrict__ fi, const uint8_t* __restrict__ flags,
 
   const bool eq = (fl & kTypeE) != 0;
   float f[19];
-  f[0] = load(fi, n);
+  f[0] = C::load(fi, n);
 #pragma unroll
   for (int d = 1; d < 19; ++d) {
     if (eq) {  // TYPE_E: the cell's own frozen equilibria
-      f[d] = load(fi, (long long)d * N + n);
+      f[d] = C::load(fi, (long long)d * N + n);
     } else {
       const int xs = wrap(x - CX[d], X);
       const int ys = wrap(y - CY[d], Y);
       const int zs = wrap(z - CZ[d], Z);
       const long long src = ((long long)zs * Y + ys) * X + xs;
-      f[d] = (flags[src] & kTypeS) ? load(fi, (long long)OPP[d] * N + n)
-                                   : load(fi, (long long)d * N + src);
+      f[d] = (flags[src] & kTypeS) ? C::load(fi, (long long)OPP[d] * N + n)
+                                   : C::load(fi, (long long)d * N + src);
     }
   }
 
@@ -128,22 +120,23 @@ avg_update_kernel(const S* __restrict__ fi, const uint8_t* __restrict__ flags,
   mean_rho[n] = mr + (rho - mr) * inv_n;
 }
 
-template <typename S>
+template <class C>
 cudaError_t launch(const void* fi, const uint8_t* flags, const float* dyn,
                    float inv_n, float* mean_u, float* m2_u, float* mean_rho,
                    int Z, int Y, int X, cudaStream_t stream) {
   const long long cells = (long long)Z * Y * X;
   const unsigned int blocks = (unsigned int)((cells + kThreads - 1) / kThreads);
-  avg_update_kernel<S><<<blocks, kThreads, 0, stream>>>(
-      static_cast<const S*>(fi), flags, dyn, inv_n, mean_u, m2_u, mean_rho, Z,
-      Y, X);
+  avg_update_kernel<C><<<blocks, kThreads, 0, stream>>>(
+      static_cast<const typename C::T*>(fi), flags, dyn, inv_n, mean_u, m2_u,
+      mean_rho, Z, Y, X);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// storage: 0 = f32, 1 = bf16.  Launches on `stream`, does not synchronise,
-// and returns cudaGetLastError() after the launch (0 on success).
+// storage: 0 = f32, 1 = bf16, 2 = f16 (FP16S), 3 = fp16c.  Launches on
+// `stream`, does not synchronise, and returns cudaGetLastError() after the
+// launch (0 on success).
 extern "C" int luw_avg_update(const void* fi, const void* flags,
                               const void* dyn, float inv_n, void* mean_u,
                               void* m2_u, void* mean_rho, int Z, int Y, int X,
@@ -155,12 +148,14 @@ extern "C" int luw_avg_update(const void* fi, const void* flags,
   auto* mr = static_cast<float*>(mean_rho);
   const auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (storage == 0) {
-    err = launch<float>(fi, fl, dy, inv_n, mu, m2, mr, Z, Y, X, st);
-  } else if (storage == 1) {
-    err = launch<__nv_bfloat16>(fi, fl, dy, inv_n, mu, m2, mr, Z, Y, X, st);
-  } else {
-    err = cudaErrorInvalidValue;
+#define LUW_AVG_ARGS fi, fl, dy, inv_n, mu, m2, mr, Z, Y, X, st
+  switch (storage) {
+    case 0: err = launch<luw::CodecF32>(LUW_AVG_ARGS); break;
+    case 1: err = launch<luw::CodecBF16>(LUW_AVG_ARGS); break;
+    case 2: err = launch<luw::CodecF16>(LUW_AVG_ARGS); break;
+    case 3: err = launch<luw::CodecFP16C>(LUW_AVG_ARGS); break;
+    default: err = cudaErrorInvalidValue;
   }
+#undef LUW_AVG_ARGS
   return (int)err;
 }

@@ -45,9 +45,14 @@ def encode_fp16c(x: torch.Tensor) -> torch.Tensor:
     """fp32 -> FP16C (1-4-11, exp-15) bit patterns, RNE with denormals.
 
     Same integer formula as the JAX package's `encode_fp16c`; overflow
-    saturates to the largest finite code."""
-    b = x.to(torch.float32).contiguous().view(torch.int32)
-    b = b + 0x00000800                       # round-to-nearest-even
+    saturates to the largest finite code.  NaN (any payload) saturates to
+    sign | 0x7FFF, the Pallas kernel codec's side: the bare formula would
+    wrap payloads at or above 0x7FFFF800 to a signed zero.  The device codec
+    (csrc/codec.cuh) computes the same bits.  The bit patterns go through
+    int16 (the integer type every backend supports) and come back as uint16.
+    """
+    b0 = x.to(torch.float32).contiguous().view(torch.int32)
+    b = b0 + 0x00000800                      # round-to-nearest-even
     e = (b >> 23) & 0xFF
     m = b & 0x007FFFFF
     sgn = (b >> 16) & 0x8000
@@ -56,12 +61,14 @@ def encode_fp16c(x: torch.Tensor) -> torch.Tensor:
     zero = torch.zeros_like(b)
     h = sgn | torch.where(e > 112, norm, torch.where(e > 100, den, zero))
     h = torch.where(e > 127, sgn | 0x7FFF, h)
-    return h.to(torch.uint16)
+    h = torch.where((b0 & 0x7F800000) == 0x7F800000,
+                    ((b0 >> 16) & 0x8000) | 0x7FFF, h)
+    return h.to(torch.int16).view(torch.uint16)
 
 
 def decode_fp16c(x: torch.Tensor) -> torch.Tensor:
     """FP16C bit patterns -> fp32 (reference half_to_float_custom)."""
-    b = x.to(torch.int32)
+    b = x.view(torch.int16).to(torch.int32) & 0xFFFF
     e = (b >> 11) & 0xF
     m = (b & 0x7FF) << 12
     # leading-zero count of the denormal mantissa via the float32 exponent

@@ -6,6 +6,12 @@ steps is n launches of `ops.stream_collide.stream_collide`, each pulling
 from one DDF buffer into the other, and the two buffers swap by reference
 after every step.  rho/u in the returned state are stale (pure-DDF
 stepping): `lbm.fields.update_fields` refreshes them at events.
+
+A pre-step hook (the VK inlet, `bc.vk_inlet.make_vk_pre_step`) runs before
+every step as in the JAX loop (`post=False`): at step t its `.ddf` variant
+refreshes the FaceBC targets with realization t, and the step then reads
+them both as the nudge targets and as the velocities of the kernel's inlet
+sites (the hook's `.kernel_spec`).
 """
 
 from __future__ import annotations
@@ -34,33 +40,47 @@ def make_runner(config: StepConfig, forcing: Forcing = Forcing(), *,
     DDFs; the incoming state's `fi` becomes the spare and must not be read
     afterwards.  One runner serves one simulation: `run.reset()` forgets the
     carried FaceBC and the spare buffer before a runner is reused.
+
+    `pre_step` is a hook with a pure-DDF variant `.ddf(fbc, t, aux) ->
+    (fbc, aux)` (the VK inlet); `t0` is the global index of the first step,
+    and the variant's `.init_aux(t0)` re-seeds its carried anchors at every
+    call, as the JAX runner does per chunk.  The FaceBC it refreshes is
+    carried across calls.
     """
+    pre_ddf = None
     if pre_step is not None:
-        raise NotImplementedError(
-            "pre-step hooks (the VK inlet) are not ported yet (ROADMAP "
-            "module item 7 and kernel item K6)")
-    check_config(config, forcing)
+        pre_ddf = getattr(pre_step, "ddf", None)
+        if pre_ddf is None:
+            raise NotImplementedError(
+                "a pre-step hook without a pure-DDF variant (.ddf) needs the "
+                "JAX package's reference tier, which the port does not carry")
+    vk_spec = getattr(pre_ddf, "kernel_spec", None)
+    check_config(config, forcing, vk_spec)
     dev = torch.device(device)
-    has_forcing = (forcing.nudge_sigma is not None
-                   or forcing.sponge_sigma_z is not None)
+    needs_fbc = (forcing.nudge_sigma is not None
+                 or forcing.sponge_sigma_z is not None or vk_spec is not None)
     cell = {"fbc": None, "init": False, "spare": None}
 
     def run(state: LBMState, dyn: DynParams, t0: int = 0,
             n_steps: int = 1) -> LBMState:
-        del t0          # per-step hooks (the VK inlet) would read it
         if not cell["init"]:
-            cell["fbc"] = build_face_bc(state.u) if has_forcing else None
+            cell["fbc"] = build_face_bc(state.u) if needs_fbc else None
             cell["init"] = True
+        aux = pre_ddf.init_aux(t0) if hasattr(pre_ddf, "init_aux") else None
+        fbc = cell["fbc"]
         row = dyn_row(dyn, dev)
         cur = state.fi
         spare = cell["spare"]
         if (spare is None or spare.shape != cur.shape or spare.dtype != cur.dtype
                 or spare.data_ptr() == cur.data_ptr()):
             spare = torch.empty_like(cur)
-        for _ in range(int(n_steps)):
-            stream_collide(cur, state.flags, row, config, forcing, cell["fbc"],
-                           out=spare)
+        for i in range(int(n_steps)):
+            if pre_ddf is not None:
+                fbc, aux = pre_ddf(fbc, int(t0) + i, aux)
+            stream_collide(cur, state.flags, row, config, forcing, fbc,
+                           out=spare, vk=vk_spec)
             cur, spare = spare, cur
+        cell["fbc"] = fbc
         cell["spare"] = spare
         return state._replace(fi=cur)
 

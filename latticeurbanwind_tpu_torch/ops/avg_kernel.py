@@ -9,7 +9,10 @@ accumulators (`update_fields` + `welford_update` would re-accumulate the
 stale value there; outputs mask solids either way).
 
 `avg_update` is the entry point: CPU tensors run `avg_update_plain`, CUDA
-tensors launch `csrc/avg_update.cu` or raise.
+tensors launch `csrc/avg_update.cu` or raise.  Every storage (f32, bf16,
+f16, fp16c) is taken; the plain version decodes through
+`lbm.state.decode_ddf`, the kernel through the device codecs of
+`csrc/codec.cuh`, which give the same bits.
 """
 
 from __future__ import annotations
@@ -28,9 +31,7 @@ def check_config(config: StepConfig) -> None:
             "the averaging pass is ported for non-thermal configurations "
             "without the wall models (ROADMAP kernel items K4 and K7)")
     if config.storage not in _STORAGE_CODE:
-        raise NotImplementedError(
-            f"{config.storage} storage is not ported yet (ROADMAP kernel "
-            "item K5, the f16/fp16c codecs)")
+        raise ValueError(f"unknown storage {config.storage!r}")
 
 
 def avg_update_plain(fi: torch.Tensor, flags: torch.Tensor, dyn: torch.Tensor,

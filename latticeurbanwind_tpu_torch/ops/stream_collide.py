@@ -10,9 +10,20 @@ come from the static `FaceBC` built once from the initial velocity field.
 `stream_collide_plain` (torch ops with `torch.roll` pulls); a CUDA tensor
 launches `csrc/stream_collide.cu` or raises.  There is no fallback between
 the two.  Both take the same configurations: SRT + Smagorinsky LES with
-equilibrium boundaries, f32 or bf16 storage, volume force (global force +
-Coriolis) on or off, buffer nudging and the top sponge.  The rest raises
-`NotImplementedError` naming the ROADMAP kernel item that ports it.
+equilibrium boundaries, f32, bf16, f16 or fp16c storage, volume force
+(global force + Coriolis) on or off, buffer nudging, the top sponge, and the
+VK inlet sites of `bc.vk_inlet` (`vk`, the hook's `kernel_spec`).  The rest
+raises `NotImplementedError` naming the ROADMAP kernel item that ports it.
+
+VK inlet sites (Pallas `make_pallas_step` :915-978): each site (kind,
+field) overwrites the step's encoded outputs on one boundary face with
+enc(m * feq_vk(u) + (1 - m) * dec(out)), where u is the FaceBC field's
+velocity at the face cell, feq_vk the DDF-shifted equilibrium at rho = 1
+and m the site's mask (0/1, f32).  Kinds and their fields: lane0/uw (x=0)
+and laneL/ue (x=X-1) with masks (Z,1,Y), row0/us (y=0) and rowL/un
+(y=Y-1) with masks (Z,1,X), planeL/ut (z=Z-1) and plane0/ub (z=0) with
+masks (Y,X).  Planes apply first, then rows, then lanes, each reading back
+what the earlier ones wrote, so the lanes own the corners.
 """
 
 from __future__ import annotations
@@ -27,7 +38,11 @@ from ..lbm.state import (
     storage_dtype,
 )
 
-_STORAGE_CODE = {"f32": 0, "bf16": 1}
+_STORAGE_CODE = {"f32": 0, "bf16": 1, "f16": 2, "fp16c": 3}
+
+# VK site kind -> (FaceBC field, application rank): planes, rows, lanes
+VK_SITES = {"planeL": ("ut", 0), "plane0": ("ub", 0), "row0": ("us", 1),
+            "rowL": ("un", 1), "lane0": ("uw", 2), "laneL": ("ue", 2)}
 
 
 class FaceBC(NamedTuple):
@@ -72,12 +87,14 @@ def check_config(config: StepConfig, forcing: Forcing, vk=None) -> None:
         raise NotImplementedError(
             "thermal D3Q7 is not ported yet (ROADMAP kernel item K7)")
     if config.storage not in _STORAGE_CODE:
-        raise NotImplementedError(
-            f"{config.storage} storage is not ported yet (ROADMAP kernel "
-            "item K5, the f16/fp16c codecs)")
+        raise ValueError(f"unknown storage {config.storage!r}")
     if vk is not None:
-        raise NotImplementedError(
-            "VK inlet sites are not ported yet (ROADMAP kernel item K6)")
+        for kind, field in vk["sites"]:
+            if VK_SITES.get(kind, (None,))[0] != field:
+                raise ValueError(f"VK site ({kind!r}, {field!r}) is not one "
+                                 f"of {sorted(VK_SITES.items())}")
+            if field not in vk["masks"]:
+                raise ValueError(f"VK site {kind!r} has no mask {field!r}")
     has_forcing = (forcing.nudge_sigma is not None
                    or forcing.sponge_sigma_z is not None)
     if not config.volume_force and has_forcing:
@@ -103,19 +120,69 @@ def _cdot(c, a, b, d):
     return out
 
 
+def _raw(t: torch.Tensor) -> torch.Tensor:
+    """fp16c bit patterns as int16 (selects and copies of uint16 tensors are
+    not supported on every backend); other storages as they are."""
+    return t.view(torch.int16) if t.dtype == torch.uint16 else t
+
+
+def feq_vk(ux: torch.Tensor, uy: torch.Tensor, uz: torch.Tensor) -> list:
+    """DDF-shifted D3Q19 equilibria at rho = 1 (the inlet's pinned boundary
+    density), in the Pallas step's evaluation order."""
+    c3 = -3.0 * (ux * ux + uy * uy + uz * uz)
+    fe = [None] * 19
+    fe[0] = (1.0 / 3.0) * (0.5 * c3)
+    for d in range(1, 19, 2):
+        w = float(W19[d])
+        cu = 3.0 * _cdot(C19[d], ux, uy, uz)
+        b = w * (0.5 * (cu * cu + c3))
+        fe[d] = b + w * cu
+        fe[int(OPP19[d])] = b - w * cu
+    return fe
+
+
+def _site_slab(out: torch.Tensor, fbc: FaceBC, kind: str, field: str, mask):
+    """(output slab view (19, R, C), velocity components (3 x (R, C)), mask
+    (R, C)) of one VK site."""
+    u = getattr(fbc, field)
+    if kind in ("planeL", "plane0"):
+        slab = out[:, -1 if kind == "planeL" else 0]
+        return slab, (u[0], u[1], u[2]), mask
+    if kind in ("row0", "rowL"):
+        slab = out[:, :, -1 if kind == "rowL" else 0]
+    else:
+        slab = out[:, :, :, -1 if kind == "laneL" else 0]
+    return slab, (u[:, 0], u[:, 1], u[:, 2]), mask[:, 0]
+
+
+def apply_vk_sites(out: torch.Tensor, fbc: FaceBC, vk, storage: str) -> None:
+    """The VK site epilogue on whole face slabs of the encoded step output
+    `out` (19,Z,Y,X), in place: planes, then rows, then lanes."""
+    sites = sorted(vk["sites"], key=lambda s: VK_SITES[s[0]][1])
+    for kind, field in sites:
+        slab, (ux, uy, uz), m = _site_slab(out, fbc, kind, field,
+                                           vk["masks"][field])
+        fe = torch.stack(feq_vk(ux, uy, uz))
+        cur = decode_ddf(slab, storage)
+        new = encode_ddf(m * fe + (1.0 - m) * cur, storage)
+        _raw(slab).copy_(_raw(new))
+
+
 def stream_collide_plain(fi: torch.Tensor, flags: torch.Tensor,
                          dyn: torch.Tensor, config: StepConfig,
                          forcing: Forcing,
-                         fbc: Optional[FaceBC] = None) -> torch.Tensor:
+                         fbc: Optional[FaceBC] = None, vk=None) -> torch.Tensor:
     """One step in plain torch: returns the post-collision DDFs (19,Z,Y,X) in
-    storage dtype.  `dyn` is the (8,) row of `lbm.state.dyn_row`.  Same
-    stages and evaluation order as the kernel and the Pallas step."""
-    check_config(config, forcing)
+    storage dtype.  `dyn` is the (8,) row of `lbm.state.dyn_row`; `vk` the
+    inlet site spec.  Same stages and evaluation order as the kernel and the
+    Pallas step."""
+    check_config(config, forcing, vk)
     use_force = config.volume_force
     has_nudge = forcing.nudge_sigma is not None
     has_sponge = forcing.sponge_sigma_z is not None
-    if (has_nudge or has_sponge) and fbc is None:
-        raise ValueError("nudging/sponge need the FaceBC targets (fbc)")
+    if (has_nudge or has_sponge or vk is not None) and fbc is None:
+        raise ValueError("nudging, sponge and VK sites need the FaceBC "
+                         "targets (fbc)")
     f_prev = decode_ddf(fi, config.storage)
     solid = (flags & TYPE_S) != 0
     eqbc = (flags & TYPE_E) != 0
@@ -220,13 +287,17 @@ def stream_collide_plain(fi: torch.Tensor, flags: torch.Tensor,
     one_m_w = 1.0 - w_eff
     cfin = 1.0 - 0.5 * w_eff
     out = torch.empty_like(fi)
-    zero = torch.zeros((), dtype=fi.dtype, device=fi.device)
+    raw_out, raw_in = _raw(out), _raw(fi)
+    zero = torch.zeros((), dtype=raw_out.dtype, device=fi.device)
     for d in range(19):
         coll = one_m_w * f[d] + w_eff * feq[d]
         if use_force:
             coll = coll + cfin * fin[d]
-        post = torch.where(eqbc, fi[d], encode_ddf(coll, config.storage))
-        out[d] = torch.where(solid, zero, post)
+        post = torch.where(eqbc, raw_in[d],
+                           _raw(encode_ddf(coll, config.storage)))
+        raw_out[d] = torch.where(solid, zero, post)
+    if vk is not None:
+        apply_vk_sites(out, fbc, vk, config.storage)
     return out
 
 
@@ -246,8 +317,10 @@ def stream_collide(fi: torch.Tensor, flags: torch.Tensor, dyn: torch.Tensor,
                    fbc: Optional[FaceBC] = None, *,
                    out: Optional[torch.Tensor] = None, vk=None) -> torch.Tensor:
     """One time step from `fi` into `out` (allocated when None; must not
-    alias `fi`).  CPU tensors run the plain version; CUDA tensors launch
-    K-SC and count the launch in `stream_collide.launches`."""
+    alias `fi`), with the VK inlet sites of `vk` when given.  CPU tensors
+    run the plain version; CUDA tensors launch K-SC and count the launch in
+    `stream_collide.launches` (and, with sites, in
+    `stream_collide.launches_vk` too)."""
     check_config(config, forcing, vk)
     if fi.device.type not in ("cpu", "cuda"):
         raise NotImplementedError(f"no stream-collide kernel for {fi.device}")
@@ -256,7 +329,8 @@ def stream_collide(fi: torch.Tensor, flags: torch.Tensor, dyn: torch.Tensor,
     if out.data_ptr() == fi.data_ptr():
         raise ValueError("out must not alias fi (the kernel pulls from fi)")
     if fi.device.type == "cpu":
-        out.copy_(stream_collide_plain(fi, flags, dyn, config, forcing, fbc))
+        _raw(out).copy_(_raw(stream_collide_plain(fi, flags, dyn, config,
+                                                  forcing, fbc, vk)))
         return out
 
     dev = fi.device
@@ -269,6 +343,7 @@ def stream_collide(fi: torch.Tensor, flags: torch.Tensor, dyn: torch.Tensor,
     has_sponge = forcing.sponge_sigma_z is not None
     ptr = {k: None for k in ("nsig", "nface", "uw", "ue", "us", "un", "ut",
                              "ub", "sz")}
+    mptr = {k: None for k in FaceBC._fields}
     if has_nudge:
         _check_tensor("nudge_sigma", forcing.nudge_sigma, torch.float32,
                       (Z, Y, X), dev)
@@ -280,14 +355,23 @@ def stream_collide(fi: torch.Tensor, flags: torch.Tensor, dyn: torch.Tensor,
         _check_tensor("sponge_sigma_z", forcing.sponge_sigma_z, torch.float32,
                       (Z,), dev)
         ptr["sz"] = forcing.sponge_sigma_z.data_ptr()
-    if has_nudge or has_sponge:
+    if has_nudge or has_sponge or vk is not None:
         if fbc is None:
-            raise ValueError("nudging/sponge need the FaceBC targets (fbc)")
+            raise ValueError("nudging, sponge and VK sites need the FaceBC "
+                             "targets (fbc)")
         for k, shp in (("uw", (Z, 3, Y)), ("ue", (Z, 3, Y)), ("us", (Z, 3, X)),
                        ("un", (Z, 3, X)), ("ut", (3, Y, X)), ("ub", (3, Y, X))):
             t = getattr(fbc, k)
             _check_tensor(f"fbc.{k}", t, torch.float32, shp, dev)
             ptr[k] = t.data_ptr()
+    if vk is not None:
+        mshape = {"uw": (Z, 1, Y), "ue": (Z, 1, Y), "us": (Z, 1, X),
+                  "un": (Z, 1, X), "ut": (Y, X), "ub": (Y, X)}
+        for _kind, field in vk["sites"]:
+            m = vk["masks"][field]
+            _check_tensor(f"vk mask {field}", m, torch.float32, mshape[field],
+                          dev)
+            mptr[field] = m.data_ptr()
 
     from ..utils.cuda_build import load_library
 
@@ -298,14 +382,18 @@ def stream_collide(fi: torch.Tensor, flags: torch.Tensor, dyn: torch.Tensor,
         rc = lib.luw_stream_collide(
             fi.data_ptr(), out.data_ptr(), flags.data_ptr(), dyn.data_ptr(),
             ptr["nsig"], ptr["nface"], ptr["uw"], ptr["ue"], ptr["us"],
-            ptr["un"], ptr["ut"], ptr["ub"], ptr["sz"], Z, Y, X,
+            ptr["un"], ptr["ut"], ptr["ub"], ptr["sz"], mptr["uw"],
+            mptr["ue"], mptr["us"], mptr["un"], mptr["ut"], mptr["ub"], Z, Y, X,
             _STORAGE_CODE[config.storage], int(config.volume_force),
             int(has_nudge), int(has_sponge), int(forcing.nudge_vertical),
             int(config.subgrid), config.omega, tau0, tau0 * tau0, stream)
     if rc != 0:
         raise RuntimeError(f"luw_stream_collide launch failed: CUDA error {rc}")
     stream_collide.launches += 1
+    if vk is not None:
+        stream_collide.launches_vk += 1
     return out
 
 
 stream_collide.launches = 0
+stream_collide.launches_vk = 0

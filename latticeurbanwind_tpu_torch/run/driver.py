@@ -78,6 +78,7 @@ class SolverCase:
     settings: RunSettings = field(default_factory=RunSettings)
     origin_shift: Tuple[float, float, float] = (0.0, 0.0, 0.0)
     ngpu: Tuple[int, int, int] = (1, 1, 1)
+    pre_step: Optional[object] = None  # callable (state, t) -> state (VK inlet)
 
 
 @dataclass
@@ -134,7 +135,7 @@ def run_case(case: SolverCase, *, quiet: bool = False) -> RunResult:
     files: List[Path] = []
 
     advance, impl_name = make_runner(case.config, case.forcing, shape=shape,
-                                     device=device)
+                                     device=device, pre_step=case.pre_step)
     if unsteady and s.snapshots and not quiet:
         print("| Snapshots       | PNG snapshots are not written by the "
               "PyTorch port (ROADMAP module item 10)")

@@ -4,10 +4,12 @@ Counterpart of `latticeurbanwind_tpu/run/modes.py::run_profile_mode` and
 `run_deck` (reference: setup.cpp:5762-6153): per-angle cases with inflow
 from a cubic-interpolated AGL wind profile (wind_bc/profile.dat), optional
 DEM ground from proj_temp/interpolated_dem.csv, the downstream face from the
-angle, flux correction, and `ANG_<a>_` VTK prefixes when multi-angle.
+angle, flux correction, the von Kármán synthetic-turbulence inlet (on
+unless the deck sets `turb_inflow_enable = false`), and `ANG_<a>_` VTK
+prefixes when multi-angle.
 
-Only `.luwpf` decks run in this port; `.luw`, `.luwdg`, `case_parallel` and
-an active VK inlet raise `NotImplementedError` naming the ROADMAP item.
+Only `.luwpf` decks run in this port; `.luw`, `.luwdg` and `case_parallel`
+raise `NotImplementedError` naming the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import numpy as np
 import torch
 
 from ..bc.flux import apply_flux_correction
+from ..bc.vk_inlet import build_vk_runtime, make_vk_pre_step, vk_config_from_deck
 from ..bc.profile import (
     ProfileTable, direction_from_angle, downstream_from_direction,
     load_profile_dat, profile_boundary_fields,
@@ -156,10 +159,6 @@ def run_profile_mode(deck_path: Path | str, *,
     if deck.get_bool("case_parallel", False):
         raise NotImplementedError(
             "case_parallel is not ported yet (ROADMAP module item 10)")
-    if deck.get_bool("turb_inflow_enable", True):
-        raise NotImplementedError(
-            "the VK synthetic-turbulence inlet is not ported yet (ROADMAP "
-            "module item 7, kernel item K6); set turb_inflow_enable = false")
     angles = deck.get_float_list("angle")
     if not angles:
         raise ValueError("profile mode requires angle=[...] in the deck")
@@ -266,6 +265,14 @@ def run_profile_mode(deck_path: Path | str, *,
             _specialize_force(config, forcing, omega_cor), deck, plan.cell_m)
         state = make_initial_state(shape, config=config, u=u, flags=flags,
                                    device=dev)
+        pre_step = None
+        vk_cfg = vk_config_from_deck(deck, units=units, downstream_bc=downstream)
+        vk_rt = build_vk_runtime(vk_cfg, flags, u)
+        if vk_rt is not None:
+            pre_step = make_vk_pre_step(vk_cfg, vk_rt, device=dev)
+            if not quiet:
+                print(f"| VK inlet        | active: {len(vk_rt.sigma)} points, "
+                      f"{vk_cfg.nmodes} modes, faces={sorted(set(vk_rt.face_of.tolist()))}")
         dyn = DynParams(force=torch.zeros(3),
                         omega_coriolis=torch.as_tensor(omega_cor, dtype=torch.float32))
         prefix = "" if single else f"ANG_{_format_tag(angle)}_"
@@ -273,7 +280,7 @@ def run_profile_mode(deck_path: Path | str, *,
             config=config, forcing=forcing, state=state, dyn=dyn, units=units,
             cell_m=plan.cell_m, parent=parent, datetime=datetime_tag,
             vtk_prefix=prefix, nz_out=plan.nz_core if plan.sponge_extended else 0,
-            settings=settings, ngpu=ngpu,
+            settings=settings, ngpu=ngpu, pre_step=pre_step,
         )
         if not quiet:
             print(f"| Profile case    | {idx + 1}/{len(angles)} angle={angle} deg "

@@ -1,15 +1,20 @@
 """Build and load the port's CUDA kernels (nvcc + ctypes).
 
-The `.cu` sources under `latticeurbanwind_tpu_torch/csrc/` are compiled on
-first use into one shared library with a plain C interface:
+The sources under `latticeurbanwind_tpu_torch/csrc/` are compiled on first
+use into one shared library with a plain C interface.  Every `.cu` file is
+one translation unit, compiled by its own nvcc process, all started
+together; the shared headers (`.cuh`) are only included:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o _build/libluwtorch_<sha256>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC \
+         -Xptxas -v -I csrc -c -o _build/<digest>/<name>.o csrc/<name>.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \
+         -o _build/libluwtorch_<digest>.so _build/<digest>/*.o
 
-The file name carries the SHA-256 of the sources, so an edited kernel
-rebuilds and an unchanged one loads the existing library.  A missing nvcc
-or a failed build raises with nvcc's output; nothing falls back.  Nothing
-here runs at import time: the CPU tests import every module and never build.
+The digest is the SHA-256 of every `.cu` and `.cuh`, so an edited kernel or
+header rebuilds and an unchanged tree loads the existing library.  A missing
+nvcc or a failed build raises with nvcc's output; nothing falls back.
+Nothing here runs at import time: the CPU tests import every module and
+never build.
 """
 
 from __future__ import annotations
@@ -20,37 +25,50 @@ import hashlib
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                 "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 
 # argument types of every C entry point: pointers and the stream as void*
 SIGNATURES = {
     # fa, fb, flags, dyn, nudge_sigma, nudge_face, uw, ue, us, un, ut, ub,
-    # sponge_z, Z, Y, X, storage, volume_force, has_nudge, has_sponge,
-    # nudge_vertical, subgrid, omega, tau0, tau0_sq, stream
-    "luw_stream_collide": [_P] * 13 + [_I] * 9 + [_F] * 3 + [_P],
+    # sponge_z, mask_uw, mask_ue, mask_us, mask_un, mask_ut, mask_ub,
+    # Z, Y, X, storage, volume_force, has_nudge, has_sponge, nudge_vertical,
+    # subgrid, omega, tau0, tau0_sq, stream
+    "luw_stream_collide": [_P] * 19 + [_I] * 9 + [_F] * 3 + [_P],
     # fi, flags, dyn, inv_n, mean_u, m2_u, mean_rho, Z, Y, X, storage, stream
     "luw_avg_update": [_P, _P, _P, _F, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x (f32), out (storage), n, storage, stream
+    "luw_codec_encode": [_P, _P, _L, _I, _P],
+    # bits (storage), out (f32), n, storage, stream
+    "luw_codec_decode": [_P, _P, _L, _I, _P],
 }
 
 
 def sources() -> list[Path]:
-    return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
+    """The translation units passed to nvcc."""
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def headers() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cuh"))
 
 
 def source_digest() -> str:
     h = hashlib.sha256()
-    for p in sources():
+    for p in sources() + headers():
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()
@@ -68,24 +86,42 @@ def find_nvcc() -> str:
                        "the CUDA kernels cannot be built")
 
 
-def build() -> tuple[Path, str]:
-    """(library path, nvcc's output) — builds only when the library for the
-    current sources does not exist yet; the output is then the build log."""
-    lib = BUILD_DIR / f"libluwtorch_{source_digest()}.so"
-    log = lib.with_suffix(".log")
-    if lib.exists():
-        return lib, log.read_text() if log.exists() else ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+def _run(cmd: list[str]) -> str:
     proc = subprocess.run(cmd, capture_output=True, text=True)
     out = proc.stdout + proc.stderr
     if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
                            f"{' '.join(cmd)}\n{out}")
-    log.write_text(out)
-    os.replace(tmp, lib)          # atomic: a reader never sees half a file
+    return out
+
+
+def build() -> tuple[Path, str]:
+    """(library path, nvcc's output) — builds only when the library for the
+    current sources does not exist yet; the output is then the build log."""
+    digest = source_digest()
+    lib = BUILD_DIR / f"libluwtorch_{digest}.so"
+    log = lib.with_suffix(".log")
+    if lib.exists():
+        return lib, log.read_text() if log.exists() else ""
+    nvcc = find_nvcc()
+    obj_dir = BUILD_DIR / f"{digest}.{os.getpid()}.obj"
+    obj_dir.mkdir(parents=True, exist_ok=True)
+    srcs = sources()
+    objs = [obj_dir / f"{p.stem}.o" for p in srcs]
+    cmds = [[nvcc, *COMPILE_FLAGS, "-I", str(CSRC_DIR), "-c", "-o", str(o),
+             str(p)] for p, o in zip(srcs, objs)]
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    try:
+        with ThreadPoolExecutor(max_workers=max(1, len(cmds))) as pool:
+            logs = list(pool.map(_run, cmds))
+        logs.append(_run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                          *map(str, objs)]))
+        out = "".join(logs)
+        log.write_text(out)
+        os.replace(tmp, lib)      # atomic: a reader never sees half a file
+    finally:
+        tmp.unlink(missing_ok=True)
+        shutil.rmtree(obj_dir, ignore_errors=True)
     return lib, out
 
 

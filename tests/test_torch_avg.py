@@ -7,11 +7,12 @@ solid block, force + Coriolis) from numpy seeds, crossed bit for bit through
 welford_update re-accumulate them (avg_kernel.py:18-21), so the averaging
 comparison covers fluid and TYPE_E cells.  1e-5 is the JAX fused kernel's own
 f32 tolerance against the same pair (test_avg_kernel.py); both sides decode
-identical storage bits, so bf16 meets it too.
+identical storage bits, so bf16, f16 and fp16c meet it too.
 """
 
 import numpy as np
 import pytest
+import torch
 
 
 def _case(storage, seed, shape=(8, 24, 32)):
@@ -54,7 +55,7 @@ def _stepped(storage, seed):
     return cfg, state, dyn, flags
 
 
-@pytest.mark.parametrize("storage", ["f32", "bf16"])
+@pytest.mark.parametrize("storage", ["f32", "bf16", "f16", "fp16c"])
 def test_update_fields_matches_jax(storage):
     import dataclasses
 
@@ -72,7 +73,7 @@ def test_update_fields_matches_jax(storage):
     np.testing.assert_allclose(got.u.numpy(), np.asarray(want.u), atol=1e-6)
 
 
-@pytest.mark.parametrize("storage", ["f32", "bf16"])
+@pytest.mark.parametrize("storage", ["f32", "bf16", "f16", "fp16c"])
 def test_avg_pass_matches_update_fields_plus_welford(storage):
     import dataclasses
 
@@ -116,3 +117,34 @@ def test_avg_pass_matches_update_fields_plus_welford(storage):
             convert.state_from_jax(st), tcfg, convert.dyn_from_jax(dyn)))
     np.testing.assert_allclose(convert.to_numpy(tw.variance_sum_u(pair)),
                                np.asarray(ref.m2_u) / 4.0, atol=1e-5)
+
+
+@pytest.mark.parametrize("storage", ["f16", "fp16c"])
+def test_plain_passes_decode_through_the_state_codec(storage, monkeypatch):
+    """The averaging pass and the fields pass decode the stored DDFs with
+    `lbm.state.decode_ddf` (the codec the kernels' device codecs are held
+    to), not with a decoder of their own."""
+    from latticeurbanwind_tpu_torch import convert
+    from latticeurbanwind_tpu_torch.lbm import fields, state as tstate
+    from latticeurbanwind_tpu_torch.lbm.state import StepConfig, dyn_row
+    from latticeurbanwind_tpu_torch.ops.avg_kernel import avg_update
+    from latticeurbanwind_tpu_torch.run import welford as tw
+
+    seen = []
+    real = tstate.decode_ddf
+
+    def spy(x, storage_):
+        seen.append(storage_)
+        return real(x, storage_)
+
+    monkeypatch.setattr(fields, "decode_ddf", spy)
+    cfg, st, dyn, flags = _stepped(storage, 4)
+    ts = convert.state_from_jax(st)
+    tcfg = StepConfig(**__import__("dataclasses").asdict(cfg))
+    avg = avg_update(ts.fi, ts.flags, dyn_row(convert.dyn_from_jax(dyn), "cpu"),
+                     1.0, tw.init_avg(flags.shape, False), tcfg)
+    assert seen and set(seen) == {storage}
+    n = len(seen)
+    fields.update_fields(ts, tcfg, convert.dyn_from_jax(dyn))
+    assert len(seen) > n and set(seen) == {storage}
+    assert bool(torch.isfinite(avg.mean_u).all())

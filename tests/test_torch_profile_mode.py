@@ -90,11 +90,11 @@ def test_port_refuses_what_it_does_not_run(tmp_path):
     from latticeurbanwind_tpu_torch.deck import load_deck
     from latticeurbanwind_tpu_torch.run.modes import run_deck
 
-    deck_path = _deck_copy(tmp_path / "vk")
+    deck_path = _deck_copy(tmp_path / "wall")
     deck = load_deck(deck_path)
-    deck.set_text("turb_inflow_enable", "true")
+    deck.set_float("ground_z0", 0.1)
     deck.save()
-    with pytest.raises(NotImplementedError, match="module item 7"):
+    with pytest.raises(NotImplementedError, match="K4"):
         run_deck(deck_path, device="cpu", quiet=True)
     for suffix in ("luw", "luwdg"):
         other = tmp_path / f"conf.{suffix}"

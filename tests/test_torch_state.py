@@ -49,7 +49,7 @@ def test_fp16c_decode_bit_exact_all_codes():
     np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
 
 
-@pytest.mark.parametrize("storage", ["f32", "bf16", "f16"])
+@pytest.mark.parametrize("storage", ["f32", "bf16", "f16", "fp16c"])
 def test_storage_codecs_bit_exact(storage):
     import jax.numpy as jnp
 
@@ -65,7 +65,7 @@ def test_storage_codecs_bit_exact(storage):
     np.testing.assert_array_equal(dec_j.view(np.uint32), dec_t.view(np.uint32))
 
 
-@pytest.mark.parametrize("storage", ["f32", "bf16"])
+@pytest.mark.parametrize("storage", ["f32", "bf16", "f16", "fp16c"])
 def test_make_initial_state_matches_jax(storage):
     rng = np.random.default_rng(3)
     shape = (7, 21, 45)
@@ -85,6 +85,27 @@ def test_make_initial_state_matches_jax(storage):
         b = getattr(got, name)
         np.testing.assert_array_equal(a.view(np.uint8), b.view(np.uint8),
                                       err_msg=name)
+
+
+def test_fp16c_encode_saturates_nan():
+    """NaN of any payload encodes to sign | 0x7FFF, the Pallas kernel
+    codec's side (ROADMAP section 3): never to a finite zero, which is what
+    the bare integer formula makes of payloads at or above 0x7FFFF800 --
+    CUDA's canonical NaN 0x7FFFFFFF among them."""
+    bits = np.array([0x7FC00000, 0x7FFFFFFF, 0x7FFFF800, 0x7F800001,
+                     0xFFC00000, 0xFFFFFFFF, 0xFFFFF800, 0xFF800001],
+                    np.uint32)
+    x = torch.from_numpy(bits.view(np.float32))
+    got = tst.encode_fp16c(x).view(torch.int16).numpy().view(np.uint16)
+    np.testing.assert_array_equal(got, [0x7FFF] * 4 + [0xFFFF] * 4)
+    # the decoded value is the largest finite magnitude, so the cell shows
+    assert float(tst.decode_fp16c(tst.encode_fp16c(x)).abs().min()) > 1.99
+    # infinities saturate the same way, as in the JAX formula
+    inf = torch.tensor([np.inf, -np.inf], dtype=torch.float32)
+    assert tst.encode_fp16c(inf).view(torch.int16).numpy().view(np.uint16).tolist() \
+        == [0x7FFF, 0xFFFF]
+    assert np.asarray(jst.encode_fp16c(np.array([np.inf, -np.inf], np.float32))
+                      ).tolist() == [0x7FFF, 0xFFFF]
 
 
 def test_step_config_fields_and_checks_match_jax():

@@ -5,13 +5,15 @@ The case mirrors tests/test_pallas_kernel.py::_mk_case: the LUW shell (all
 outer faces TYPE_E, solid ground), solid blocks, buffer nudging and the top
 sponge, a global force and Coriolis.  Inputs come from one numpy seed and
 cross to the port bit for bit through `convert`.  Tolerances are the JAX
-kernel's own against its reference (test_pallas_kernel.py): 6e-6 for f32 and
-2e-4 for bf16 storage after 5 steps.  Both port and Pallas kernel freeze the
+kernel's own against its reference (test_pallas_kernel.py): 6e-6 for f32,
+2e-4 for bf16 and 2e-5 for the decoded f16 and fp16c storages after 5 steps.  Both port and Pallas kernel freeze the
 TYPE_E cells, where the reference re-evaluates feq with the force half-step;
 the gap stays inside those tolerances.
 """
 
 import dataclasses
+import subprocess
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -100,12 +102,23 @@ def _reference_steps(cfg, state, forcing, dyn, n=5):
     return np.asarray(state.fi)
 
 
+def _decoded(fi, storage):
+    """Stored DDFs as fp32 values (the JAX package's decode_ddf)."""
+    from latticeurbanwind_tpu.lbm.state import decode_ddf
+
+    return np.asarray(decode_ddf(fi, storage)).astype(np.float32)
+
+
 @pytest.mark.parametrize("volume_force", [True, False])
 @pytest.mark.parametrize("shape,storage,atol", [
     ((8, 32, 128), "f32", 6e-6),
     ((7, 21, 45), "f32", 6e-6),
     ((8, 32, 128), "bf16", 2e-4),
     ((7, 21, 45), "bf16", 2e-4),
+    ((8, 32, 128), "f16", 2e-5),
+    ((7, 21, 45), "f16", 2e-5),
+    ((8, 32, 128), "fp16c", 2e-5),
+    ((7, 21, 45), "fp16c", 2e-5),
 ])
 def test_plain_step_matches_jax_reference(shape, storage, atol, volume_force):
     cfg, state, forcing, dyn = _mk_case(shape, storage)
@@ -113,7 +126,7 @@ def test_plain_step_matches_jax_reference(shape, storage, atol, volume_force):
         cfg, forcing, dyn = _flagship(cfg, state)
     got = _port_plain_steps(cfg, state, forcing, dyn)
     want = _reference_steps(cfg, state, forcing, dyn)
-    np.testing.assert_allclose(got.astype(np.float32), want.astype(np.float32),
+    np.testing.assert_allclose(_decoded(got, storage), _decoded(want, storage),
                                atol=atol)
 
 
@@ -175,21 +188,47 @@ def test_stepper_runs_the_wrapper_over_two_buffers():
     (dict(wall_model=True, wall_cd=0.01), "K4"),
     (dict(wall_model=True, wall_cd=0.01, wall_sides=True), "K4"),
     (dict(thermal=True), "K7"),
-    (dict(storage="f16"), "K5"),
-    (dict(storage="fp16c"), "K5"),
-    (dict(), "K6"),
+    (dict(storage="f16"), None),
+    (dict(storage="fp16c"), None),
+    (dict(), None),
 ])
 def test_wrapper_refuses_unported_configs(change, item):
-    from latticeurbanwind_tpu_torch.lbm.state import Forcing, StepConfig
-    from latticeurbanwind_tpu_torch.ops.stream_collide import stream_collide
+    """TRT (K2), the wall models (K4) and thermal (K7) raise naming their
+    ROADMAP item; the f16/fp16c storages (K5) and the VK inlet sites (K6,
+    the last case) are taken: a rest state stays at rest, except the west
+    lane, whose site writes feq(rho=1, u_west)."""
+    from latticeurbanwind_tpu_torch.lbm.state import (
+        Forcing, StepConfig, decode_ddf, encode_ddf, storage_dtype,
+    )
+    from latticeurbanwind_tpu_torch.ops.stream_collide import (
+        build_face_bc, feq_vk, stream_collide,
+    )
 
     cfg = StepConfig(omega=1.5, **change)
     shape = (4, 8, 8)
-    fi = torch.zeros((19, *shape), dtype=torch.float32)
+    fi = torch.zeros((19, *shape), dtype=storage_dtype(cfg.storage))
     flags = torch.zeros(shape, dtype=torch.uint8)
-    vk = {"sites": (("lane0", "uw"),)} if not change else None
-    with pytest.raises(NotImplementedError, match=item):
-        stream_collide(fi, flags, torch.zeros(8), cfg, Forcing(), vk=vk)
+    vk = fbc = None
+    if not change:
+        u = torch.zeros((3, *shape))
+        u[0, :, :, 0] = 0.05
+        fbc = build_face_bc(u)
+        vk = {"sites": (("lane0", "uw"),),
+              "masks": {"uw": torch.ones((shape[0], 1, shape[1]))}}
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=item):
+            stream_collide(fi, flags, torch.zeros(8), cfg, Forcing(), fbc, vk=vk)
+        return
+    out = decode_ddf(stream_collide(fi, flags, torch.zeros(8), cfg, Forcing(),
+                                    fbc, vk=vk), cfg.storage)
+    assert out.shape == (19, *shape) and bool(torch.isfinite(out).all())
+    want = torch.zeros_like(out)
+    if vk is not None:
+        zero = torch.zeros(shape[:2])
+        fe = torch.stack(feq_vk(torch.full(shape[:2], 0.05), zero, zero))
+        want[:, :, :, 0] = decode_ddf(encode_ddf(fe, cfg.storage), cfg.storage)
+        assert float(want.abs().max()) > 1e-3
+    torch.testing.assert_close(out, want, rtol=0, atol=0)
 
 
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -205,8 +244,52 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     assert not (tmp_path / "_build").exists() or not any(
         (tmp_path / "_build").glob("*.so"))
     assert len(cuda_build.source_digest()) == 64
-    assert [p.name for p in cuda_build.sources()] == ["avg_update.cu",
-                                                       "stream_collide.cu"]
+    assert [p.name for p in cuda_build.sources()] == [
+        "avg_update.cu", "codec.cu", "stream_collide.cu"]
+    assert [p.name for p in cuda_build.headers()] == ["codec.cuh"]
+
+
+def test_kernel_build_compiles_translation_units_only(monkeypatch, tmp_path):
+    """nvcc (faked) gets one compile per `.cu`, each with -I csrc, and one
+    link of the objects; no header is a compilation input.  The digest
+    covers the headers: editing one names a new library."""
+    import shutil
+
+    from latticeurbanwind_tpu_torch.utils import cuda_build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(cuda_build.CSRC_DIR, csrc)
+    monkeypatch.setattr(cuda_build, "CSRC_DIR", csrc)
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(cuda_build, "find_nvcc", lambda: "fake-nvcc")
+    calls = []
+
+    def fake_run(cmd, capture_output=True, text=True):
+        calls.append(list(cmd))
+        out = Path(cmd[cmd.index("-o") + 1])
+        out.write_bytes(b"")
+        return subprocess.CompletedProcess(cmd, 0, "ok\n", "")
+
+    monkeypatch.setattr(cuda_build.subprocess, "run", fake_run)
+    lib, log = cuda_build.build()
+    assert lib.exists() and lib.name == f"libluwtorch_{cuda_build.source_digest()}.so"
+    compiles = [c for c in calls if "-c" in c]
+    links = [c for c in calls if "-shared" in c]
+    assert len(links) == 1 and len(compiles) == len(cuda_build.sources())
+    assert sorted(Path(c[-1]).name for c in compiles) == [
+        p.name for p in cuda_build.sources()]
+    for c in compiles:
+        assert c[c.index("-I") + 1] == str(csrc)
+    assert not any(a.endswith(".cuh") for c in calls for a in c)
+    assert all(a.endswith(".o") for a in links[0][links[0].index("-o") + 2:])
+    assert not list((tmp_path / "_build").glob("*.obj"))   # objects cleaned up
+
+    digest = cuda_build.source_digest()
+    (csrc / "codec.cuh").write_text((csrc / "codec.cuh").read_text() + "\n// edit\n")
+    assert cuda_build.source_digest() != digest
+    calls.clear()
+    lib2, _ = cuda_build.build()
+    assert lib2 != lib and len(calls) == len(cuda_build.sources()) + 1
 
 
 def test_wrappers_refuse_devices_without_a_kernel():

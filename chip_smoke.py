@@ -6,36 +6,50 @@ Builds the port's CUDA kernels from `latticeurbanwind_tpu_torch/csrc/` (one
 nvcc per source, in parallel), then:
 
   1. prints the card (nvidia-smi name and power limit), torch/CUDA versions,
-     the build time and the kernels' register use, and checks that float32
-     matrix products run in full float32 (no TF32: the VK inlet's mode sum
-     is one);
+     the build time (each nvcc and the whole build + load) and every kernel
+     instance's register count, and checks that float32 matrix products run
+     in full float32 (no TF32: the VK inlet's mode sum is one);
   2. runs each kernel against its plain PyTorch version on the card: K-SC
      (stream-collide) for 5 steps at an odd shape with the LUW shell,
      solids, nudging, sponge and Coriolis in all four storages (f32, bf16,
-     f16, fp16c) plus the volume-force-off flagship config, and again at the
-     main path's grid in bf16 and fp16c; K-SC with VK inlet sites, random
-     0/1 masks on the four side faces and the top plane, and with a real
-     inlet hook refreshing the FaceBC every step, in all four storages and
-     in bf16 and fp16c at the main grid; K-AVG (averaging) for 4 samples
-     against update_fields + welford_update after each of those K-SC runs;
-     the device codecs bit for bit against the torch codecs (all 65,536
-     fp16c and f16 codes, a dense sweep of every float32 exponent band with
-     ties);
+     f16, fp16c) plus the volume-force-off flagship config, and with the
+     wall models (`wall_model`; `wall_sides` with Cd_sides 0.004 and 0) and
+     TRT (alone and with the wall models), and again at the main path's grid
+     in bf16 and fp16c (and bf16 with the wall models and VK sites); K-SC
+     with VK inlet sites, random 0/1 masks on the four side faces and the
+     top plane, and with a real inlet hook refreshing the FaceBC every step,
+     in all four storages and in bf16 and fp16c at the main grid; K-AVG
+     (averaging) for 4 samples against update_fields + welford_update after
+     each of the K-SC runs without sites (the wall-model K-AVG after the
+     wall runs); the device codecs bit for bit against the torch codecs (all
+     65,536 fp16c and f16 codes, a dense sweep of every float32 exponent band
+     with ties);
   3. times the kernels with CUDA events at 256^3 (the flagship config in
-     every storage, bf16 with nudging + sponge) against a device-to-device
-     copy bandwidth measured here, and the plain versions at the same
-     shapes; K-SC with VK sites and K-AVG at the main grid;
+     every storage; bf16 and f32 with nudging + sponge, without a wall
+     model, with `wall_model`, with `wall_sides` and with TRT) against a
+     device-to-device copy bandwidth measured here, and the plain versions
+     at the same shapes; K-SC with VK sites (without and with the wall
+     models) and K-AVG (without and with `wall_sides`) at the main grid and
+     at 256^3;
   4. runs the example profile deck at 1.5 m cells (424x424x118 = 21.2M
      cells, one angle) through the port's `run_deck` as it ships, with the
-     VK inlet on: bf16 for 400 steps (the main path; K-SC 400 launches with
-     sites, K-AVG 50, the inlet on faces {0,1,2,3}, the upstream face's raw
-     u at t = 200 and 400 off the initial profile by an RMS within
-     [0.3, 3] sigma), then the inlet-off deck for 100 steps and the inlet-on
-     deck in fp16c for 200 steps; each run's launch counts are zeroed just
-     before it and read just after.  After each inlet-on run its step loop
-     is taken apart with the run's own configuration, forcing and inlet
-     hook: K-SC without and with sites, the FaceBC refresh and the whole
-     step (refresh + K-SC), each by device time and by host enqueue time.
+     VK inlet on: bf16 for 400 steps (K-SC 400 launches with sites, K-AVG
+     50, the inlet on faces {0,1,2,3}, the upstream face's raw u at t = 200
+     and 400 off the initial profile by an RMS within [0.3, 3] sigma), then
+     the inlet-off deck for 100 steps and the inlet-on deck in fp16c for 200
+     steps; then the same bf16 400-step deck with the wall models
+     (`ground_z0 = 0.055`, `building_z0 = 0.01`: 400 K-SC launches, all
+     with sites and all of the wall instances, 50 K-AVG, all wall; its raw u
+     at t = 400 off the no-wall run's in the first fluid layer above open
+     ground by a mean |du| > 1e-3 m/s); then the dataset-generation example
+     `.luwdg` as it ships (`case_parallel = true`) at 2 m cells with its
+     first two cases, 300 steps each (600 K-SC, 60 K-AVG launches, the
+     serial-dispatch line, both cases' `DG_<u>_<a>_` outputs).  Each run's
+     launch counts are zeroed just before it and read just after.  After
+     each inlet-on run its step loop is taken apart with the run's own
+     configuration, forcing and inlet hook: K-SC without and with sites, the
+     FaceBC refresh and the whole step (refresh + K-SC), each by device time
+     and by host enqueue time.
 
 The second-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero; so
@@ -44,12 +58,16 @@ does a machine without CUDA.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import re
 import shutil
 import subprocess
 import sys
 import tempfile
 import time
+from dataclasses import replace
 from pathlib import Path
 
 import numpy as np
@@ -57,18 +75,37 @@ import torch
 
 REPO = Path(__file__).resolve().parent
 EXAMPLE = REPO / "examples" / "example_ProfileResearch_noDEM"
+EXAMPLE_DG = REPO / "examples" / "example_DatasetGen"
 STORAGES = ("f32", "bf16", "f16", "fp16c")
 # the JAX kernel's own tolerances against its reference
 # (tests/test_pallas_kernel.py), on decoded values
 TOL = {"f32": 6e-6, "bf16": 2e-4, "f16": 2e-5, "fp16c": 2e-5}
 AVG_TOL = 1e-5                          # the JAX fused pass's own (test_avg_kernel.py)
+WALL_TOL_F32 = 1e-5                     # f32 wall models (test_pallas_kernel.py:165-168)
+# the wall-model and TRT configurations (the JAX kernel tests' coefficients)
+WALL = dict(wall_model=True, wall_cd=0.0134)
+SIDES = dict(WALL, wall_sides=True, wall_cd_sides=0.004)
+VARIANTS = {"wall": WALL, "wall+sides": SIDES,
+            "wall+sides Cd_sides=0": dict(SIDES, wall_cd_sides=0.0),
+            "trt": dict(collision="trt"),
+            "trt+wall+sides": dict(SIDES, collision="trt")}
 # 2*19*sizeof(storage) + 1 flag byte
 BYTES_PER_CELL = {"f32": 153, "bf16": 77, "f16": 77, "fp16c": 77}
 NUDGE_BYTES = 5                             # nudge sigma (4) + face id (1)
+# the bound's peaks: NVIDIA's H100 SXM data sheet (device memory; float32
+# outside the tensor cores), for a card at its full 700 W
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
+# float32 operations per fluid cell update, counted from the kernels'
+# arithmetic (moments, forces, Guo, equilibrium, LES, collision; K-AVG:
+# moments, forces, Welford): far below the bytes bound either way
+FLOPS_PER_CELL = {"stream_collide": 600, "avg_update": 150}
 MAIN_CELL_M = 1.5                           # the example deck's main-path cells
 MAIN_SHAPE = (118, 424, 424)                # its grid at that cell size
 CUBE = (256, 256, 256)                      # the flagship timing shape
+DG_CELL_M = 2.0                             # the .luwdg path's cells (~5M)
 DEVICE = "cuda"
+DATETIME = "20260101120000"                 # both example decks' datetime
 
 
 def log(msg: str = "") -> None:
@@ -90,11 +127,18 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return a.elapsed_time(b) / reps
 
 
+def tolerance(storage: str, variant: str = "") -> float:
+    """The JAX tests' tolerance of a K-SC comparison."""
+    wall = VARIANTS.get(variant, {}).get("wall_model", False)
+    return WALL_TOL_F32 if storage == "f32" and wall else TOL[storage]
+
+
 def make_case(shape, storage, *, forcing=True, seed=0, inflow=0.0,
-              device=None):
+              device=None, variant=""):
     """LUW-shell case (TYPE_E outer faces, solid ground, solid blocks) from a
     numpy seed, with an optional uniform inflow along x added to the random
-    velocities: (config, state, forcing, dyn row)."""
+    velocities and one of the wall/TRT `VARIANTS`: (config, state, forcing,
+    dyn row)."""
     from latticeurbanwind_tpu_torch.lbm.forcing import (
         NudgeSpec, SpongeSpec, build_forcing,
     )
@@ -107,8 +151,8 @@ def make_case(shape, storage, *, forcing=True, seed=0, inflow=0.0,
     device = device or DEVICE
     Z, Y, X = shape
     rng = np.random.default_rng(seed)
-    cfg = StepConfig(omega=omega_from_nu(0.03), storage=storage,
-                     volume_force=forcing)
+    cfg = replace(StepConfig(omega=omega_from_nu(0.03), storage=storage,
+                             volume_force=forcing), **VARIANTS.get(variant, {}))
     u = (0.02 * rng.standard_normal((3, Z, Y, X))).astype(np.float32)
     u[0] += np.float32(inflow)
     rho = (1.0 + 0.001 * rng.standard_normal(shape)).astype(np.float32)
@@ -195,33 +239,57 @@ def phase_card() -> dict:
     t0 = time.perf_counter()
     _, build_log = cuda_build.build()
     cuda_build.load_library()
+    build_s = time.perf_counter() - t0
+    nvcc = {k: float(v) for k, v in
+            re.findall(r"# nvcc (\S+): ([\d.]+) s", build_log)}
     log(f"kernel build + load ({len(cuda_build.sources())} sources in "
-        f"parallel): {time.perf_counter() - t0:.1f} s")
-    regs, spilled, name = {}, [], None
+        f"parallel): {build_s:.1f} s; nvcc seconds per unit: {nvcc}")
+    regs, spilled = kernel_registers(build_log)
+    log(f"  ptxas: {len(regs)} kernels, registers {min(regs.values(), default=0)}"
+        f"-{max(regs.values(), default=0)}, {len(spilled)} with spills")
+    for name in sorted(regs):
+        log(f"  {name}: {regs[name]} registers"
+            + (" (spills)" if name in spilled else ""))
+    return {"smi": smi, "build_s": build_s, "nvcc_s": nvcc, "registers": regs}
+
+
+def kernel_registers(build_log: str):
+    """({instance: registers}, {instances with spills}) from ptxas's -v
+    output.  An instance is named by its kernel, its codec and its other
+    template arguments, e.g. stream_collide_kernel<BF16,1,1,1,0,0> (force,
+    nudge, sponge, wall, trt)."""
+    regs, spilled, name = {}, set(), None
     for line in build_log.splitlines():
         if "Compiling entry function" in line:
-            name = line.split("'")[1] if "'" in line else line
+            mangled = line.split("'")[1] if "'" in line else line
+            m = re.search(r"(stream_collide|avg_update|vk_site|encode|decode)"
+                          r"_kernelI(.*)", mangled)
+            if m is None:
+                name = mangled
+                continue
+            codec = re.search(r"(\d+)(Codec\w+)", m.group(2))
+            args = [codec.group(2)[5:int(codec.group(1))]] if codec else []
+            args += re.findall(r"L[bi](\d+)E", m.group(2))
+            name = f"{m.group(1)}_kernel<{','.join(args)}>"
         elif "Used" in line and "registers" in line and name:
             regs[name] = int(line.split("Used")[1].split("registers")[0])
         elif "spill" in line and name and (" 0 bytes spill stores" not in line
                                            or " 0 bytes spill loads" not in line):
-            spilled.append(name)
-    log(f"  ptxas: {len(regs)} kernels, registers {min(regs.values(), default=0)}"
-        f"-{max(regs.values(), default=0)}, {len(set(spilled))} with spills")
-    for k in sorted(set(spilled)):
-        log(f"  ptxas spills in {k}")
-    return {"smi": smi}
+            spilled.add(name)
+    return regs, spilled
 
 
 def compare_steps(shape, storage, forcing, steps, *, vk=None, hook=False,
-                  inflow=0.0):
+                  inflow=0.0, variant=""):
     """K-SC against its plain version over `steps` steps; returns the max
-    decoded difference (and the K-AVG difference for 4 samples after)."""
+    decoded difference, whether the kernel's DDFs are finite, and the case
+    with the kernel's DDFs."""
     from latticeurbanwind_tpu_torch.ops.stream_collide import (
         build_face_bc, stream_collide, stream_collide_plain,
     )
 
-    cfg, st, frc, row = make_case(shape, storage, forcing=forcing, inflow=inflow)
+    cfg, st, frc, row = make_case(shape, storage, forcing=forcing, inflow=inflow,
+                                  variant=variant)
     pre = None
     if hook:
         pre, _ = vk_hook(st)
@@ -252,20 +320,23 @@ def phase_compare() -> dict:
     from latticeurbanwind_tpu_torch.run.welford import init_avg, welford_update
 
     log("== phase 2: kernels against their plain versions on the card")
-    errs = {"stream_collide": {}, "avg_update": {}}
+    errs = {"stream_collide": {}, "stream_collide_wall": {}, "avg_update": {}}
     small = (24, 72, 136)
-    runs = [(small, s, f, 5) for s in STORAGES for f in (True, False)]
-    runs += [(MAIN_SHAPE, s, True, 2) for s in ("bf16", "fp16c")]
-    for shape, storage, forcing, steps in runs:
+    runs = [(small, s, f, 5, "") for s in STORAGES for f in (True, False)]
+    runs += [(small, s, True, 5, v) for s in STORAGES for v in VARIANTS]
+    runs += [(MAIN_SHAPE, s, True, 2, "") for s in ("bf16", "fp16c")]
+    for shape, storage, forcing, steps, variant in runs:
         e, finite, (cfg, st, frc, row, fbc, fk) = compare_steps(
-            shape, storage, forcing, steps)
-        name = f"{storage} {'nudge+sponge' if forcing else 'flagship'} {shape}"
-        ok = e <= TOL[storage] and finite
+            shape, storage, forcing, steps, variant=variant)
+        name = (f"{storage} {'nudge+sponge' if forcing else 'flagship'}"
+                f"{' ' + variant if variant else ''} {shape}")
+        tol = tolerance(storage, variant)
+        ok = e <= tol and finite
         log(f"K-SC {name} {steps} steps: max|kernel-plain| = {e:.3e} "
-            f"(tol {TOL[storage]:.0e}) {'ok' if ok else 'FAIL'}")
+            f"(tol {tol:.0e}) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"K-SC disagrees with its plain version: {e}")
-        errs["stream_collide"][name] = e
+        errs["stream_collide_wall" if variant else "stream_collide"][name] = e
 
         # K-AVG: 4 samples from the DDFs of successive kernel steps
         dyn = DynParams(force=row[:3].cpu(), omega_coriolis=row[3:6].cpu())
@@ -291,19 +362,24 @@ def phase_compare() -> dict:
         torch.cuda.empty_cache()
 
     # K-SC with VK inlet sites
-    vk_runs = [(small, s, kind, 5) for s in STORAGES for kind in ("random", "hook")]
-    vk_runs += [(MAIN_SHAPE, s, "hook", 2) for s in ("bf16", "fp16c")]
-    for shape, storage, kind, steps in vk_runs:
+    vk_runs = [(small, s, kind, 5, "") for s in STORAGES
+               for kind in ("random", "hook")]
+    vk_runs += [(MAIN_SHAPE, s, "hook", 2, "") for s in ("bf16", "fp16c")]
+    vk_runs += [(MAIN_SHAPE, "bf16", "hook", 2, "wall+sides")]
+    for shape, storage, kind, steps, variant in vk_runs:
         vk = random_sites(shape) if kind == "random" else None
         e, finite, _ = compare_steps(shape, storage, True, steps, vk=vk,
-                                     hook=kind == "hook", inflow=0.05)
-        name = f"{storage} nudge+sponge VK {kind} sites {shape}"
-        ok = e <= TOL[storage] and finite
+                                     hook=kind == "hook", inflow=0.05,
+                                     variant=variant)
+        name = (f"{storage} nudge+sponge{' ' + variant if variant else ''} "
+                f"VK {kind} sites {shape}")
+        tol = tolerance(storage, variant)
+        ok = e <= tol and finite
         log(f"K-SC {name} {steps} steps: max|kernel-plain| = {e:.3e} "
-            f"(tol {TOL[storage]:.0e}) {'ok' if ok else 'FAIL'}")
+            f"(tol {tol:.0e}) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"K-SC with VK sites disagrees: {e}")
-        errs["stream_collide"][name] = e
+        errs["stream_collide_wall" if variant else "stream_collide"][name] = e
         torch.cuda.empty_cache()
 
     phase_codecs()
@@ -378,14 +454,55 @@ def copy_bandwidth() -> float:
     return bw
 
 
-def time_step_kernel(shape, storage, forcing, *, vk=None, plain_reps=3):
-    """(kernel ms/step, plain ms/step) at `shape`."""
+def bound(kernel: str, nbytes: float, cells: int) -> dict:
+    """The least time the card could take: the larger of the bytes the call
+    must move over the device memory rate and its float32 operations over
+    the card's float32 rate (the published peaks)."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = FLOPS_PER_CELL[kernel] * cells / PEAK_F32_FLOPS * 1e3
+    return ({"bound_ms": t_bytes, "bound_by": "bytes"} if t_bytes >= t_ops
+            else {"bound_ms": t_ops, "bound_by": "operations"})
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def step_bound(st, frc, fbc, spec) -> dict:
+    """K-SC's bound on this case: every DDF written once, the DDFs of the
+    cells that are not solid read once (a solid cell only writes zeros), the
+    flags, the forcing fields, the FaceBC targets and the site masks read
+    once."""
+    from latticeurbanwind_tpu_torch.lbm.state import TYPE_S
+
+    live = int(((st.flags & TYPE_S) == 0).sum())
+    per = 19 * st.fi.element_size()
+    nbytes = (per * (st.flags.numel() + live) + _nbytes(
+        st.flags, frc.nudge_sigma, frc.nudge_face, frc.sponge_sigma_z,
+        *(fbc or ()), *((spec or {}).get("masks", {}).values())))
+    return bound("stream_collide", nbytes, live)
+
+
+def avg_bound(st) -> dict:
+    """K-AVG's bound: the DDFs and the five f32 accumulators (read and
+    written) of the cells that are not solid, and the flags."""
+    from latticeurbanwind_tpu_torch.lbm.state import TYPE_S
+
+    live = int(((st.flags & TYPE_S) == 0).sum())
+    nbytes = live * (19 * st.fi.element_size() + 2 * 5 * 4) + st.flags.numel()
+    return bound("avg_update", nbytes, live)
+
+
+def time_step_kernel(shape, storage, forcing, *, vk=None, plain_reps=3,
+                     variant=""):
+    """{ms, plain_ms, bound_ms, bound_by}: K-SC and its plain version per
+    step at `shape`."""
     from latticeurbanwind_tpu_torch.ops.stream_collide import (
         build_face_bc, stream_collide, stream_collide_plain,
     )
 
     cfg, st, frc, row = make_case(shape, storage, forcing=forcing,
-                                  inflow=0.05 if vk else 0.0)
+                                  inflow=0.05 if vk else 0.0, variant=variant)
     spec = None
     if vk:
         pre, _ = vk_hook(st)
@@ -402,24 +519,26 @@ def time_step_kernel(shape, storage, forcing, *, vk=None, plain_reps=3):
     plain = cuda_ms(lambda: stream_collide_plain(bufs[0], st.flags, row, cfg,
                                                  frc, fbc, vk=spec),
                     reps=plain_reps, warmup=1)
-    return ms, plain
+    return {"ms": ms, "plain_ms": plain, **step_bound(st, frc, fbc, spec)}
 
 
-def time_avg_kernel(shape, storage):
-    """(kernel ms/sample, plain ms/sample) at `shape`."""
+def time_avg_kernel(shape, storage, variant=""):
+    """{ms, plain_ms, bound_ms, bound_by}: K-AVG and its plain version per
+    sample at `shape`."""
     from latticeurbanwind_tpu_torch.ops.avg_kernel import (
         avg_update, avg_update_plain,
     )
     from latticeurbanwind_tpu_torch.run.welford import init_avg
 
-    cfg, st, _, row = make_case(shape, storage, forcing=False)
+    cfg, st, _, row = make_case(shape, storage, forcing=bool(variant),
+                                variant=variant)
     avg = init_avg(shape, False, DEVICE)
     ms = cuda_ms(lambda: avg_update(st.fi, st.flags, row, 0.5, avg, cfg),
                  reps=20, warmup=3)
     plain = cuda_ms(lambda: avg_update_plain(st.fi, st.flags, row, 0.5, avg,
-                                             storage),
+                                             cfg),
                     reps=3, warmup=1)
-    return ms, plain
+    return {"ms": ms, "plain_ms": plain, **avg_bound(st)}
 
 
 def run_ahead(fn, n: int = 16, sleep_cycles: int = 400_000_000):
@@ -468,8 +587,8 @@ def step_loop_breakdown(case, fi: torch.Tensor) -> dict:
         cell["fbc"], cell["aux"] = pre(cell["fbc"], cell["t"], cell["aux"])
         cell["t"] += 1
 
-    def step(vk=spec):
-        stream_collide(bufs[0], flags, row, case.config, case.forcing,
+    def step(vk=spec, config=case.config):
+        stream_collide(bufs[0], flags, row, config, case.forcing,
                        cell["fbc"], out=bufs[1], vk=vk)
         bufs.reverse()
 
@@ -482,6 +601,16 @@ def step_loop_breakdown(case, fi: torch.Tensor) -> dict:
            "step_ms": cuda_ms(whole, reps=100, warmup=5)}
     for name, fn in (("refresh", refresh), ("sc_vk", step), ("step", whole)):
         out[f"{name}_host_ms"], out[f"{name}_device_ms"] = run_ahead(fn)
+    if case.config.wall_model:
+        # K-SC with sites on this state with less of the wall model: where
+        # the wall instances' time goes
+        plain = replace(case.config, wall_model=False, wall_cd=0.0,
+                        wall_sides=False, wall_cd_sides=0.0)
+        ground = replace(case.config, wall_sides=False, wall_cd_sides=0.0)
+        mirrors = replace(case.config, wall_cd_sides=0.0)
+        for name, cfg in (("sc_vk_nowall_ms", plain), ("sc_vk_ground_ms", ground),
+                          ("sc_vk_sides_cd0_ms", mirrors)):
+            out[name] = cuda_ms(lambda c=cfg: step(config=c), reps=50, warmup=3)
     del bufs
     torch.cuda.empty_cache()
     return out
@@ -494,45 +623,79 @@ def phase_timing() -> dict:
     cube = CUBE
     cells = float(np.prod(cube))
     out = {"copy_gbps": bw, "configs": {}}
-    for storage, forcing in ([(s, False) for s in STORAGES] + [("bf16", True)]):
-        ms, plain = time_step_kernel(cube, storage, forcing)
+    runs = [(s, False, "") for s in STORAGES]
+    runs += [(s, True, v) for s in ("bf16", "f32")
+             for v in ("", "wall", "wall+sides", "trt")]
+    for storage, forcing, variant in runs:
+        t = time_step_kernel(cube, storage, forcing, variant=variant)
+        ms, plain = t["ms"], t["plain_ms"]
         bpc = BYTES_PER_CELL[storage] + (NUDGE_BYTES if forcing else 0)
         mlups = cells / (ms * 1e-3) / 1e6
         roof = mlups * 1e6 * bpc / 1e9 / bw * 100.0
-        name = f"{cube[0]}^3 {storage} {'nudge+sponge' if forcing else 'flagship'}"
+        name = (f"{cube[0]}^3 {storage} {'nudge+sponge' if forcing else 'flagship'}"
+                f"{' ' + variant if variant else ''}")
         log(f"K-SC {name}: {ms:.3f} ms/step, {mlups:.0f} MLUPs, {roof:.1f}% of "
-            f"the {bpc} B/cell copy roofline; plain version {plain:.2f} ms/step "
+            f"the {bpc} B/cell copy roofline; bound {t['bound_ms']:.3f} ms "
+            f"({t['bound_by']}); plain version {plain:.2f} ms/step "
             f"({plain / ms:.1f}x the kernel)")
-        out["configs"][f"K-SC {name}"] = {"ms": ms, "plain_ms": plain,
-                                          "roofline_pct": roof}
+        out["configs"][f"K-SC {name}"] = dict(t, roofline_pct=roof)
         torch.cuda.empty_cache()
-    for storage in ("bf16", "fp16c"):
-        ms, plain = time_avg_kernel(cube, storage)
-        log(f"K-AVG {cube[0]}^3 {storage}: {ms:.3f} ms/sample; plain version "
-            f"{plain:.2f} ms/sample ({plain / ms:.1f}x the kernel)")
-        out["configs"][f"K-AVG {cube[0]}^3 {storage}"] = {"ms": ms,
-                                                          "plain_ms": plain}
+    for storage, variant in (("bf16", ""), ("fp16c", ""), ("bf16", "wall+sides")):
+        t = time_avg_kernel(cube, storage, variant)
+        name = f"K-AVG {cube[0]}^3 {storage}{' ' + variant if variant else ''}"
+        log(f"{name}: {t['ms']:.3f} ms/sample; bound {t['bound_ms']:.3f} ms "
+            f"({t['bound_by']}); plain version {t['plain_ms']:.2f} ms/sample "
+            f"({t['plain_ms'] / t['ms']:.1f}x the kernel)")
+        out["configs"][name] = t
         torch.cuda.empty_cache()
     # at the main path's grid and configuration (these go into the record)
-    sc_ms, sc_plain = time_step_kernel(MAIN_SHAPE, "bf16", True, vk=True)
-    av_ms, av_plain = time_avg_kernel(MAIN_SHAPE, "bf16")
-    log(f"K-SC {MAIN_SHAPE} bf16 nudge+sponge with VK sites: {sc_ms:.3f} ms/step "
-        f"(plain {sc_plain:.2f}); K-AVG: {av_ms:.3f} ms/sample "
-        f"(plain {av_plain:.2f})")
-    torch.cuda.empty_cache()
-    out.update(sc_ms=sc_ms, sc_plain=sc_plain, av_ms=av_ms, av_plain=av_plain)
+    for key, variant in (("sc", ""), ("sc_wall", "wall+sides")):
+        t = time_step_kernel(MAIN_SHAPE, "bf16", True, vk=True, variant=variant)
+        name = f"K-SC {MAIN_SHAPE} bf16 nudge+sponge{' ' + variant if variant else ''} VK sites"
+        log(f"{name}: {t['ms']:.3f} ms/step, bound {t['bound_ms']:.3f} ms "
+            f"({t['bound_by']}), plain {t['plain_ms']:.2f}")
+        out["configs"][name] = out[key] = t
+        torch.cuda.empty_cache()
+    for key, variant in (("av", ""), ("av_wall", "wall+sides")):
+        t = time_avg_kernel(MAIN_SHAPE, "bf16", variant)
+        name = f"K-AVG {MAIN_SHAPE} bf16{' ' + variant if variant else ''}"
+        log(f"{name}: {t['ms']:.3f} ms/sample, bound {t['bound_ms']:.3f} ms "
+            f"({t['bound_by']}), plain {t['plain_ms']:.2f}")
+        out["configs"][name] = out[key] = t
+        torch.cuda.empty_cache()
     return out
 
 
+def zero_launches() -> None:
+    from latticeurbanwind_tpu_torch.ops.avg_kernel import avg_update
+    from latticeurbanwind_tpu_torch.ops.stream_collide import stream_collide
+
+    stream_collide.launches = 0
+    stream_collide.launches_vk = 0
+    stream_collide.launches_wall = 0
+    avg_update.launches = 0
+    avg_update.launches_wall = 0
+
+
+def read_launches() -> dict:
+    from latticeurbanwind_tpu_torch.ops.avg_kernel import avg_update
+    from latticeurbanwind_tpu_torch.ops.stream_collide import stream_collide
+
+    return {"stream_collide": stream_collide.launches,
+            "stream_collide_vk": stream_collide.launches_vk,
+            "stream_collide_wall": stream_collide.launches_wall,
+            "avg_update": avg_update.launches,
+            "avg_update_wall": avg_update.launches_wall}
+
+
 def run_example_deck(work: Path, tag: str, *, storage: str, steps: int,
-                     vk: bool) -> dict:
+                     vk: bool, walls=None) -> dict:
     """The example deck at 1.5 m, angle 0, through run_deck on the card,
-    with the launch counts zeroed just before and read just after."""
+    with the launch counts zeroed just before and read just after; `walls`
+    are deck settings of the wall models (`ground_z0`, `building_z0`)."""
     import latticeurbanwind_tpu_torch.run.modes as modes
     from latticeurbanwind_tpu_torch.deck import load_deck
     from latticeurbanwind_tpu_torch.io.vtk import read_structured_points
-    from latticeurbanwind_tpu_torch.ops.avg_kernel import avg_update
-    from latticeurbanwind_tpu_torch.ops.stream_collide import stream_collide
 
     case = work / tag
     shutil.copytree(EXAMPLE, case)
@@ -544,6 +707,8 @@ def run_example_deck(work: Path, tag: str, *, storage: str, steps: int,
     deck.set_list("angle", [0.0])
     if not vk:
         deck.set_text("turb_inflow_enable", "false")
+    for key, value in (walls or {}).items():
+        deck.set_float(key, value)
     purge = {400: 100, 200: 40, 100: 20}[steps]   # the deck: 400 and 100
     deck.set_int("run_nstep", steps)
     deck.set_int("unsteady_output", steps // 2)
@@ -573,15 +738,11 @@ def run_example_deck(work: Path, tag: str, *, storage: str, steps: int,
     modes.run_case = run_spy
     try:
         torch.cuda.reset_peak_memory_stats()
-        stream_collide.launches = 0
-        stream_collide.launches_vk = 0
-        avg_update.launches = 0
+        zero_launches()
         t0 = time.perf_counter()
         results = modes.run_deck(case / "conf.luwpf", device=DEVICE, quiet=False)
         wall = time.perf_counter() - t0
-        launches = {"stream_collide": stream_collide.launches,
-                    "stream_collide_vk": stream_collide.launches_vk,
-                    "avg_update": avg_update.launches}
+        launches = read_launches()
     finally:
         modes.vk_config_from_deck, modes.build_vk_runtime = real_cfg, real_rt
         modes.run_case = real_run
@@ -601,15 +762,21 @@ def run_example_deck(work: Path, tag: str, *, storage: str, steps: int,
         raise AssertionError(f"deck grid {shape} != {MAIN_SHAPE}")
 
     half = steps // 2
-    pre = "20260101120000"
+    pre = DATETIME
     want = [f"{pre}_raw_u-{half:09d}.vtk", f"{pre}_raw_u-{steps:09d}.vtk",
             f"{pre}_raw_rho-{steps:09d}.vtk", f"{pre}_avg-{steps:09d}.vtk"]
     missing = [n for n in want if n not in names]
     if missing:
         raise AssertionError(f"[{tag}] missing outputs {missing}")
     n_avg = purge // 2                  # stride 2; the last step is no sample
+    on_wall = bool(walls)
     expect = {"stream_collide": steps, "stream_collide_vk": steps if vk else 0,
-              "avg_update": n_avg}
+              "stream_collide_wall": steps if on_wall else 0,
+              "avg_update": n_avg, "avg_update_wall": n_avg if on_wall else 0}
+    cfg = seen["case"].config
+    if (cfg.wall_model, cfg.wall_sides) != ("ground_z0" in (walls or {}),
+                                            "building_z0" in (walls or {})):
+        raise AssertionError(f"[{tag}] wall models of the run: {cfg}")
     if launches != expect:
         raise AssertionError(f"[{tag}] launch counts {launches} != {expect}")
     files = {f.name: f for f in r.files}
@@ -625,7 +792,8 @@ def run_example_deck(work: Path, tag: str, *, storage: str, steps: int,
         f"finite at fluid cells, mean v = {float(u_avg[1][fluid].mean()):.3f} m/s")
 
     out = {"launches": launches, "solver_seconds": r.solver_seconds,
-           "mlups": r.timing["mlups"], "wall": wall}
+           "mlups": r.timing["mlups"], "wall": wall,
+           "raw_u": files[want[1]], "flags": seen["case"].state.flags.cpu()}
     if not vk:
         if seen.get("rt") is not None:
             raise AssertionError(f"[{tag}] the inlet is active with it off")
@@ -663,20 +831,124 @@ def run_example_deck(work: Path, tag: str, *, storage: str, steps: int,
         f"ms per call: refresh {loop['refresh_host_ms']:.4f} / "
         f"{loop['refresh_device_ms']:.4f}, K-SC with sites "
         f"{loop['sc_vk_host_ms']:.4f} / {loop['sc_vk_device_ms']:.4f}, whole "
-        f"step {loop['step_host_ms']:.4f} / {loop['step_device_ms']:.4f}")
+        f"step {loop['step_host_ms']:.4f} / {loop['step_device_ms']:.4f}"
+        + ("" if "sc_vk_nowall_ms" not in loop else
+           f"; K-SC with sites on this state without a wall model "
+           f"{loop['sc_vk_nowall_ms']:.4f}, ground only "
+           f"{loop['sc_vk_ground_ms']:.4f}, ground + side mirrors without the "
+           f"side stress {loop['sc_vk_sides_cd0_ms']:.4f}"))
     out.update(faces=faces, rms_over_sigma=ratios, points=int(len(rt.sigma)),
                update_stride=stride, step_loop=loop)
     return out
 
 
+def first_layer_du(a: Path, b: Path, flags: torch.Tensor) -> float:
+    """Mean |u_a - u_b| (m/s) of two raw u VTKs over the first fluid layer
+    above open ground: the lowest fluid cell of every interior column whose
+    only solid cells are the ground's (no building), the TYPE_E faces
+    left out."""
+    from latticeurbanwind_tpu_torch.io.vtk import read_structured_points
+    from latticeurbanwind_tpu_torch.lbm.state import TYPE_S
+
+    solid = ((flags & TYPE_S) != 0).numpy()
+    height = solid.sum(axis=0)                     # solid cells per column
+    ground = height.min()
+    first = np.argmin(solid, axis=0)               # lowest fluid cell
+    open_ = (height == ground) & (first == ground)
+    open_[0, :] = open_[-1, :] = open_[:, 0] = open_[:, -1] = False
+    ys, xs = np.nonzero(open_)
+    _, ua = read_structured_points(a)
+    _, ub = read_structured_points(b)
+    du = ua["data"][:, ground, ys, xs] - ub["data"][:, ground, ys, xs]
+    return float(np.sqrt((du ** 2).sum(axis=0)).mean())
+
+
+def run_datagen_deck(work: Path, tag: str, *, storage: str, steps: int,
+                     cases: int) -> dict:
+    """The example `.luwdg` deck as it ships (`case_parallel = true`) at
+    2 m cells with its first `cases` cases, through run_deck on the card,
+    with the launch counts zeroed just before and read just after."""
+    import latticeurbanwind_tpu_torch.run.modes as modes
+    from latticeurbanwind_tpu_torch.deck import load_deck
+    from latticeurbanwind_tpu_torch.io.vtk import read_structured_points
+
+    case = work / tag
+    shutil.copytree(EXAMPLE_DG, case)
+    deck = load_deck(case / "conf.luwdg")
+    if not deck.get_bool("case_parallel", False):
+        raise AssertionError("the example .luwdg deck does not set case_parallel")
+    deck.set_float("cell_size", DG_CELL_M)
+    deck.set_text("lbm_storage", storage)
+    deck.set_int("run_nstep", steps)
+    deck.save()
+    purge = deck.get_int("purge_avg", 0)
+    zero_launches()
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        results = modes.run_deck(case / "conf.luwdg", device=DEVICE, quiet=False,
+                                 max_cases=cases)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    printed = buf.getvalue()
+    log(printed.rstrip())
+    shape = tuple(results[-1].state.rho.shape)
+    log(f"[{tag}] {len(results)} cases, grid (Z, Y, X) = {shape}, "
+        f"{np.prod(shape) / 1e6:.2f}M cells; launches {launches}; solver "
+        + ", ".join(f"{r.solver_seconds:.2f} s ({r.timing['mlups']:.0f} MLUPs)"
+                    for r in results) + f"; whole run_deck {wall:.1f} s")
+    if "| Case-parallel   | one device: the cases run one after another" not in printed:
+        raise AssertionError(f"[{tag}] no serial-dispatch line")
+    n_avg = purge // 2
+    expect = {"stream_collide": cases * steps, "stream_collide_vk": 0,
+              "stream_collide_wall": 0, "avg_update": cases * n_avg,
+              "avg_update_wall": 0}
+    if launches != expect:
+        raise AssertionError(f"[{tag}] launch counts {launches} != {expect}")
+    inflows = deck.get_float_list("inflow")
+    angles = deck.get_float_list("angle")
+    prefixes = [f"DG_{modes._format_tag(u)}_{modes._format_tag(a)}_"
+                for u in inflows for a in angles][:cases]
+    for r, prefix in zip(results, prefixes):
+        names = sorted(f.name for f in r.files)
+        want = [f"{prefix}{DATETIME}_{k}-{steps:09d}.vtk"
+                for k in ("avg", "raw_rho", "raw_u")]
+        if names != want:
+            raise AssertionError(f"[{tag}] outputs {names} != {want}")
+        _, fields = read_structured_points(r.files[-1])
+        fluid = fields["fluid"] > 0.5
+        if not all(np.isfinite(v[..., fluid]).all() for v in fields.values()):
+            raise AssertionError(f"[{tag}] non-finite {prefix} averages")
+    log(f"[{tag}] outputs of {prefixes}: raw u, raw rho and _avg each, "
+        "finite at fluid cells")
+    return {"launches": launches, "wall": wall,
+            "solver_seconds": [r.solver_seconds for r in results],
+            "mlups": [r.timing["mlups"] for r in results]}
+
+
 def phase_main_path(work: Path) -> dict:
-    log("== phase 4: the example profile deck at 1.5 m through run_deck")
+    log("== phase 4: the example decks through run_deck")
     main = run_example_deck(work, "vk-bf16-400", storage="bf16", steps=400, vk=True)
     off = run_example_deck(work, "novk-bf16-100", storage="bf16", steps=100, vk=False)
     fp16c = run_example_deck(work, "vk-fp16c-200", storage="fp16c", steps=200,
                              vk=True)
-    return {"main": main, "paths": {"vk-bf16-400": main, "novk-bf16-100": off,
-                                    "vk-fp16c-200": fp16c}}
+    wall = run_example_deck(work, "wall-vk-bf16-400", storage="bf16", steps=400,
+                            vk=True, walls={"ground_z0": 0.055,
+                                            "building_z0": 0.01})
+    du = first_layer_du(wall["raw_u"], main["raw_u"], wall["flags"])
+    log(f"[wall-vk-bf16-400] raw u at t=400 against vk-bf16-400's in the first "
+        f"fluid layer above open ground: mean |du| = {du:.4f} m/s")
+    if not du > 1e-3:
+        raise AssertionError(f"the wall models changed the near-ground flow by "
+                             f"only {du} m/s")
+    wall["near_ground_du"] = du
+    dg = run_datagen_deck(work, "dg-bf16-300", storage="bf16", steps=300, cases=2)
+    paths = {"vk-bf16-400": main, "novk-bf16-100": off, "vk-fp16c-200": fp16c,
+             "wall-vk-bf16-400": wall, "dg-bf16-300": dg}
+    for p in paths.values():
+        p.pop("raw_u", None)
+        p.pop("flags", None)
+    return {"paths": paths}
 
 
 def main() -> int:
@@ -692,33 +964,65 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    launches = deck["main"]["launches"]
-    by_path = {tag: p["launches"] for tag, p in deck["paths"].items()}
+    paths = deck["paths"]
+    by_path = {tag: p["launches"] for tag, p in paths.items()}
+    # each kernel's launches on the deck path that runs it: the no-wall step
+    # on the example deck as it ships, the wall step and K-AVG on it with
+    # the wall models
+    main_sc = paths["vk-bf16-400"]["launches"]
+    main_wall = paths["wall-vk-bf16-400"]["launches"]
+
+    def times(prefix, wall):
+        return {k: v for k, v in timing["configs"].items()
+                if k.startswith(prefix)
+                and wall == any(w in k for w in (" wall", " trt"))}
+
+    def timed(t):
+        return {"ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": None}      # no one PyTorch call does a D3Q19 step
+
     record = {"kernels": [
         {"name": "stream_collide", "route": "cuda",
          "source": "latticeurbanwind_tpu_torch/csrc/stream_collide.cu",
          "replaces": "latticeurbanwind_tpu/ops/stream_collide.py:408",
-         "launches": launches["stream_collide"],
-         "launches_with_vk_sites": launches["stream_collide_vk"],
+         "launches": main_sc["stream_collide"] - main_sc["stream_collide_wall"],
+         "launches_with_vk_sites": main_sc["stream_collide_vk"],
          "max_abs_err": max(errs["stream_collide"].values()),
-         "ms": timing["sc_ms"], "plain_ms": timing["sc_plain"],
-         "launches_by_path": {k: v["stream_collide"] for k, v in by_path.items()},
+         **timed(timing["sc"]),
+         "launches_by_path": {k: v["stream_collide"] - v["stream_collide_wall"]
+                              for k, v in by_path.items()},
          "max_abs_err_by_config": errs["stream_collide"],
-         "times_by_config": {k: v for k, v in timing["configs"].items()
-                             if k.startswith("K-SC")},
-         "step_loop_by_path": {k: v["step_loop"] for k, v in deck["paths"].items()
-                               if "step_loop" in v}},
+         "times_by_config": times("K-SC", False),
+         "step_loop_by_path": {k: v["step_loop"] for k, v in paths.items()
+                               if "step_loop" in v and not k.startswith("wall")}},
+        {"name": "stream_collide_wall", "route": "cuda",
+         "source": "latticeurbanwind_tpu_torch/csrc/stream_collide_wall.cu",
+         "replaces": "latticeurbanwind_tpu/ops/stream_collide.py:618",
+         "launches": main_wall["stream_collide_wall"],
+         "launches_with_vk_sites": main_wall["stream_collide_vk"],
+         "max_abs_err": max(errs["stream_collide_wall"].values()),
+         **timed(timing["sc_wall"]),
+         "launches_by_path": {k: v["stream_collide_wall"]
+                              for k, v in by_path.items()},
+         "max_abs_err_by_config": errs["stream_collide_wall"],
+         "times_by_config": times("K-SC", True),
+         "step_loop_by_path": {k: v["step_loop"] for k, v in paths.items()
+                               if "step_loop" in v and k.startswith("wall")},
+         "near_ground_du_m_per_s": paths["wall-vk-bf16-400"]["near_ground_du"]},
         {"name": "avg_update", "route": "cuda",
          "source": "latticeurbanwind_tpu_torch/csrc/avg_update.cu",
          "replaces": "latticeurbanwind_tpu/ops/avg_kernel.py:85",
-         "launches": launches["avg_update"],
+         "launches": main_wall["avg_update"],
+         "launches_wall": main_wall["avg_update_wall"],
          "max_abs_err": max(errs["avg_update"].values()),
-         "ms": timing["av_ms"], "plain_ms": timing["av_plain"],
+         **timed(timing["av_wall"]),
          "launches_by_path": {k: v["avg_update"] for k, v in by_path.items()},
          "max_abs_err_by_config": errs["avg_update"],
          "times_by_config": {k: v for k, v in timing["configs"].items()
                              if k.startswith("K-AVG")}},
-    ]}
+    ], "build_s": card["build_s"], "nvcc_s": card["nvcc_s"],
+        "copy_gbps": timing["copy_gbps"]}
     log(card["smi"])
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

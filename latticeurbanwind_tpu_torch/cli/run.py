@@ -1,13 +1,15 @@
-"""Run the PyTorch port of the solver on a profile deck (.luwpf).
+"""Run the PyTorch port of the solver on a profile (.luwpf) or
+dataset-generation (.luwdg) deck.
 
     python -m latticeurbanwind_tpu_torch.cli.run conf.luwpf
+    python -m latticeurbanwind_tpu_torch.cli.run conf.luwdg --device cpu
 
 Counterpart of `latticeurbanwind_tpu/cli/run.py`.  There is no --impl
-switch: the run uses the first CUDA device when there is one (the
-hand-written kernels, built on first use) and the CPU otherwise (their
-plain torch versions); `--device` picks the device explicitly.  The deck
-runs as written, the VK synthetic-turbulence inlet and every `lbm_storage`
-included.  Other deck kinds raise `NotImplementedError` naming their
+switch: the run goes to the CUDA device (the hand-written kernels, built on
+first use) and raises when there is none; `--device cpu` runs the kernels'
+plain torch versions on the CPU instead.  The deck runs as written, the VK
+synthetic-turbulence inlet, the wall models and every `lbm_storage`
+included.  Standard decks (.luw) raise `NotImplementedError` naming their
 ROADMAP item.
 """
 
@@ -20,11 +22,12 @@ from pathlib import Path
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="runluw-torch", description=__doc__)
-    parser.add_argument("deck", help="path to conf.luwpf")
-    parser.add_argument("--device", default=None,
-                        help="torch device (default: cuda if available, else cpu)")
+    parser.add_argument("deck", help="path to conf.luwpf or conf.luwdg")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device (default: cuda, which must be "
+                             "present; cpu runs the plain versions)")
     parser.add_argument("--max-cases", type=int, default=0,
-                        help="run only the first N angles")
+                        help="run only the first N cases")
     parser.add_argument("--quiet", action="store_true")
     args = parser.parse_args(argv)
 

@@ -10,9 +10,12 @@
 // the moments of their own frozen equilibria -- and then updates the Welford
 // accumulators mean_u (3,Z,Y,X), m2_u (the variance trace) and mean_rho in
 // place with the inv_n = 1/(n+1) the host passes in.  Solid cells hold their
-// accumulators.  Storage is any codec of codec.cuh (f32, bf16, f16, fp16c;
-// the f16/fp16c decoders are the `dec` of the Pallas kernel's _make_codec)
-// in the (19, Z, Y, X) SoA layout.
+// accumulators.  With a wall model the streamed populations take its
+// specular mirrors and the half-step its Schumann stress (lattice.cuh; the
+// Pallas kernel's :179-192 and :218-234), as in update_fields.  Storage is
+// any codec of codec.cuh (f32, bf16, f16, fp16c; the f16/fp16c decoders are
+// the `dec` of the Pallas kernel's _make_codec) in the (19, Z, Y, X) SoA
+// layout.
 //
 // Bound on the H100: device memory.  A sample reads 19 DDFs and the flags
 // (39 B for the 2-byte storages, 77 B for f32 with the neighbour reads served
@@ -21,35 +24,33 @@
 //
 // Design: the same coalesced x-fastest thread layout and pull as the
 // stream-collide kernel; fluid cells read only the pulled values (plus the
-// own opposite where a source is solid), TYPE_E cells only their own 19.
+// own opposite, or a wall mirror, where a source is solid), TYPE_E cells
+// only their own 19.  The wall model is a template argument (0 none, 1
+// wall_model, 2 wall_sides), so the instances without it are the plain pass.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "codec.cuh"
+#include "lattice.cuh"
 
 namespace {
 
-constexpr uint8_t kTypeS = 0x01;
-constexpr uint8_t kTypeE = 0x02;
-constexpr float kCs = 0.57735027f;
+using luw::clamp_cs;
+using luw::kTypeE;
+using luw::kTypeS;
+using luw::wrap;
+
 constexpr int kThreads = 128;
 
-__device__ __forceinline__ float clamp_cs(float v) {
-  return fminf(fmaxf(v, -kCs), kCs);
-}
-
-__device__ __forceinline__ int wrap(int i, int n) {
-  return i < 0 ? i + n : (i >= n ? i - n : i);
-}
-
-template <class C>
+template <class C, int kWall>
 __global__ void __launch_bounds__(kThreads)
 avg_update_kernel(const typename C::T* __restrict__ fi,
                   const uint8_t* __restrict__ flags,
                   const float* __restrict__ dyn, float inv_n,
                   float* __restrict__ mean_u, float* __restrict__ m2_u,
-                  float* __restrict__ mean_rho, int Z, int Y, int X) {
+                  float* __restrict__ mean_rho, int Z, int Y, int X,
+                  float wall_cd, float wall_cd_sides) {
   const int CX[19] = {0, 1, -1, 0, 0, 1, -1, 1, -1, 0, 1, -1, 0, 0, 0, -1, 1, 0, 0};
   const int CY[19] = {0, 0, 0, 1, -1, 1, -1, -1, 1, 0, 0, 0, 1, -1, 0, 0, 0, -1, 1};
   const int CZ[19] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1, 1, 1, -1, -1, -1, -1, -1};
@@ -77,8 +78,13 @@ avg_update_kernel(const typename C::T* __restrict__ fi,
       const int ys = wrap(y - CY[d], Y);
       const int zs = wrap(z - CZ[d], Z);
       const long long src = ((long long)zs * Y + ys) * X + xs;
-      f[d] = (flags[src] & kTypeS) ? C::load(fi, (long long)OPP[d] * N + n)
-                                   : C::load(fi, (long long)d * N + src);
+      // one load of the selected element: 15% faster at 256^3 bf16 than
+      // selecting between two loads (chip_compare.py, PERF.md)
+      f[d] = C::load(fi, (flags[src] & kTypeS)
+                             ? luw::solid_source_index<kWall>(
+                                   flags, d, n, src, z, y, x, zs, ys, xs, X,
+                                   (long long)Y * X, N)
+                             : (long long)d * N + src);
     }
   }
 
@@ -96,9 +102,11 @@ avg_update_kernel(const typename C::T* __restrict__ fi,
   float u[3] = {mx / rho, my / rho, mz / rho};
   if (!eq) {
     const float ox = dyn[3], oy = dyn[4], oz = dyn[5];
-    const float Fx = dyn[0] - 2.0f * rho * (oy * u[2] - oz * u[1]);
-    const float Fy = dyn[1] - 2.0f * rho * (oz * u[0] - ox * u[2]);
-    const float Fz = dyn[2] - 2.0f * rho * (ox * u[1] - oy * u[0]);
+    float Fx = dyn[0] - 2.0f * rho * (oy * u[2] - oz * u[1]);
+    float Fy = dyn[1] - 2.0f * rho * (oz * u[0] - ox * u[2]);
+    float Fz = dyn[2] - 2.0f * rho * (ox * u[1] - oy * u[0]);
+    luw::wall_stress<kWall>(Fx, Fy, Fz, u[0], u[1], u[2], rho, flags, z, y, x,
+                            Z, Y, X, wall_cd, wall_cd_sides);
     const float half = 0.5f / rho;
     u[0] = clamp_cs(u[0] + Fx * half);
     u[1] = clamp_cs(u[1] + Fy * half);
@@ -120,27 +128,49 @@ avg_update_kernel(const typename C::T* __restrict__ fi,
   mean_rho[n] = mr + (rho - mr) * inv_n;
 }
 
+template <class C, int kWall>
+cudaError_t launch_wall(const void* fi, const uint8_t* flags, const float* dyn,
+                        float inv_n, float* mean_u, float* m2_u,
+                        float* mean_rho, int Z, int Y, int X, float wall_cd,
+                        float wall_cd_sides, cudaStream_t stream) {
+  const long long cells = (long long)Z * Y * X;
+  const unsigned int blocks = (unsigned int)((cells + kThreads - 1) / kThreads);
+  avg_update_kernel<C, kWall><<<blocks, kThreads, 0, stream>>>(
+      static_cast<const typename C::T*>(fi), flags, dyn, inv_n, mean_u, m2_u,
+      mean_rho, Z, Y, X, wall_cd, wall_cd_sides);
+  return cudaGetLastError();
+}
+
 template <class C>
 cudaError_t launch(const void* fi, const uint8_t* flags, const float* dyn,
                    float inv_n, float* mean_u, float* m2_u, float* mean_rho,
-                   int Z, int Y, int X, cudaStream_t stream) {
-  const long long cells = (long long)Z * Y * X;
-  const unsigned int blocks = (unsigned int)((cells + kThreads - 1) / kThreads);
-  avg_update_kernel<C><<<blocks, kThreads, 0, stream>>>(
-      static_cast<const typename C::T*>(fi), flags, dyn, inv_n, mean_u, m2_u,
-      mean_rho, Z, Y, X);
-  return cudaGetLastError();
+                   int Z, int Y, int X, int wall, float wall_cd,
+                   float wall_cd_sides, cudaStream_t stream) {
+  switch (wall) {
+    case 0: return launch_wall<C, 0>(fi, flags, dyn, inv_n, mean_u, m2_u,
+                                     mean_rho, Z, Y, X, wall_cd,
+                                     wall_cd_sides, stream);
+    case 1: return launch_wall<C, 1>(fi, flags, dyn, inv_n, mean_u, m2_u,
+                                     mean_rho, Z, Y, X, wall_cd,
+                                     wall_cd_sides, stream);
+    case 2: return launch_wall<C, 2>(fi, flags, dyn, inv_n, mean_u, m2_u,
+                                     mean_rho, Z, Y, X, wall_cd,
+                                     wall_cd_sides, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// storage: 0 = f32, 1 = bf16, 2 = f16 (FP16S), 3 = fp16c.  Launches on
-// `stream`, does not synchronise, and returns cudaGetLastError() after the
-// launch (0 on success).
+// storage: 0 = f32, 1 = bf16, 2 = f16 (FP16S), 3 = fp16c.  wall: 0 none, 1
+// wall_model (Schumann stress at wall_cd), 2 wall_sides too (side stress at
+// wall_cd_sides).  Launches on `stream`, does not synchronise, and returns
+// cudaGetLastError() after the launch (0 on success).
 extern "C" int luw_avg_update(const void* fi, const void* flags,
                               const void* dyn, float inv_n, void* mean_u,
                               void* m2_u, void* mean_rho, int Z, int Y, int X,
-                              int storage, void* stream) {
+                              int storage, int wall, float wall_cd,
+                              float wall_cd_sides, void* stream) {
   const auto* fl = static_cast<const uint8_t*>(flags);
   const auto* dy = static_cast<const float*>(dyn);
   auto* mu = static_cast<float*>(mean_u);
@@ -148,7 +178,8 @@ extern "C" int luw_avg_update(const void* fi, const void* flags,
   auto* mr = static_cast<float*>(mean_rho);
   const auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-#define LUW_AVG_ARGS fi, fl, dy, inv_n, mu, m2, mr, Z, Y, X, st
+#define LUW_AVG_ARGS \
+  fi, fl, dy, inv_n, mu, m2, mr, Z, Y, X, wall, wall_cd, wall_cd_sides, st
   switch (storage) {
     case 0: err = launch<luw::CodecF32>(LUW_AVG_ARGS); break;
     case 1: err = launch<luw::CodecBF16>(LUW_AVG_ARGS); break;

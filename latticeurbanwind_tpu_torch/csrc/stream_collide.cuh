@@ -1,0 +1,326 @@
+// The fused D3Q19 stream-collide step kernel (K-SC), a template over the
+// storage codec and the configuration, shared by the two translation units
+// that instantiate it: stream_collide.cu (SRT without a wall model, and the
+// C entry point) and stream_collide_wall.cu (the wall models and TRT).
+//
+// Replaces: latticeurbanwind_tpu/ops/stream_collide.py::make_pallas_step,
+// the Pallas TPU kernel that advances the lattice by one time step.  Stages,
+// in the Pallas evaluation order: pull streaming with halfway bounce-back
+// from solid sources (or the wall models' specular mirrors, lattice.cuh),
+// moments, global force + Coriolis, the wall models' Schumann stress,
+// buffer nudging and the top sponge toward the FaceBC targets, the Guo
+// half-step clamped to +-CS, equilibrium plus Guo source, the Smagorinsky
+// effective relaxation rate, SRT or TRT collision, the TYPE_E freeze
+// (equilibrium cells write their stored values back) and TYPE_S zeroing.
+// Storage is any codec of codec.cuh (f32, bf16, f16, fp16c) in the
+// (19, Z, Y, X) SoA layout of LBMState.fi; the wrap is periodic on all three
+// axes like the reference's modular neighbour indexing.
+//
+// Bound on the H100: device memory.  A cell update reads 19 DDFs and writes
+// 19 (2*19*sizeof(storage) bytes) plus its flag byte -- 77 B for the 2-byte
+// storages, 153 B for f32 -- plus 5 B of nudge fields when nudging is on;
+// the ~300 flops per cell (and the few integer ops of a software codec) are
+// far below the card's compute roof at that traffic.  The wall models add
+// no bytes beyond reads that L1/L2 serve (the mirror partners and the
+// neighbour flags of the stress).
+//
+// Design: threads run along x (the innermost axis) so every warp load and
+// store of a DDF channel is one coalesced line; the 18 pulled neighbours of
+// a thread are the same channels shifted by one row/plane, so a warp's pull
+// reads are coalesced too, and neighbour reuse comes from L1/L2 rather than
+// shared memory.  Own values are read only where needed (bounce-back
+// opposites, the TYPE_E freeze), and solid / TYPE_E cells skip the
+// arithmetic.  Offsets are 64-bit: 19 channels of a 134M-cell grid exceed
+// 2^31 elements.  The wall models and TRT are template arguments, so the
+// instances without them compile to the same code as before the wall models
+// existed, register for register and instruction for instruction
+// (chip_compare.py against that checkout); the wall instances take
+// 72-80 registers and cost +6% (ground) to +38% (wall_sides) per step at
+// 256^3 bf16 on the H100, most of it the side mirrors.  Shared-memory tiling
+// and TMA are later work.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "codec.cuh"
+#include "lattice.cuh"
+
+namespace luw {
+
+constexpr float kSmagorinsky = 0.76421222f;
+constexpr int kScThreads = 128;
+
+// c.v for a lattice direction, summing only its nonzero components in x, y,
+// z order (the reference kernels' evaluation order)
+__device__ __forceinline__ float cdot(int cx, int cy, int cz, float a, float b,
+                                      float c) {
+  return (cx ? cx * a : 0.0f) + (cy ? cy * b : 0.0f) + (cz ? cz * c : 0.0f);
+}
+
+// Face targets of the nudging band (FaceBC layouts: uw/ue (Z,3,Y),
+// us/un (Z,3,X), ut/ub (3,Y,X)); face ids 1..5 pick ue, us, un, ut, ub and
+// anything else the west face.
+__device__ __forceinline__ float face_target(
+    int face, int a, int z, int y, int x, int Y, int X,
+    const float* __restrict__ uw, const float* __restrict__ ue,
+    const float* __restrict__ us, const float* __restrict__ un,
+    const float* __restrict__ ut, const float* __restrict__ ub) {
+  const long long zy = ((long long)z * 3 + a) * Y + y;
+  const long long zx = ((long long)z * 3 + a) * X + x;
+  const long long yx = ((long long)a * Y + y) * X + x;
+  switch (face) {
+    case 1: return ue[zy];
+    case 2: return us[zx];
+    case 3: return un[zx];
+    case 4: return ut[yx];
+    case 5: return ub[yx];
+    default: return uw[zy];
+  }
+}
+
+// The VK inlet site masks: null where the face carries no site.  Lane masks
+// are (Z, 1, Y), row masks (Z, 1, X), plane masks (Y, X), all f32.
+struct VkMasks {
+  const float* uw;
+  const float* ue;
+  const float* us;
+  const float* un;
+  const float* ut;
+  const float* ub;
+};
+
+// Host-side arguments of one step (pointers already typed by the entry).
+struct ScArgs {
+  const void* fa;
+  void* fb;
+  const uint8_t* flags;
+  const float* dyn;
+  const float* nudge_sigma;
+  const uint8_t* nudge_face;
+  const float *uw, *ue, *us, *un, *ut, *ub;
+  const float* sponge_z;
+  VkMasks vm;
+  int Z, Y, X;
+  int volume_force, has_nudge, has_sponge, nudge_vertical, subgrid;
+  float omega, tau0, tau0_sq;
+  int wall, trt;  // wall: 0 none, 1 wall_model, 2 wall_sides
+  float wall_cd, wall_cd_sides;
+};
+
+// kNudge / kSponge: 0 off, 1 on, 2 on where the pointer is not null (the
+// wall and TRT instances take them at run time to keep their count down).
+template <class C, bool kForce, int kNudge, int kSponge, int kWall, bool kTrt>
+__global__ void __launch_bounds__(kScThreads)
+stream_collide_kernel(const typename C::T* __restrict__ fa,
+                      typename C::T* __restrict__ fb,
+                      const uint8_t* __restrict__ flags,
+                      const float* __restrict__ dyn,
+                      const float* __restrict__ nudge_sigma,
+                      const uint8_t* __restrict__ nudge_face,
+                      const float* __restrict__ uw, const float* __restrict__ ue,
+                      const float* __restrict__ us, const float* __restrict__ un,
+                      const float* __restrict__ ut, const float* __restrict__ ub,
+                      const float* __restrict__ sponge_z, int Z, int Y, int X,
+                      int nudge_vertical, int subgrid, float omega, float tau0,
+                      float tau0_sq, float wall_cd, float wall_cd_sides) {
+  // cz-grouped D3Q19 order of latticeurbanwind_tpu/lbm/lattice.py
+  const int CX[19] = {0, 1, -1, 0, 0, 1, -1, 1, -1, 0, 1, -1, 0, 0, 0, -1, 1, 0, 0};
+  const int CY[19] = {0, 0, 0, 1, -1, 1, -1, -1, 1, 0, 0, 0, 1, -1, 0, 0, 0, -1, 1};
+  const int CZ[19] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1, 1, 1, -1, -1, -1, -1, -1};
+  const int OPP[19] = {0, 2, 1, 4, 3, 6, 5, 8, 7, 14, 15, 16, 17, 18, 9, 10, 11, 12, 13};
+  const float W[19] = {1.f / 3.f, 1.f / 18.f, 1.f / 18.f, 1.f / 18.f, 1.f / 18.f,
+                       1.f / 36.f, 1.f / 36.f, 1.f / 36.f, 1.f / 36.f, 1.f / 18.f,
+                       1.f / 36.f, 1.f / 36.f, 1.f / 36.f, 1.f / 36.f, 1.f / 18.f,
+                       1.f / 36.f, 1.f / 36.f, 1.f / 36.f, 1.f / 36.f};
+
+  const long long N = (long long)Z * Y * X;
+  const long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= N) return;
+  const int x = (int)(n % X);
+  const long long zy = n / X;
+  const int y = (int)(zy % Y);
+  const int z = (int)(zy / Y);
+
+  const uint8_t fl = flags[n];
+  if (fl & kTypeS) {
+#pragma unroll
+    for (int d = 0; d < 19; ++d) fb[d * N + n] = C::enc(0.0f);
+    return;
+  }
+  if (fl & kTypeE) {  // frozen equilibrium: the stored bits go back unchanged
+#pragma unroll
+    for (int d = 0; d < 19; ++d) fb[d * N + n] = fa[d * N + n];
+    return;
+  }
+
+  // ---- pull streaming with halfway bounce-back (or the wall models'
+  // ---- mirrors) from solid sources ----
+  float f[19];
+  f[0] = C::load(fa, n);
+#pragma unroll
+  for (int d = 1; d < 19; ++d) {
+    const int xs = wrap(x - CX[d], X);
+    const int ys = wrap(y - CY[d], Y);
+    const int zs = wrap(z - CZ[d], Z);
+    const long long src = ((long long)zs * Y + ys) * X + xs;
+    if (kWall == 0) {  // kept as written before the wall models: same code
+      f[d] = (flags[src] & kTypeS) ? C::load(fa, (long long)OPP[d] * N + n)
+                                   : C::load(fa, (long long)d * N + src);
+    } else {
+      f[d] = C::load(fa, (flags[src] & kTypeS)
+                             ? solid_source_index<kWall>(
+                                   flags, d, n, src, z, y, x, zs, ys, xs, X,
+                                   (long long)Y * X, N)
+                             : (long long)d * N + src);
+    }
+  }
+
+  // ---- moments ----
+  float rho = f[0];
+#pragma unroll
+  for (int d = 1; d < 19; ++d) rho += f[d];
+  rho += 1.0f;
+  float mx = 0.0f, my = 0.0f, mz = 0.0f;
+#pragma unroll
+  for (int d = 1; d < 19; ++d) {
+    if (CX[d] == 1) mx += f[d]; else if (CX[d] == -1) mx -= f[d];
+    if (CY[d] == 1) my += f[d]; else if (CY[d] == -1) my -= f[d];
+    if (CZ[d] == 1) mz += f[d]; else if (CZ[d] == -1) mz -= f[d];
+  }
+  const float inv_rho = 1.0f / rho;
+  const float ux = mx * inv_rho, uy = my * inv_rho, uz = mz * inv_rho;
+
+  // ---- forces: global + Coriolis, wall stress, nudging, sponge ----
+  float Fx = 0.0f, Fy = 0.0f, Fz = 0.0f;
+  if (kForce) {
+    const float ox = dyn[3], oy = dyn[4], oz = dyn[5];
+    Fx = dyn[0] - 2.0f * rho * (oy * uz - oz * uy);
+    Fy = dyn[1] - 2.0f * rho * (oz * ux - ox * uz);
+    Fz = dyn[2] - 2.0f * rho * (ox * uy - oy * ux);
+    wall_stress<kWall>(Fx, Fy, Fz, ux, uy, uz, rho, flags, z, y, x, Z, Y, X,
+                       wall_cd, wall_cd_sides);
+  }
+  if (kNudge == 1 || (kNudge == 2 && nudge_sigma != nullptr)) {
+    const int face = nudge_face[n];
+    const float rs = rho * nudge_sigma[n];
+    Fx += rs * (face_target(face, 0, z, y, x, Y, X, uw, ue, us, un, ut, ub) - ux);
+    Fy += rs * (face_target(face, 1, z, y, x, Y, X, uw, ue, us, un, ut, ub) - uy);
+    if (nudge_vertical)
+      Fz += rs * (face_target(face, 2, z, y, x, Y, X, uw, ue, us, un, ut, ub) - uz);
+  }
+  if (kSponge == 1 || (kSponge == 2 && sponge_z != nullptr)) {
+    const float rs = rho * sponge_z[z];
+    const long long yx = (long long)y * X + x;
+    const long long plane = (long long)Y * X;
+    Fx += rs * (ut[yx] - ux);
+    Fy += rs * (ut[plane + yx] - uy);
+    Fz += rs * (ut[2 * plane + yx] - uz);
+  }
+
+  // ---- Guo half-step + clamp ----
+  float vx, vy, vz;
+  if (kForce) {
+    const float half = 0.5f / rho;
+    vx = clamp_cs(ux + Fx * half);
+    vy = clamp_cs(uy + Fy * half);
+    vz = clamp_cs(uz + Fz * half);
+  } else {
+    vx = clamp_cs(ux);
+    vy = clamp_cs(uy);
+    vz = clamp_cs(uz);
+  }
+
+  // ---- equilibrium + Guo source (opposite pairs share c.u) ----
+  const float c3 = -3.0f * (vx * vx + vy * vy + vz * vz);
+  const float rhom1 = rho - 1.0f;
+  const float uF = kForce ? -(1.0f / 3.0f) * (vx * Fx + vy * Fy + vz * Fz) : 0.0f;
+  float feq[19], fin[19];
+  feq[0] = (1.0f / 3.0f) * (rhom1 + rho * (0.5f * c3));
+  fin[0] = 3.0f * uF;
+#pragma unroll
+  for (int d = 1; d < 19; d += 2) {
+    const int od = OPP[d];
+    const float cu = 3.0f * cdot(CX[d], CY[d], CZ[d], vx, vy, vz);
+    const float base = W[d] * (rhom1 + rho * (0.5f * (cu * cu + c3)));
+    const float wcu = W[d] * rho * cu;
+    feq[d] = base + wcu;
+    feq[od] = base - wcu;
+    if (kForce) {
+      const float cF = cdot(CX[d], CY[d], CZ[d], Fx, Fy, Fz);
+      const float w9 = 9.0f * W[d];
+      const float cu3 = cu * (1.0f / 3.0f);
+      fin[d] = w9 * (cF * (cu3 + 1.0f / 3.0f) + uF);
+      fin[od] = w9 * (cF * (cu3 - 1.0f / 3.0f) + uF);
+    }
+  }
+
+  // ---- Smagorinsky-Lilly effective relaxation rate ----
+  float w_eff = omega;
+  if (subgrid) {
+    float hxx = 0.f, hyy = 0.f, hzz = 0.f, hxy = 0.f, hxz = 0.f, hyz = 0.f;
+#pragma unroll
+    for (int d = 1; d < 19; ++d) {
+      const float q = f[d] - feq[d];
+      if (CX[d] != 0) hxx += q;
+      if (CY[d] != 0) hyy += q;
+      if (CZ[d] != 0) hzz += q;
+      if (CX[d] * CY[d] == 1) hxy += q; else if (CX[d] * CY[d] == -1) hxy -= q;
+      if (CX[d] * CZ[d] == 1) hxz += q; else if (CX[d] * CZ[d] == -1) hxz -= q;
+      if (CY[d] * CZ[d] == 1) hyz += q; else if (CY[d] * CZ[d] == -1) hyz -= q;
+    }
+    const float Q = hxx * hxx + hyy * hyy + hzz * hzz +
+                    2.0f * (hxy * hxy + hxz * hxz + hyz * hyz);
+    w_eff = 2.0f / (tau0 + sqrtf(tau0_sq + kSmagorinsky * sqrtf(Q) / rho));
+  }
+
+  if (kTrt) {
+    // ---- TRT collision + storage encode: omega+ = w_eff on the even part
+    // ---- of each opposite pair, omega- (magic parameter 3/16) on the odd
+    const float wm = 1.0f / (0.1875f / (1.0f / w_eff - 0.5f) + 0.5f);
+    const float hp = 0.5f * w_eff, hm = 0.5f * wm;
+    const float ctp = 0.5f - 0.25f * w_eff, ctm = 0.5f - 0.25f * wm;
+#pragma unroll
+    for (int d = 0; d < 19; ++d) {
+      const int od = OPP[d];
+      float coll = f[d] + hp * (feq[d] - f[d] + feq[od] - f[od]) +
+                   hm * (feq[d] - feq[od] - f[d] + f[od]);
+      if (kForce) coll += ctp * (fin[d] + fin[od]) + ctm * (fin[d] - fin[od]);
+      fb[d * N + n] = C::enc(coll);
+    }
+    return;
+  }
+
+  // ---- SRT collision + storage encode ----
+  const float one_m_w = 1.0f - w_eff;
+  const float cfin = 1.0f - 0.5f * w_eff;
+#pragma unroll
+  for (int d = 0; d < 19; ++d) {
+    float coll = one_m_w * f[d] + w_eff * feq[d];
+    if (kForce) coll += cfin * fin[d];
+    fb[d * N + n] = C::enc(coll);
+  }
+}
+
+template <class C, bool kForce, int kNudge, int kSponge, int kWall, bool kTrt>
+cudaError_t sc_launch(const ScArgs& a, cudaStream_t stream) {
+  using T = typename C::T;
+  const long long cells = (long long)a.Z * a.Y * a.X;
+  const unsigned int blocks =
+      (unsigned int)((cells + kScThreads - 1) / kScThreads);
+  stream_collide_kernel<C, kForce, kNudge, kSponge, kWall, kTrt>
+      <<<blocks, kScThreads, 0, stream>>>(
+          static_cast<const T*>(a.fa), static_cast<T*>(a.fb), a.flags, a.dyn,
+          a.nudge_sigma, a.nudge_face, a.uw, a.ue, a.us, a.un, a.ut, a.ub,
+          a.sponge_z, a.Z, a.Y, a.X, a.nudge_vertical, a.subgrid, a.omega,
+          a.tau0, a.tau0_sq, a.wall_cd, a.wall_cd_sides);
+  return cudaGetLastError();
+}
+
+// One step of a wall-model or TRT configuration in codec C (defined and
+// instantiated for the four codecs in stream_collide_wall.cu).
+template <class C>
+cudaError_t sc_dispatch_wall(const ScArgs& a, cudaStream_t stream);
+
+}  // namespace luw

@@ -48,6 +48,22 @@ OPP19 = np.array(
     dtype=np.int32,
 )
 
+
+def _mirror(d: int, axis: int):
+    """Index of direction d reflected off a face normal to `axis` (0 x,
+    1 y, 2 the ground: cz = +1 directions only), or None when d has nothing
+    to reflect (the wall models' specular partners)."""
+    c = [int(v) for v in C19[d]]
+    if c[axis] == 0 or (axis == 2 and c[2] != 1):
+        return None
+    c[axis] = -c[axis]
+    return next(m for m in range(19) if [int(v) for v in C19[m]] == c)
+
+
+MIR_X = [_mirror(d, 0) for d in range(19)]
+MIR_Y = [_mirror(d, 1) for d in range(19)]
+MIR_Z = [_mirror(d, 2) for d in range(19)]
+
 # Index ranges of the cz groups (contiguous by construction).
 GROUP0 = slice(0, 9)     # cz = 0
 GROUP_P = slice(9, 14)   # cz = +1

@@ -181,6 +181,12 @@ class StepConfig:
             assert self.wall_cd_sides >= 0.0
 
 
+def wall_mode(config: StepConfig) -> int:
+    """0 no wall model, 1 the ground (`wall_model`), 2 the ground and the
+    vertical faces (`wall_sides`)."""
+    return 2 if config.wall_sides else (1 if config.wall_model else 0)
+
+
 def equilibrium_planes(rho: torch.Tensor, u: torch.Tensor):
     """Yield (d, feq_d) of the DDF-shifted D3Q19 equilibrium one direction at
     a time, in the JAX package's fp32 evaluation order (bit-identical to its

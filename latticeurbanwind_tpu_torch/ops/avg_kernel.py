@@ -10,7 +10,8 @@ stale value there; outputs mask solids either way).
 
 `avg_update` is the entry point: CPU tensors run `avg_update_plain`, CUDA
 tensors launch `csrc/avg_update.cu` or raise.  Every storage (f32, bf16,
-f16, fp16c) is taken; the plain version decodes through
+f16, fp16c) and every non-thermal configuration is taken, the wall models'
+mirrors and stress included; the plain version decodes through
 `lbm.state.decode_ddf`, the kernel through the device codecs of
 `csrc/codec.cuh`, which give the same bits.
 """
@@ -20,24 +21,24 @@ from __future__ import annotations
 import torch
 
 from ..lbm.fields import field_moments
-from ..lbm.state import StepConfig, TYPE_S, storage_dtype
+from ..lbm.state import StepConfig, TYPE_S, storage_dtype, wall_mode
 from ..run.welford import AvgState
 from .stream_collide import _STORAGE_CODE, _check_tensor
 
 
 def check_config(config: StepConfig) -> None:
-    if config.thermal or config.wall_model or config.wall_sides:
+    if config.thermal:
         raise NotImplementedError(
             "the averaging pass is ported for non-thermal configurations "
-            "without the wall models (ROADMAP kernel items K4 and K7)")
+            "(ROADMAP kernel item K7)")
     if config.storage not in _STORAGE_CODE:
         raise ValueError(f"unknown storage {config.storage!r}")
 
 
 def avg_update_plain(fi: torch.Tensor, flags: torch.Tensor, dyn: torch.Tensor,
-                     inv_n: float, avg: AvgState, storage: str) -> None:
+                     inv_n: float, avg: AvgState, config: StepConfig) -> None:
     """Plain torch: the fields pass + one Welford step, in place."""
-    rho, u = field_moments(fi, flags, dyn, storage)
+    rho, u = field_moments(fi, flags, dyn, config)
     solid = (flags & TYPE_S) != 0
     delta = torch.where(solid, 0.0, u - avg.mean_u)
     avg.mean_u.add_(delta * inv_n)
@@ -52,7 +53,7 @@ def avg_update(fi: torch.Tensor, flags: torch.Tensor, dyn: torch.Tensor,
     `avg_update.launches`."""
     check_config(config)
     if fi.device.type == "cpu":
-        avg_update_plain(fi, flags, dyn, inv_n, avg, config.storage)
+        avg_update_plain(fi, flags, dyn, inv_n, avg, config)
         return avg._replace(count=avg.count + 1)
     if fi.device.type != "cuda":
         raise NotImplementedError(f"no averaging kernel for {fi.device}")
@@ -74,11 +75,15 @@ def avg_update(fi: torch.Tensor, flags: torch.Tensor, dyn: torch.Tensor,
         rc = lib.luw_avg_update(
             fi.data_ptr(), flags.data_ptr(), dyn.data_ptr(), float(inv_n),
             avg.mean_u.data_ptr(), avg.m2_u.data_ptr(), avg.mean_rho.data_ptr(),
-            Z, Y, X, _STORAGE_CODE[config.storage], stream)
+            Z, Y, X, _STORAGE_CODE[config.storage], wall_mode(config),
+            config.wall_cd, config.wall_cd_sides, stream)
     if rc != 0:
         raise RuntimeError(f"luw_avg_update launch failed: CUDA error {rc}")
     avg_update.launches += 1
+    if config.wall_model:
+        avg_update.launches_wall += 1
     return avg._replace(count=avg.count + 1)
 
 
 avg_update.launches = 0
+avg_update.launches_wall = 0

@@ -8,12 +8,39 @@ come from the static `FaceBC` built once from the initial velocity field.
 
 `stream_collide` is the entry point.  A tensor on the CPU goes to
 `stream_collide_plain` (torch ops with `torch.roll` pulls); a CUDA tensor
-launches `csrc/stream_collide.cu` or raises.  There is no fallback between
-the two.  Both take the same configurations: SRT + Smagorinsky LES with
-equilibrium boundaries, f32, bf16, f16 or fp16c storage, volume force
-(global force + Coriolis) on or off, buffer nudging, the top sponge, and the
-VK inlet sites of `bc.vk_inlet` (`vk`, the hook's `kernel_spec`).  The rest
-raises `NotImplementedError` naming the ROADMAP kernel item that ports it.
+launches `csrc/stream_collide.cu` (no wall model, SRT) or
+`csrc/stream_collide_wall.cu` (the wall models or TRT) or raises.  There is
+no fallback between the two.  Both take every non-thermal configuration:
+SRT or TRT collision with Smagorinsky LES and equilibrium boundaries, f32,
+bf16, f16 or fp16c storage, volume force (global force + Coriolis) on or
+off, buffer nudging, the top sponge, the wall models (`wall_model`,
+`wall_sides`) and the VK inlet sites of `bc.vk_inlet` (`vk`, the hook's
+`kernel_spec`).  Thermal raises `NotImplementedError` naming the ROADMAP
+kernel item that ports it.
+
+Wall models (Pallas `make_pallas_step` :618-650 and :678-703, reference
+`lbm/reference.py::_stream`): a direction d whose pull source is solid
+takes, instead of the bounce-back value f_opp(x), the first admissible
+mirror in the order ground, x face, y face (the reference applies them as
+selects y, x, ground, so the later one wins):
+
+  * ground (`wall_model`, cz = +1): f_(cx,cy,-1) of the own plane at
+    (x - cx, y - cy, z), when that cell is fluid;
+  * x face (`wall_sides`, cx != 0): f_(-cx,cy,cz) at (x, y - cy, z - cz),
+    when fluid;
+  * y face (`wall_sides`, cy != 0): f_(cx,-cy,cz) at (x - cx, y, z - cz),
+    when fluid.
+
+All reads are of the previous step's DDFs and wrap periodically.  The
+Schumann stress F_h -= Cd rho |u_h| u_h acts at fluid cells whose z - 1
+neighbour is solid; with `wall_sides` and Cd_sides > 0 a fluid cell beside
+an x (y) solid neighbour loses Cd_sides rho |u_t| u_t along y and z (x and
+z).  Both use the streamed, unforced velocity and come right after
+Coriolis, before nudging and the sponge.
+
+TRT (Pallas :890-902): omega+ is the LES rate, omega- = 1/(0.1875/(1/omega+
+- 1/2) + 1/2) per cell, and each opposite pair relaxes its even part at
+omega+ and its odd part at omega-; the Guo source splits the same way.
 
 VK inlet sites (Pallas `make_pallas_step` :915-978): each site (kind,
 field) overwrites the step's encoded outputs on one boundary face with
@@ -32,10 +59,11 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..lbm.fields import pull, wall_stress
 from ..lbm.lattice import C19, CS, OPP19, SMAGORINSKY_FACTOR, W19
 from ..lbm.state import (
     Forcing, StepConfig, TYPE_E, TYPE_S, decode_ddf, encode_ddf,
-    storage_dtype,
+    storage_dtype, wall_mode,
 )
 
 _STORAGE_CODE = {"f32": 0, "bf16": 1, "f16": 2, "fp16c": 3}
@@ -74,15 +102,6 @@ def build_face_bc(u: torch.Tensor) -> FaceBC:
 
 def check_config(config: StepConfig, forcing: Forcing, vk=None) -> None:
     """Raise for a configuration K-SC (and its plain version) does not take."""
-    if config.collision != "srt":
-        raise NotImplementedError(
-            "TRT collision is not ported yet (ROADMAP kernel item K2, TRT)")
-    if config.wall_model:
-        raise NotImplementedError(
-            "wall_model is not ported yet (ROADMAP kernel item K4)")
-    if config.wall_sides:
-        raise NotImplementedError(
-            "wall_sides is not ported yet (ROADMAP kernel item K4)")
     if config.thermal:
         raise NotImplementedError(
             "thermal D3Q7 is not ported yet (ROADMAP kernel item K7)")
@@ -187,11 +206,9 @@ def stream_collide_plain(fi: torch.Tensor, flags: torch.Tensor,
     solid = (flags & TYPE_S) != 0
     eqbc = (flags & TYPE_E) != 0
 
-    f = [f_prev[0]]
-    for d in range(1, 19):
-        src_solid = _roll(solid, C19[d])
-        f.append(torch.where(src_solid, f_prev[int(OPP19[d])],
-                             _roll(f_prev[d], C19[d])))
+    wall = wall_mode(config)
+    f = [f_prev[0]] + [pull(f_prev.__getitem__, solid, d, wall)
+                       for d in range(1, 19)]
 
     rho = f[0]
     for d in range(1, 19):
@@ -214,6 +231,7 @@ def stream_collide_plain(fi: torch.Tensor, flags: torch.Tensor,
         F = [fx - 2.0 * rho * (oy * un[2] - oz * un[1]),
              fy - 2.0 * rho * (oz * un[0] - ox * un[2]),
              fz - 2.0 * rho * (ox * un[1] - oy * un[0])]
+        F = wall_stress(F, un, rho, solid, config)
     if has_nudge:
         face = forcing.nudge_face
         rs = rho * torch.where(eqbc, 0.0, forcing.nudge_sigma)
@@ -284,15 +302,33 @@ def stream_collide_plain(fi: torch.Tensor, flags: torch.Tensor,
     else:
         w_eff = torch.full_like(rho, config.omega)
 
-    one_m_w = 1.0 - w_eff
-    cfin = 1.0 - 0.5 * w_eff
+    if config.collision == "srt":
+        one_m_w = 1.0 - w_eff
+        cfin = 1.0 - 0.5 * w_eff
+
+        def collide(d):
+            coll = one_m_w * f[d] + w_eff * feq[d]
+            return coll + cfin * fin[d] if use_force else coll
+    else:
+        wp = w_eff
+        wm = 1.0 / (0.1875 / (1.0 / wp - 0.5) + 0.5)
+        c_taup = 0.5 - 0.25 * wp
+        c_taum = 0.5 - 0.25 * wm
+
+        def collide(d):
+            od = int(OPP19[d])
+            coll = (f[d] + 0.5 * wp * (feq[d] - f[d] + feq[od] - f[od])
+                    + 0.5 * wm * (feq[d] - feq[od] - f[d] + f[od]))
+            if use_force:
+                coll = coll + (c_taup * (fin[d] + fin[od])
+                               + c_taum * (fin[d] - fin[od]))
+            return coll
+
     out = torch.empty_like(fi)
     raw_out, raw_in = _raw(out), _raw(fi)
     zero = torch.zeros((), dtype=raw_out.dtype, device=fi.device)
     for d in range(19):
-        coll = one_m_w * f[d] + w_eff * feq[d]
-        if use_force:
-            coll = coll + cfin * fin[d]
+        coll = collide(d)
         post = torch.where(eqbc, raw_in[d],
                            _raw(encode_ddf(coll, config.storage)))
         raw_out[d] = torch.where(solid, zero, post)
@@ -320,7 +356,8 @@ def stream_collide(fi: torch.Tensor, flags: torch.Tensor, dyn: torch.Tensor,
     alias `fi`), with the VK inlet sites of `vk` when given.  CPU tensors
     run the plain version; CUDA tensors launch K-SC and count the launch in
     `stream_collide.launches` (and, with sites, in
-    `stream_collide.launches_vk` too)."""
+    `stream_collide.launches_vk` too; with a wall model, an instance of
+    `csrc/stream_collide_wall.cu`, in `stream_collide.launches_wall`)."""
     check_config(config, forcing, vk)
     if fi.device.type not in ("cpu", "cuda"):
         raise NotImplementedError(f"no stream-collide kernel for {fi.device}")
@@ -386,14 +423,19 @@ def stream_collide(fi: torch.Tensor, flags: torch.Tensor, dyn: torch.Tensor,
             mptr["ue"], mptr["us"], mptr["un"], mptr["ut"], mptr["ub"], Z, Y, X,
             _STORAGE_CODE[config.storage], int(config.volume_force),
             int(has_nudge), int(has_sponge), int(forcing.nudge_vertical),
-            int(config.subgrid), config.omega, tau0, tau0 * tau0, stream)
+            int(config.subgrid), config.omega, tau0, tau0 * tau0,
+            wall_mode(config), int(config.collision == "trt"), config.wall_cd,
+            config.wall_cd_sides, stream)
     if rc != 0:
         raise RuntimeError(f"luw_stream_collide launch failed: CUDA error {rc}")
     stream_collide.launches += 1
     if vk is not None:
         stream_collide.launches_vk += 1
+    if config.wall_model:
+        stream_collide.launches_wall += 1
     return out
 
 
 stream_collide.launches = 0
 stream_collide.launches_vk = 0
+stream_collide.launches_wall = 0

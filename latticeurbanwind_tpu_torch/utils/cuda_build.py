@@ -11,7 +11,9 @@ together; the shared headers (`.cuh`) are only included:
          -o _build/libluwtorch_<digest>.so _build/<digest>/*.o
 
 The digest is the SHA-256 of every `.cu` and `.cuh`, so an edited kernel or
-header rebuilds and an unchanged tree loads the existing library.  A missing
+header rebuilds and an unchanged tree loads the existing library.  The
+build log (nvcc's output, `-Xptxas -v` included) ends each command's part
+with a line `# nvcc <source name or link>: <seconds> s`.  A missing
 nvcc or a failed build raises with nvcc's output; nothing falls back.
 Nothing here runs at import time: the CPU tests import every module and
 never build.
@@ -25,6 +27,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -46,10 +49,13 @@ SIGNATURES = {
     # fa, fb, flags, dyn, nudge_sigma, nudge_face, uw, ue, us, un, ut, ub,
     # sponge_z, mask_uw, mask_ue, mask_us, mask_un, mask_ut, mask_ub,
     # Z, Y, X, storage, volume_force, has_nudge, has_sponge, nudge_vertical,
-    # subgrid, omega, tau0, tau0_sq, stream
-    "luw_stream_collide": [_P] * 19 + [_I] * 9 + [_F] * 3 + [_P],
-    # fi, flags, dyn, inv_n, mean_u, m2_u, mean_rho, Z, Y, X, storage, stream
-    "luw_avg_update": [_P, _P, _P, _F, _P, _P, _P, _I, _I, _I, _I, _P],
+    # subgrid, omega, tau0, tau0_sq, wall, trt, wall_cd, wall_cd_sides, stream
+    "luw_stream_collide": [_P] * 19 + [_I] * 9 + [_F] * 3 + [_I] * 2
+                          + [_F] * 2 + [_P],
+    # fi, flags, dyn, inv_n, mean_u, m2_u, mean_rho, Z, Y, X, storage, wall,
+    # wall_cd, wall_cd_sides, stream
+    "luw_avg_update": [_P, _P, _P, _F, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                       _F, _P],
     # x (f32), out (storage), n, storage, stream
     "luw_codec_encode": [_P, _P, _L, _I, _P],
     # bits (storage), out (f32), n, storage, stream
@@ -86,13 +92,14 @@ def find_nvcc() -> str:
                        "the CUDA kernels cannot be built")
 
 
-def _run(cmd: list[str]) -> str:
+def _run(cmd: list[str], label: str) -> str:
+    t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     out = proc.stdout + proc.stderr
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
                            f"{' '.join(cmd)}\n{out}")
-    return out
+    return f"{out}# nvcc {label}: {time.perf_counter() - t0:.1f} s\n"
 
 
 def build() -> tuple[Path, str]:
@@ -113,9 +120,9 @@ def build() -> tuple[Path, str]:
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
     try:
         with ThreadPoolExecutor(max_workers=max(1, len(cmds))) as pool:
-            logs = list(pool.map(_run, cmds))
+            logs = list(pool.map(_run, cmds, [p.name for p in srcs]))
         logs.append(_run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
-                          *map(str, objs)]))
+                          *map(str, objs)], "link"))
         out = "".join(logs)
         log.write_text(out)
         os.replace(tmp, lib)      # atomic: a reader never sees half a file

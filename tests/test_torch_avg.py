@@ -3,9 +3,10 @@ K-AVG) against the JAX package's update_fields + welford_update.
 
 Inputs mirror tests/test_avg_kernel.py::_case (LUW shell, solid ground and a
 solid block, force + Coriolis) from numpy seeds, crossed bit for bit through
-`convert`.  The fused pass holds solid cells while update_fields +
-welford_update re-accumulate them (avg_kernel.py:18-21), so the averaging
-comparison covers fluid and TYPE_E cells.  1e-5 is the JAX fused kernel's own
+`convert`, over its (storage, wall_model, wall_sides) matrix after the four
+storages without a wall model.  The fused pass holds solid cells while
+update_fields + welford_update re-accumulate them (avg_kernel.py:18-21), so
+the averaging comparison covers fluid and TYPE_E cells.  1e-5 is the JAX fused kernel's own
 f32 tolerance against the same pair (test_avg_kernel.py); both sides decode
 identical storage bits, so bf16, f16 and fp16c meet it too.
 """
@@ -13,9 +14,22 @@ identical storage bits, so bf16, f16 and fp16c meet it too.
 import numpy as np
 import pytest
 import torch
+from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
 
 
-def _case(storage, seed, shape=(8, 24, 32)):
+# the (storage, wall, sides) matrix of tests/test_avg_kernel.py, after the
+# four storages without a wall model; ids of those stay the storage names
+_MATRIX = [pytest.param(s, False, False, id=s)
+           for s in ("f32", "bf16", "f16", "fp16c")] + [
+    pytest.param("f32", True, False, id="f32-wall"),
+    pytest.param("f32", True, True, id="f32-wall-sides"),
+    pytest.param("bf16", True, False, id="bf16-wall"),
+]
+
+
+def _case(storage, seed, shape=(8, 24, 32), wall=False, sides=False):
+    import dataclasses
+
     import jax.numpy as jnp
 
     from latticeurbanwind_tpu.lbm import (
@@ -26,6 +40,10 @@ def _case(storage, seed, shape=(8, 24, 32)):
     Z, Y, X = shape
     rng = np.random.default_rng(seed)
     cfg = StepConfig(omega=omega_from_nu(0.03), subgrid=True, storage=storage)
+    if wall:
+        cfg = dataclasses.replace(cfg, wall_model=True, wall_cd=0.0134)
+    if sides:
+        cfg = dataclasses.replace(cfg, wall_sides=True, wall_cd_sides=0.004)
     u = 0.03 * rng.standard_normal((3, Z, Y, X)).astype(np.float32)
     rho = (1.0 + 0.001 * rng.standard_normal(shape)).astype(np.float32)
     flags = np.zeros(shape, np.uint8)
@@ -42,21 +60,21 @@ def _case(storage, seed, shape=(8, 24, 32)):
     return cfg, state, dyn, flags
 
 
-def _stepped(storage, seed):
+def _stepped(storage, seed, wall=False, sides=False):
     """A state a few reference steps past equilibrium, with stale rho/u."""
     import jax
 
     from latticeurbanwind_tpu.lbm.reference import make_step
 
-    cfg, state, dyn, flags = _case(storage, seed)
+    cfg, state, dyn, flags = _case(storage, seed, wall=wall, sides=sides)
     step = jax.jit(make_step(cfg))
     for _ in range(3):
         state = step(state, dyn)
     return cfg, state, dyn, flags
 
 
-@pytest.mark.parametrize("storage", ["f32", "bf16", "f16", "fp16c"])
-def test_update_fields_matches_jax(storage):
+@pytest.mark.parametrize("storage,wall,sides", _MATRIX)
+def test_update_fields_matches_jax(storage, wall, sides):
     import dataclasses
 
     from latticeurbanwind_tpu.lbm.fields import update_fields as jax_update
@@ -64,7 +82,7 @@ def test_update_fields_matches_jax(storage):
     from latticeurbanwind_tpu_torch.lbm.fields import update_fields
     from latticeurbanwind_tpu_torch.lbm.state import StepConfig
 
-    cfg, state, dyn, _ = _stepped(storage, 4)
+    cfg, state, dyn, _ = _stepped(storage, 4, wall, sides)
     want = jax_update(state, cfg, dyn)
     got = update_fields(convert.state_from_jax(state),
                         StepConfig(**dataclasses.asdict(cfg)),
@@ -73,8 +91,8 @@ def test_update_fields_matches_jax(storage):
     np.testing.assert_allclose(got.u.numpy(), np.asarray(want.u), atol=1e-6)
 
 
-@pytest.mark.parametrize("storage", ["f32", "bf16", "f16", "fp16c"])
-def test_avg_pass_matches_update_fields_plus_welford(storage):
+@pytest.mark.parametrize("storage,wall,sides", _MATRIX)
+def test_avg_pass_matches_update_fields_plus_welford(storage, wall, sides):
     import dataclasses
 
     from latticeurbanwind_tpu.lbm.fields import update_fields as jax_update
@@ -85,7 +103,7 @@ def test_avg_pass_matches_update_fields_plus_welford(storage):
     from latticeurbanwind_tpu_torch.ops.avg_kernel import avg_update
     from latticeurbanwind_tpu_torch.run import welford as tw
 
-    samples = [_stepped(storage, seed) for seed in (4, 11, 23, 31)]
+    samples = [_stepped(storage, seed, wall, sides) for seed in (4, 11, 23, 31)]
     cfg, _, dyn, flags = samples[0]
     shape = flags.shape
 

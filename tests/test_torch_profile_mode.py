@@ -22,6 +22,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
 
 EXAMPLE = Path(__file__).resolve().parents[1] / "examples" / "example_ProfileResearch_noDEM"
 
@@ -87,20 +88,59 @@ def test_profile_deck_matches_jax_pure_ddf_tier(tmp_path):
 
 
 def test_port_refuses_what_it_does_not_run(tmp_path):
+    """The wall models (`ground_z0`, K4) and dataset-generation decks
+    (`.luwdg`) run; standard decks (`.luw`, module item 8) and thermal
+    configurations (K7) raise naming their ROADMAP item."""
     from latticeurbanwind_tpu_torch.deck import load_deck
+    from latticeurbanwind_tpu_torch.lbm.state import StepConfig
+    from latticeurbanwind_tpu_torch.lbm.stepper import make_runner
     from latticeurbanwind_tpu_torch.run.modes import run_deck
 
     deck_path = _deck_copy(tmp_path / "wall")
     deck = load_deck(deck_path)
     deck.set_float("ground_z0", 0.1)
+    deck.set_int("run_nstep", 4)
+    deck.set_int("unsteady_output", 0)
+    deck.set_int("purge_avg", 0)
     deck.save()
-    with pytest.raises(NotImplementedError, match="K4"):
-        run_deck(deck_path, device="cpu", quiet=True)
-    for suffix in ("luw", "luwdg"):
-        other = tmp_path / f"conf.{suffix}"
-        other.write_text("casename = x\n")
-        with pytest.raises(NotImplementedError, match="module item 8"):
-            run_deck(other, device="cpu", quiet=True)
+    (r,) = run_deck(deck_path, device="cpu", quiet=True, max_cases=1)
+    assert r.total_steps == 4
+
+    dg = tmp_path / "dg"
+    shutil.copytree(EXAMPLE.parent / "example_DatasetGen", dg)
+    deck = load_deck(dg / "conf.luwdg")
+    deck.set_int("run_nstep", 4)
+    deck.set_int("purge_avg", 0)
+    deck.save()
+    (r,) = run_deck(dg / "conf.luwdg", device="cpu", quiet=True, max_cases=1)
+    assert r.total_steps == 4 and r.files[0].name.startswith("DG_4_0_")
+
+    other = tmp_path / "conf.luw"
+    other.write_text("casename = x\n")
+    with pytest.raises(NotImplementedError, match="module item 8"):
+        run_deck(other, device="cpu", quiet=True)
+    with pytest.raises(NotImplementedError, match="K7"):
+        make_runner(StepConfig(omega=1.5, thermal=True), shape=(4, 8, 8),
+                    device="cpu")
+
+
+def test_entry_points_need_the_card_unless_asked_for_the_cpu(tmp_path,
+                                                             monkeypatch):
+    """Without a CUDA device, run_deck and the CLI without --device raise and
+    point at the CPU run; nothing falls back to the CPU by itself."""
+    import torch
+
+    from latticeurbanwind_tpu_torch.cli.run import main
+    from latticeurbanwind_tpu_torch.run.modes import run_deck
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    deck_path = _deck_copy(tmp_path / "nocard")
+    for run in (lambda: run_deck(deck_path, quiet=True),
+                lambda: run_deck(deck_path, device="cuda", quiet=True),
+                lambda: main([str(deck_path), "--quiet"])):
+        with pytest.raises(RuntimeError, match="no CUDA device.*device=.cpu"):
+            run()
+    assert not (tmp_path / "nocard" / "RESULTS").exists()
 
 
 def test_cli_runs_a_deck_on_the_cpu(tmp_path, capsys):
@@ -115,3 +155,36 @@ def test_cli_runs_a_deck_on_the_cpu(tmp_path, capsys):
                     "ANG_0_20260101120000_raw_rho-000000040.vtk",
                     "ANG_0_20260101120000_raw_u-000000020.vtk",
                     "ANG_0_20260101120000_raw_u-000000040.vtk"]
+
+
+@pytest.mark.parametrize("walls", [
+    {}, {"ground_z0": 0.055}, {"ground_z0": 0.055, "building_z0": 0.01},
+    {"ground_z0": 0.055, "building_z0": -1.0}, {"ground_z0": 2.0},
+    {"building_z0": 0.01},
+])
+def test_wall_model_from_deck_matches_jax(tmp_path, walls):
+    """`ground_z0` / `building_z0` give the JAX package's StepConfig (wall_cd
+    from kappa / ln(z1/z0) with z1 half a cell, the ratio clamped at e;
+    `building_z0 = -1` free-slip sides; no ground model, no side model)."""
+    import dataclasses
+
+    from latticeurbanwind_tpu.lbm import StepConfig as JaxStepConfig
+    from latticeurbanwind_tpu.run.case import apply_wall_model as jax_apply
+    from latticeurbanwind_tpu_torch.deck import load_deck
+    from latticeurbanwind_tpu_torch.lbm.state import StepConfig
+    from latticeurbanwind_tpu_torch.run.case import apply_wall_model
+
+    deck_path = _deck_copy(tmp_path / "deck")
+    deck = load_deck(deck_path)
+    for key, value in walls.items():
+        deck.set_float(key, value)
+    deck.save()
+    deck = load_deck(deck_path)
+    for cell_m in (1.5, 8.0):
+        got = apply_wall_model(StepConfig(omega=1.7, volume_force=False), deck,
+                               cell_m)
+        want = jax_apply(JaxStepConfig(omega=1.7, volume_force=False), deck,
+                         cell_m)
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
+        assert got.wall_model == ("ground_z0" in walls)
+        assert got.wall_sides == (got.wall_model and "building_z0" in walls)

@@ -13,6 +13,7 @@ import torch
 from latticeurbanwind_tpu.lbm import state as jst
 from latticeurbanwind_tpu_torch import convert
 from latticeurbanwind_tpu_torch.lbm import state as tst
+from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 

@@ -18,6 +18,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(autouse=True)
@@ -154,6 +155,61 @@ def test_plain_step_matches_jax_pallas_kernel():
     np.testing.assert_allclose(got, want, atol=6e-6)
 
 
+_WALL = dict(wall_model=True, wall_cd=0.0134)
+_SIDES = dict(_WALL, wall_sides=True, wall_cd_sides=0.004)
+_TRT = dict(collision="trt")
+_CONFIGS = {"wall": _WALL, "wall+sides": _SIDES, "trt": _TRT,
+            "trt+wall+sides": dict(_TRT, **_SIDES)}
+
+
+@pytest.mark.parametrize("shape,storage,atol,name", [
+    *[(shape, "f32", 1e-5, name) for shape in ((8, 32, 128), (7, 21, 45))
+      for name in _CONFIGS],
+    *[((7, 21, 45), storage, atol, name)
+      for storage, atol in (("bf16", 2e-4), ("fp16c", 2e-5))
+      for name in ("wall+sides", "trt")],
+])
+def test_plain_wall_and_trt_steps_match_jax_reference(shape, storage, atol,
+                                                      name):
+    """The wall models (K4: ground specular + Schumann stress, the vertical
+    faces' mirrors + side stress) and TRT (K2) against JAX `make_step`.
+    1e-5 for f32 is the JAX kernel's own wall-model tolerance
+    (test_pallas_kernel.py: the near-wall |u_h| u_h force reorders fp32
+    sums); the coded storages keep their 2e-4 and 2e-5."""
+    cfg, state, forcing, dyn = _mk_case(shape, storage)
+    cfg = dataclasses.replace(cfg, **_CONFIGS[name])
+    got = _port_plain_steps(cfg, state, forcing, dyn)
+    want = _reference_steps(cfg, state, forcing, dyn)
+    np.testing.assert_allclose(_decoded(got, storage), _decoded(want, storage),
+                               atol=atol)
+
+
+@pytest.mark.parametrize("name", ["wall+sides", "trt+wall+sides"])
+def test_plain_wall_and_trt_steps_match_jax_pallas_kernel(name):
+    """The same against the Pallas kernel in interpret mode, f32, at
+    (8, 32, 128)."""
+    import jax
+
+    from latticeurbanwind_tpu.ops.stream_collide import (
+        make_pallas_step, merge_state, split_state,
+    )
+
+    shape = (8, 32, 128)
+    cfg, state, forcing, dyn = _mk_case(shape, "f32")
+    cfg = dataclasses.replace(cfg, **_CONFIGS[name])
+    pstep = make_pallas_step(cfg, forcing, shape)
+
+    def pal_run(st, d):
+        s = split_state(st, with_fbc=True)
+        for _ in range(5):
+            s = pstep(s, d)
+        return merge_state(s)
+
+    want = np.asarray(jax.jit(pal_run)(state, dyn).fi)
+    got = _port_plain_steps(cfg, state, forcing, dyn)
+    np.testing.assert_allclose(got, want, atol=1e-5)
+
+
 def test_stepper_runs_the_wrapper_over_two_buffers():
     """make_runner on the CPU gives exactly the plain loop's DDFs, and
     reuses the two buffers it swaps (no new allocation per step)."""
@@ -184,19 +240,19 @@ def test_stepper_runs_the_wrapper_over_two_buffers():
 
 
 @pytest.mark.parametrize("change,item", [
-    (dict(collision="trt"), "K2"),
-    (dict(wall_model=True, wall_cd=0.01), "K4"),
-    (dict(wall_model=True, wall_cd=0.01, wall_sides=True), "K4"),
+    (dict(collision="trt"), None),
+    (dict(wall_model=True, wall_cd=0.01), None),
+    (dict(wall_model=True, wall_cd=0.01, wall_sides=True), None),
     (dict(thermal=True), "K7"),
     (dict(storage="f16"), None),
     (dict(storage="fp16c"), None),
     (dict(), None),
 ])
 def test_wrapper_refuses_unported_configs(change, item):
-    """TRT (K2), the wall models (K4) and thermal (K7) raise naming their
-    ROADMAP item; the f16/fp16c storages (K5) and the VK inlet sites (K6,
-    the last case) are taken: a rest state stays at rest, except the west
-    lane, whose site writes feq(rho=1, u_west)."""
+    """Thermal (K7) raises naming its ROADMAP item; TRT (K2), the wall
+    models (K4), the f16/fp16c storages (K5) and the VK inlet sites (K6, the
+    last case) are taken: a rest state stays at rest, except the west lane,
+    whose site writes feq(rho=1, u_west)."""
     from latticeurbanwind_tpu_torch.lbm.state import (
         Forcing, StepConfig, decode_ddf, encode_ddf, storage_dtype,
     )
@@ -245,8 +301,10 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
         (tmp_path / "_build").glob("*.so"))
     assert len(cuda_build.source_digest()) == 64
     assert [p.name for p in cuda_build.sources()] == [
-        "avg_update.cu", "codec.cu", "stream_collide.cu"]
-    assert [p.name for p in cuda_build.headers()] == ["codec.cuh"]
+        "avg_update.cu", "codec.cu", "stream_collide.cu",
+        "stream_collide_wall.cu"]
+    assert [p.name for p in cuda_build.headers()] == [
+        "codec.cuh", "lattice.cuh", "stream_collide.cuh"]
 
 
 def test_kernel_build_compiles_translation_units_only(monkeypatch, tmp_path):

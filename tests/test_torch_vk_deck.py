@@ -4,7 +4,9 @@ port's `run_deck` against the JAX package's `run_deck(impl="pallas")`.
 
 Both runs take a copy of examples/example_ProfileResearch_noDEM with one
 angle (0), f32 storage, 40 steps, a raw u VTK every 20 steps and 5 averaging
-samples (purge_avg 10, stride 2).  The JAX side runs its kernels in
+samples (purge_avg 10, stride 2), without a wall model, with the ground's
+(`ground_z0 = 0.055`, the AIJ CaseE validation's value) and with the
+vertical faces' as well (`building_z0 = 0.01`).  The JAX side runs its kernels in
 interpret mode, as its own tests run them on the CPU.  Its inlet hook
 refreshes the FaceBC targets before every step and its kernel applies the
 inlet sites from them; the port does the same with `.ddf` and the plain
@@ -22,6 +24,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
 
 EXAMPLE = Path(__file__).resolve().parents[1] / "examples" / "example_ProfileResearch_noDEM"
 
@@ -31,12 +34,14 @@ def _interpret_mode(monkeypatch):
     monkeypatch.setenv("LUW_PALLAS_INTERPRET", "1")
 
 
-def _deck_copy(dst: Path) -> Path:
+def _deck_copy(dst: Path, walls=None) -> Path:
     from latticeurbanwind_tpu_torch.deck import load_deck
 
     shutil.copytree(EXAMPLE, dst)
     deck = load_deck(dst / "conf.luwpf")
     assert deck.get_raw("turb_inflow_enable") is None      # the inlet is on
+    for key, value in (walls or {}).items():
+        deck.set_float(key, value)
     deck.set_text("lbm_storage", "f32")
     deck.set_list("angle", [0.0])
     deck.set_int("run_nstep", 40)
@@ -47,15 +52,33 @@ def _deck_copy(dst: Path) -> Path:
     return dst / "conf.luwpf"
 
 
-def test_vk_deck_matches_jax_pallas_tier(tmp_path, capsys):
+@pytest.mark.parametrize("walls", [
+    pytest.param({}, id="no-wall"),
+    pytest.param({"ground_z0": 0.055}, id="ground"),
+    pytest.param({"ground_z0": 0.055, "building_z0": 0.01}, id="ground+sides"),
+])
+def test_vk_deck_matches_jax_pallas_tier(tmp_path, capsys, monkeypatch, walls):
     from latticeurbanwind_tpu.io import read_structured_points
     from latticeurbanwind_tpu.run import run_deck as jax_run_deck
-    from latticeurbanwind_tpu_torch.run.modes import run_deck
+    from latticeurbanwind_tpu_torch.run import modes
 
-    port = run_deck(_deck_copy(tmp_path / "port"), device="cpu", quiet=False)
+    configs = []
+    real_run_case = modes.run_case
+
+    def run_case(case, **kw):
+        configs.append(case.config)
+        return real_run_case(case, **kw)
+
+    monkeypatch.setattr(modes, "run_case", run_case)
+    port = modes.run_deck(_deck_copy(tmp_path / "port", walls), device="cpu",
+                          quiet=False)
     out = capsys.readouterr().out
     assert "| VK inlet        | active:" in out and "faces=[0, 1, 2, 3]" in out
-    ref = jax_run_deck(_deck_copy(tmp_path / "jax"), impl="pallas", quiet=True)
+    (cfg,) = configs
+    assert cfg.wall_model == ("ground_z0" in walls)
+    assert cfg.wall_sides == ("building_z0" in walls)
+    ref = jax_run_deck(_deck_copy(tmp_path / "jax", walls), impl="pallas",
+                       quiet=True)
 
     assert [r.total_steps for r in port] == [40]
     got = {f.name: f for r in port for f in r.files if f.suffix == ".vtk"}

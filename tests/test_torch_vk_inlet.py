@@ -26,6 +26,7 @@ import torch
 from latticeurbanwind_tpu.bc import vk_inlet as jvk
 from latticeurbanwind_tpu_torch import convert
 from latticeurbanwind_tpu_torch.bc import vk_inlet as tvk
+from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
 
 EXAMPLE = Path(__file__).resolve().parents[1] / "examples" / "example_ProfileResearch_noDEM"
 

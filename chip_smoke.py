@@ -21,16 +21,23 @@ nvcc per source, in parallel), then:
      in all four storages and in bf16 and fp16c at the main grid; K-AVG
      (averaging) for 4 samples against update_fields + welford_update after
      each of the K-SC runs without sites (the wall-model K-AVG after the
-     wall runs); the device codecs bit for bit against the torch codecs (all
-     65,536 fp16c and f16 codes, a dense sweep of every float32 exponent band
-     with ties);
+     wall runs); K-SC thermal (the D3Q7 sub-lattice: TYPE_T cells, sponge on
+     T, a non-zero global force so the Boussinesq term is live) in all four
+     storages, without and with the wall models and TRT, without and with
+     VK sites, and in bf16 with hook sites at the NWP deck's grid, both its
+     f and g outputs;
+     the device codecs bit for bit against the torch codecs (all 65,536
+     fp16c and f16 codes, a dense sweep of every float32 exponent band with
+     ties);
   3. times the kernels with CUDA events at 256^3 (the flagship config in
      every storage; bf16 and f32 with nudging + sponge, without a wall
      model, with `wall_model`, with `wall_sides` and with TRT) against a
      device-to-device copy bandwidth measured here, and the plain versions
      at the same shapes; K-SC with VK sites (without and with the wall
      models) and K-AVG (without and with `wall_sides`) at the main grid and
-     at 256^3;
+     at 256^3; K-SC thermal at 256^3 in bf16 and f32 and, with VK sites, at
+     the NWP deck's grid, and the thermal `update_fields` (which a thermal
+     run takes at every averaging sample) alone at that grid;
   4. runs the example profile deck at 1.5 m cells (424x424x118 = 21.2M
      cells, one angle) through the port's `run_deck` as it ships, with the
      VK inlet on: bf16 for 400 steps (K-SC 400 launches with sites, K-AVG
@@ -44,12 +51,21 @@ nvcc per source, in parallel), then:
      ground by a mean |du| > 1e-3 m/s); then the dataset-generation example
      `.luwdg` as it ships (`case_parallel = true`) at 2 m cells with its
      first two cases, 300 steps each (600 K-SC, 60 K-AVG launches, the
-     serial-dispatch line, both cases' `DG_<u>_<a>_` outputs).  Each run's
+     serial-dispatch line, both cases' `DG_<u>_<a>_` outputs); then the
+     prepared NWP-coupled standard deck (`.luw`) at 3 m cells (1017x887x79 =
+     71.3M cells) in bf16 as it ships, 300 steps (`nwp-t-bf16-300`: patch-2d
+     boundary route, T on, VK inlet on, 300 K-SC launches, all thermal and
+     all with sites, no K-AVG launch, `_raw_T` and `T_avg` finite and in the
+     CSV's Kelvin range, the probe CSV), and the same with `buoyancy = false`
+     and no probes (`nwp-bf16-300`: no thermal launch, 30 K-AVG).  Each run's
      launch counts are zeroed just before it and read just after.  After
      each inlet-on run its step loop is taken apart with the run's own
      configuration, forcing and inlet hook: K-SC without and with sites, the
      FaceBC refresh and the whole step (refresh + K-SC), each by device time
      and by host enqueue time.
+
+`python3 chip_smoke.py --nwp-cell 2.0` runs only the thermal NWP deck at
+another cell size and prints no result line.
 
 The second-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero; so
@@ -76,12 +92,19 @@ import torch
 REPO = Path(__file__).resolve().parent
 EXAMPLE = REPO / "examples" / "example_ProfileResearch_noDEM"
 EXAMPLE_DG = REPO / "examples" / "example_DatasetGen"
+EXAMPLE_NWP = REPO / "examples" / "example_NWP-LBM_prepared"
 STORAGES = ("f32", "bf16", "f16", "fp16c")
 # the JAX kernel's own tolerances against its reference
 # (tests/test_pallas_kernel.py), on decoded values
 TOL = {"f32": 6e-6, "bf16": 2e-4, "f16": 2e-5, "fp16c": 2e-5}
 AVG_TOL = 1e-5                          # the JAX fused pass's own (test_avg_kernel.py)
 WALL_TOL_F32 = 1e-5                     # f32 wall models (test_pallas_kernel.py:165-168)
+# thermal, the 2-byte floats: the g populations carry T u / 2, which reaches
+# 1/32 in these cases (|u| up to ~0.1), where one storage step is 2^-12 =
+# 2.44e-4 in bf16 and 2^-15 = 3.05e-5 in f16; the kernel (fused multiply-adds)
+# and the plain version may round such a value to neighbouring codes, so the
+# tolerance is one step there.  The JAX tests run no bf16 or f16 thermal case.
+THERMAL_TOL = {"bf16": 2.5e-4, "f16": 4e-5}
 # the wall-model and TRT configurations (the JAX kernel tests' coefficients)
 WALL = dict(wall_model=True, wall_cd=0.0134)
 SIDES = dict(WALL, wall_sides=True, wall_cd_sides=0.004)
@@ -89,8 +112,9 @@ VARIANTS = {"wall": WALL, "wall+sides": SIDES,
             "wall+sides Cd_sides=0": dict(SIDES, wall_cd_sides=0.0),
             "trt": dict(collision="trt"),
             "trt+wall+sides": dict(SIDES, collision="trt")}
-# 2*19*sizeof(storage) + 1 flag byte
+# 2*19*sizeof(storage) + 1 flag byte; thermal adds 2*7*sizeof(storage)
 BYTES_PER_CELL = {"f32": 153, "bf16": 77, "f16": 77, "fp16c": 77}
+THERMAL_BYTES = {"f32": 56, "bf16": 28, "f16": 28, "fp16c": 28}
 NUDGE_BYTES = 5                             # nudge sigma (4) + face id (1)
 # the bound's peaks: NVIDIA's H100 SXM data sheet (device memory; float32
 # outside the tensor cores), for a card at its full 700 W
@@ -99,11 +123,15 @@ PEAK_F32_FLOPS = 67e12
 # float32 operations per fluid cell update, counted from the kernels'
 # arithmetic (moments, forces, Guo, equilibrium, LES, collision; K-AVG:
 # moments, forces, Welford): far below the bytes bound either way
-FLOPS_PER_CELL = {"stream_collide": 600, "avg_update": 150}
+FLOPS_PER_CELL = {"stream_collide": 600, "stream_collide_thermal": 660,
+                  "avg_update": 150}
 MAIN_CELL_M = 1.5                           # the example deck's main-path cells
 MAIN_SHAPE = (118, 424, 424)                # its grid at that cell size
 CUBE = (256, 256, 256)                      # the flagship timing shape
 DG_CELL_M = 2.0                             # the .luwdg path's cells (~5M)
+NWP_CELL_M = 3.0                            # the .luw path's cells
+NWP_SHAPE = (79, 887, 1017)                 # its grid there, sponge rows included
+NWP_MIN_GIB = 2.0                           # a state below this is no real size
 DEVICE = "cuda"
 DATETIME = "20260101120000"                 # both example decks' datetime
 
@@ -127,24 +155,29 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return a.elapsed_time(b) / reps
 
 
-def tolerance(storage: str, variant: str = "") -> float:
+def tolerance(storage: str, variant: str = "", thermal: bool = False) -> float:
     """The JAX tests' tolerance of a K-SC comparison."""
     wall = VARIANTS.get(variant, {}).get("wall_model", False)
+    if thermal and storage in THERMAL_TOL:
+        return THERMAL_TOL[storage]
     return WALL_TOL_F32 if storage == "f32" and wall else TOL[storage]
 
 
 def make_case(shape, storage, *, forcing=True, seed=0, inflow=0.0,
-              device=None, variant=""):
+              device=None, variant="", thermal=False):
     """LUW-shell case (TYPE_E outer faces, solid ground, solid blocks) from a
     numpy seed, with an optional uniform inflow along x added to the random
     velocities and one of the wall/TRT `VARIANTS`: (config, state, forcing,
-    dyn row)."""
+    dyn row).  `thermal` adds the D3Q7 sub-lattice (omega_t 1.1, beta 0.002,
+    the JAX kernel test's values): a random T field, TYPE_T on the west face,
+    the top plane, every solid cell (as the patch route marks them) and a
+    block of fluid cells."""
     from latticeurbanwind_tpu_torch.lbm.forcing import (
         NudgeSpec, SpongeSpec, build_forcing,
     )
     from latticeurbanwind_tpu_torch.lbm.lattice import omega_from_nu
     from latticeurbanwind_tpu_torch.lbm.state import (
-        DynParams, Forcing, StepConfig, TYPE_E, TYPE_S, dyn_row,
+        DynParams, Forcing, StepConfig, TYPE_E, TYPE_S, TYPE_T, dyn_row,
         make_initial_state,
     )
 
@@ -153,6 +186,8 @@ def make_case(shape, storage, *, forcing=True, seed=0, inflow=0.0,
     rng = np.random.default_rng(seed)
     cfg = replace(StepConfig(omega=omega_from_nu(0.03), storage=storage,
                              volume_force=forcing), **VARIANTS.get(variant, {}))
+    if thermal:
+        cfg = replace(cfg, thermal=True, omega_t=1.1, beta=0.002)
     u = (0.02 * rng.standard_normal((3, Z, Y, X))).astype(np.float32)
     u[0] += np.float32(inflow)
     rho = (1.0 + 0.001 * rng.standard_normal(shape)).astype(np.float32)
@@ -165,8 +200,15 @@ def make_case(shape, storage, *, forcing=True, seed=0, inflow=0.0,
     flags[0] = TYPE_S
     flags[(rng.random(shape) < 0.03) & (flags == 0)] = TYPE_S
     flags[2:Z // 3, Y // 4:Y // 2, X // 3:X // 2] = TYPE_S
+    T = None
+    if thermal:
+        flags[:, :, 0] |= TYPE_T
+        flags[-1] |= TYPE_T
+        flags[(flags & TYPE_S) != 0] |= TYPE_T
+        flags[Z // 2, Y // 2:Y // 2 + 4, X // 2:X // 2 + 6] |= TYPE_T
+        T = (1.0 + 0.01 * rng.standard_normal(shape)).astype(np.float32)
     state = make_initial_state(shape, config=cfg, rho=rho, u=u, flags=flags,
-                               device=device)
+                               T=T, device=device)
     if forcing:
         frc = build_forcing(shape, nudge=NudgeSpec(n_cells=3, inv_tau=0.02,
                                                    downstream_face=2),
@@ -256,8 +298,8 @@ def phase_card() -> dict:
 def kernel_registers(build_log: str):
     """({instance: registers}, {instances with spills}) from ptxas's -v
     output.  An instance is named by its kernel, its codec and its other
-    template arguments, e.g. stream_collide_kernel<BF16,1,1,1,0,0> (force,
-    nudge, sponge, wall, trt)."""
+    template arguments, e.g. stream_collide_kernel<BF16,1,1,1,0,0,0> (force,
+    nudge, sponge, wall, trt, thermal)."""
     regs, spilled, name = {}, set(), None
     for line in build_log.splitlines():
         if "Compiling entry function" in line:
@@ -280,34 +322,48 @@ def kernel_registers(build_log: str):
 
 
 def compare_steps(shape, storage, forcing, steps, *, vk=None, hook=False,
-                  inflow=0.0, variant=""):
+                  inflow=0.0, variant="", thermal=False):
     """K-SC against its plain version over `steps` steps; returns the max
-    decoded difference, whether the kernel's DDFs are finite, and the case
-    with the kernel's DDFs."""
+    decoded difference (thermal: of the f and of the g populations, the
+    larger), whether the kernel's DDFs are finite, and the case with the
+    kernel's DDFs."""
+    from latticeurbanwind_tpu_torch.lbm.state import decode_ddf
     from latticeurbanwind_tpu_torch.ops.stream_collide import (
         build_face_bc, stream_collide, stream_collide_plain,
     )
 
     cfg, st, frc, row = make_case(shape, storage, forcing=forcing, inflow=inflow,
-                                  variant=variant)
+                                  variant=variant, thermal=thermal)
     pre = None
     if hook:
         pre, _ = vk_hook(st)
         vk = pre.ddf.kernel_spec
-    fbc = build_face_bc(st.u) if (forcing or vk is not None) else None
+    fbc = build_face_bc(st.u, st.T) if (forcing or vk is not None) else None
     fk = st.fi
     fp = st.fi.clone()
+    gk = st.gi
+    gp = st.gi.clone() if thermal else None
     aux = pre.ddf.init_aux(0) if pre is not None else None
     for t in range(steps):
         if pre is not None:
             fbc, aux = pre.ddf(fbc, t, aux)
-        fk = stream_collide(fk, st.flags, row, cfg, frc, fbc, vk=vk)
-        fp = stream_collide_plain(fp, st.flags, row, cfg, frc, fbc, vk=vk)
+        if thermal:
+            fk, gk = stream_collide(fk, st.flags, row, cfg, frc, fbc, vk=vk,
+                                    gi=gk)
+            fp, gp = stream_collide_plain(fp, st.flags, row, cfg, frc, fbc,
+                                          vk=vk, gi=gp)
+        else:
+            fk = stream_collide(fk, st.flags, row, cfg, frc, fbc, vk=vk)
+            fp = stream_collide_plain(fp, st.flags, row, cfg, frc, fbc, vk=vk)
     torch.cuda.synchronize()
-    from latticeurbanwind_tpu_torch.lbm.state import decode_ddf
-
     e = max_err(fk, fp, storage)
     finite = bool(torch.isfinite(decode_ddf(fk, storage)).all())
+    if thermal:
+        eg = max_err(gk, gp, storage)
+        if not float(decode_ddf(gk, storage).abs().max()) > 1e-4:
+            raise AssertionError("the thermal case's g populations are trivial")
+        finite = finite and bool(torch.isfinite(decode_ddf(gk, storage)).all())
+        e = max(e, eg)
     return e, finite, (cfg, st, frc, row, fbc, fk)
 
 
@@ -320,7 +376,8 @@ def phase_compare() -> dict:
     from latticeurbanwind_tpu_torch.run.welford import init_avg, welford_update
 
     log("== phase 2: kernels against their plain versions on the card")
-    errs = {"stream_collide": {}, "stream_collide_wall": {}, "avg_update": {}}
+    errs = {"stream_collide": {}, "stream_collide_wall": {},
+            "stream_collide_thermal": {}, "avg_update": {}}
     small = (24, 72, 136)
     runs = [(small, s, f, 5, "") for s in STORAGES for f in (True, False)]
     runs += [(small, s, True, 5, v) for s in STORAGES for v in VARIANTS]
@@ -380,6 +437,31 @@ def phase_compare() -> dict:
         if not ok:
             raise AssertionError(f"K-SC with VK sites disagrees: {e}")
         errs["stream_collide_wall" if variant else "stream_collide"][name] = e
+        torch.cuda.empty_cache()
+
+    # K-SC thermal: f and g against the plain version, the Boussinesq term
+    # live (make_case's dyn.force is not zero)
+    th_runs = [(small, s, kind, 5, v) for s in STORAGES
+               for kind, v in (("", ""), ("random", ""), ("hook", ""),
+                               ("", "wall"), ("", "wall+sides"), ("", "trt"),
+                               ("hook", "trt+wall+sides"))]
+    th_runs += [(NWP_SHAPE, "bf16", "hook", 2, "")]
+    for shape, storage, kind, steps, variant in th_runs:
+        vk = random_sites(shape) if kind == "random" else None
+        e, finite, _ = compare_steps(shape, storage, True, steps, vk=vk,
+                                     hook=kind == "hook",
+                                     inflow=0.05 if kind else 0.0,
+                                     variant=variant, thermal=True)
+        name = (f"{storage} thermal nudge+sponge{' ' + variant if variant else ''}"
+                f"{' VK ' + kind + ' sites' if kind else ''} {shape}")
+        tol = tolerance(storage, variant, thermal=True)
+        ok = e <= tol and finite
+        log(f"K-SC {name} {steps} steps: max|kernel-plain| over f and g = "
+            f"{e:.3e} (tol {tol:.1e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"K-SC thermal disagrees with its plain "
+                                 f"version: {e}")
+        errs["stream_collide_thermal"][name] = e
         torch.cuda.empty_cache()
 
     phase_codecs()
@@ -472,15 +554,17 @@ def step_bound(st, frc, fbc, spec) -> dict:
     """K-SC's bound on this case: every DDF written once, the DDFs of the
     cells that are not solid read once (a solid cell only writes zeros), the
     flags, the forcing fields, the FaceBC targets and the site masks read
-    once."""
+    once; a thermal step moves the 7 g populations the same way."""
     from latticeurbanwind_tpu_torch.lbm.state import TYPE_S
 
     live = int(((st.flags & TYPE_S) == 0).sum())
-    per = 19 * st.fi.element_size()
+    thermal = st.gi is not None
+    per = (26 if thermal else 19) * st.fi.element_size()
     nbytes = (per * (st.flags.numel() + live) + _nbytes(
         st.flags, frc.nudge_sigma, frc.nudge_face, frc.sponge_sigma_z,
         *(fbc or ()), *((spec or {}).get("masks", {}).values())))
-    return bound("stream_collide", nbytes, live)
+    return bound("stream_collide_thermal" if thermal else "stream_collide",
+                 nbytes, live)
 
 
 def avg_bound(st) -> dict:
@@ -494,7 +578,7 @@ def avg_bound(st) -> dict:
 
 
 def time_step_kernel(shape, storage, forcing, *, vk=None, plain_reps=3,
-                     variant=""):
+                     variant="", thermal=False):
     """{ms, plain_ms, bound_ms, bound_by}: K-SC and its plain version per
     step at `shape`."""
     from latticeurbanwind_tpu_torch.ops.stream_collide import (
@@ -502,24 +586,45 @@ def time_step_kernel(shape, storage, forcing, *, vk=None, plain_reps=3,
     )
 
     cfg, st, frc, row = make_case(shape, storage, forcing=forcing,
-                                  inflow=0.05 if vk else 0.0, variant=variant)
+                                  inflow=0.05 if vk else 0.0, variant=variant,
+                                  thermal=thermal)
     spec = None
     if vk:
         pre, _ = vk_hook(st)
         spec = pre.ddf.kernel_spec
-    fbc = build_face_bc(st.u) if (forcing or spec) else None
+    fbc = build_face_bc(st.u, st.T) if (forcing or spec) else None
     bufs = [st.fi, torch.empty_like(st.fi)]
+    gbufs = [st.gi, torch.empty_like(st.gi)] if thermal else [None, None]
 
     def step():
         stream_collide(bufs[0], st.flags, row, cfg, frc, fbc, out=bufs[1],
-                       vk=spec)
+                       vk=spec, gi=gbufs[0], gi_out=gbufs[1])
         bufs.reverse()
+        gbufs.reverse()
 
     ms = cuda_ms(step, reps=50, warmup=5)
     plain = cuda_ms(lambda: stream_collide_plain(bufs[0], st.flags, row, cfg,
-                                                 frc, fbc, vk=spec),
+                                                 frc, fbc, vk=spec,
+                                                 gi=gbufs[0]),
                     reps=plain_reps, warmup=1)
     return {"ms": ms, "plain_ms": plain, **step_bound(st, frc, fbc, spec)}
+
+
+def time_thermal_fields(shape, storage) -> dict:
+    """{ms, peak_gib}: the thermal `update_fields` (plain torch; a thermal
+    run takes it at every averaging sample) alone at `shape`, by CUDA
+    events, and the device memory it peaks at above the resident state."""
+    from latticeurbanwind_tpu_torch.lbm.fields import update_fields
+    from latticeurbanwind_tpu_torch.lbm.state import DynParams
+
+    cfg, st, _, row = make_case(shape, storage, thermal=True)
+    dyn = DynParams(force=row[:3].cpu(), omega_coriolis=row[3:6].cpu())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ms = cuda_ms(lambda: update_fields(st, cfg, dyn), reps=5, warmup=1)
+    return {"ms": ms,
+            "peak_gib": (torch.cuda.max_memory_allocated() - base) / 2**30}
 
 
 def time_avg_kernel(shape, storage, variant=""):
@@ -565,12 +670,13 @@ def run_ahead(fn, n: int = 16, sleep_cycles: int = 400_000_000):
     return host_ms, a.elapsed_time(b) / n
 
 
-def step_loop_breakdown(case, fi: torch.Tensor) -> dict:
+def step_loop_breakdown(case, final) -> dict:
     """The deck's step loop taken apart with the run's own configuration,
-    forcing and inlet hook, from its final DDFs `fi`: ms/step of K-SC
-    without and with the sites and of the whole step (refresh + K-SC with
-    sites, as the stepper runs it) by CUDA events, and the refresh, the
-    K-SC call and the whole step by host enqueue time and device time."""
+    forcing and inlet hook, from its `final` state's DDFs (f, and g of a
+    thermal run): ms/step of K-SC without and with the sites and of the whole
+    step (refresh + K-SC with sites, as the stepper runs it) by CUDA events,
+    and the refresh, the K-SC call and the whole step by host enqueue time
+    and device time; thermal: `update_fields` per averaging sample too."""
     from latticeurbanwind_tpu_torch.lbm.state import dyn_row
     from latticeurbanwind_tpu_torch.ops.stream_collide import (
         build_face_bc, stream_collide,
@@ -580,8 +686,12 @@ def step_loop_breakdown(case, fi: torch.Tensor) -> dict:
     spec = pre.kernel_spec
     row = dyn_row(case.dyn, DEVICE)
     flags = case.state.flags
-    bufs = [fi.clone(), torch.empty_like(fi)]
-    cell = {"fbc": build_face_bc(case.state.u), "aux": pre.init_aux(0), "t": 0}
+    thermal = case.config.thermal
+    bufs = [final.fi.clone(), torch.empty_like(final.fi)]
+    gbufs = ([final.gi.clone(), torch.empty_like(final.gi)] if thermal
+             else [None, None])
+    cell = {"fbc": build_face_bc(case.state.u, case.state.T if thermal else None),
+            "aux": pre.init_aux(0), "t": 0}
 
     def refresh():
         cell["fbc"], cell["aux"] = pre(cell["fbc"], cell["t"], cell["aux"])
@@ -589,8 +699,10 @@ def step_loop_breakdown(case, fi: torch.Tensor) -> dict:
 
     def step(vk=spec, config=case.config):
         stream_collide(bufs[0], flags, row, config, case.forcing,
-                       cell["fbc"], out=bufs[1], vk=vk)
+                       cell["fbc"], out=bufs[1], vk=vk, gi=gbufs[0],
+                       gi_out=gbufs[1])
         bufs.reverse()
+        gbufs.reverse()
 
     def whole():
         refresh()
@@ -611,7 +723,13 @@ def step_loop_breakdown(case, fi: torch.Tensor) -> dict:
         for name, cfg in (("sc_vk_nowall_ms", plain), ("sc_vk_ground_ms", ground),
                           ("sc_vk_sides_cd0_ms", mirrors)):
             out[name] = cuda_ms(lambda c=cfg: step(config=c), reps=50, warmup=3)
-    del bufs
+    if thermal:
+        from latticeurbanwind_tpu_torch.lbm.fields import update_fields
+
+        st = final._replace(fi=bufs[0], gi=gbufs[0])
+        out["update_fields_ms"] = cuda_ms(
+            lambda: update_fields(st, case.config, case.dyn), reps=5, warmup=1)
+    del bufs, gbufs
     torch.cuda.empty_cache()
     return out
 
@@ -663,6 +781,31 @@ def phase_timing() -> dict:
             f"({t['bound_by']}), plain {t['plain_ms']:.2f}")
         out["configs"][name] = out[key] = t
         torch.cuda.empty_cache()
+    # K-SC thermal: 256^3, then the NWP deck's grid with VK sites (the record)
+    for storage in ("bf16", "f32"):
+        t = time_step_kernel(cube, storage, True, thermal=True)
+        bpc = BYTES_PER_CELL[storage] + THERMAL_BYTES[storage] + NUDGE_BYTES
+        mlups = cells / (t["ms"] * 1e-3) / 1e6
+        roof = mlups * 1e6 * bpc / 1e9 / bw * 100.0
+        name = f"K-SC {cube[0]}^3 {storage} thermal nudge+sponge"
+        log(f"{name}: {t['ms']:.3f} ms/step, {mlups:.0f} MLUPs, {roof:.1f}% of "
+            f"the {bpc} B/cell copy roofline; bound {t['bound_ms']:.3f} ms "
+            f"({t['bound_by']}); plain version {t['plain_ms']:.2f} ms/step")
+        out["configs"][name] = dict(t, roofline_pct=roof)
+        torch.cuda.empty_cache()
+    t = time_step_kernel(NWP_SHAPE, "bf16", True, vk=True, thermal=True,
+                         plain_reps=2)
+    name = f"K-SC {NWP_SHAPE} bf16 thermal nudge+sponge VK sites"
+    log(f"{name}: {t['ms']:.3f} ms/step, bound {t['bound_ms']:.3f} ms "
+        f"({t['bound_by']}), plain {t['plain_ms']:.2f}")
+    out["configs"][name] = out["sc_thermal"] = t
+    torch.cuda.empty_cache()
+    t = time_thermal_fields(NWP_SHAPE, "bf16")
+    log(f"update_fields thermal {NWP_SHAPE} bf16 (plain torch, every averaging "
+        f"sample of a thermal run): {t['ms']:.2f} ms, transient peak "
+        f"{t['peak_gib']:.2f} GiB above the state")
+    out["thermal_fields"] = t
+    torch.cuda.empty_cache()
     return out
 
 
@@ -673,6 +816,7 @@ def zero_launches() -> None:
     stream_collide.launches = 0
     stream_collide.launches_vk = 0
     stream_collide.launches_wall = 0
+    stream_collide.launches_thermal = 0
     avg_update.launches = 0
     avg_update.launches_wall = 0
 
@@ -684,6 +828,7 @@ def read_launches() -> dict:
     return {"stream_collide": stream_collide.launches,
             "stream_collide_vk": stream_collide.launches_vk,
             "stream_collide_wall": stream_collide.launches_wall,
+            "stream_collide_thermal": stream_collide.launches_thermal,
             "avg_update": avg_update.launches,
             "avg_update_wall": avg_update.launches_wall}
 
@@ -772,6 +917,7 @@ def run_example_deck(work: Path, tag: str, *, storage: str, steps: int,
     on_wall = bool(walls)
     expect = {"stream_collide": steps, "stream_collide_vk": steps if vk else 0,
               "stream_collide_wall": steps if on_wall else 0,
+              "stream_collide_thermal": 0,
               "avg_update": n_avg, "avg_update_wall": n_avg if on_wall else 0}
     cfg = seen["case"].config
     if (cfg.wall_model, cfg.wall_sides) != ("ground_z0" in (walls or {}),
@@ -823,7 +969,7 @@ def run_example_deck(work: Path, tag: str, *, storage: str, steps: int,
     if not all(0.3 < v < 3.0 for v in ratios.values()):
         raise AssertionError(f"[{tag}] upstream RMS/sigma {ratios} outside [0.3, 3]")
     stride = seen["cfg"].update_stride
-    loop = step_loop_breakdown(seen["case"], r.state.fi)
+    loop = step_loop_breakdown(seen["case"], r.state)
     log(f"[{tag}] step loop ({len(rt.sigma)} inlet points, {seen['cfg'].nmodes} "
         f"modes, stride {stride}), ms/step by events: K-SC without sites "
         f"{loop['sc_novk_ms']:.4f}, with sites {loop['sc_vk_ms']:.4f}, whole "
@@ -901,8 +1047,8 @@ def run_datagen_deck(work: Path, tag: str, *, storage: str, steps: int,
         raise AssertionError(f"[{tag}] no serial-dispatch line")
     n_avg = purge // 2
     expect = {"stream_collide": cases * steps, "stream_collide_vk": 0,
-              "stream_collide_wall": 0, "avg_update": cases * n_avg,
-              "avg_update_wall": 0}
+              "stream_collide_wall": 0, "stream_collide_thermal": 0,
+              "avg_update": cases * n_avg, "avg_update_wall": 0}
     if launches != expect:
         raise AssertionError(f"[{tag}] launch counts {launches} != {expect}")
     inflows = deck.get_float_list("inflow")
@@ -926,6 +1072,153 @@ def run_datagen_deck(work: Path, tag: str, *, storage: str, steps: int,
             "mlups": [r.timing["mlups"] for r in results]}
 
 
+def run_nwp_deck(work: Path, tag: str, *, steps: int, thermal: bool,
+                 cell_m: float = NWP_CELL_M, shape=NWP_SHAPE) -> dict:
+    """The prepared NWP-coupled standard deck (`.luw`) at 3 m cells in bf16,
+    otherwise as it ships (patch-2d boundary samples with a T column, VK
+    inlet, Coriolis, nudging, top sponge, one probe column), through
+    run_deck on the card with the launch counts zeroed just before and read
+    just after.  `thermal=False` sets `buoyancy = false` and takes the
+    probes out: with a probe each averaging sample needs the fields, and no
+    sample would reach the fused averaging pass."""
+    import latticeurbanwind_tpu_torch.run.standard as standard
+    from latticeurbanwind_tpu_torch.bc.samples import read_surfdata_csv
+    from latticeurbanwind_tpu_torch.deck import load_deck
+    from latticeurbanwind_tpu_torch.io.vtk import read_structured_points
+    from latticeurbanwind_tpu_torch.run.sizing import bytes_per_cell
+
+    case = work / tag
+    shutil.copytree(EXAMPLE_NWP, case)
+    deck = load_deck(case / "conf.luw")
+    if deck.get_int("run_nstep") != steps or deck.get_raw("probes") != "[center]":
+        raise AssertionError("the prepared deck is not the one this phase expects")
+    deck.set_float("cell_size", cell_m)
+    deck.set_text("lbm_storage", "bf16")
+    if not thermal:
+        deck.set_bool("buoyancy", False)
+        deck.set_raw("probes", "[]")
+    deck.save()
+    purge, stride = deck.get_int("purge_avg"), deck.get_int("purge_avg_stride")
+
+    seen = {}
+    real_run = standard.run_case
+
+    def run_spy(case_, **kw):
+        seen["case"] = case_
+        return real_run(case_, **kw)
+
+    standard.run_case = run_spy
+    buf = io.StringIO()
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            (r,) = standard.run_standard_mode(case / "conf.luw", device=DEVICE)
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+    finally:
+        standard.run_case = real_run
+        log(buf.getvalue().rstrip())
+    printed = buf.getvalue()
+    peak = torch.cuda.max_memory_allocated()
+
+    grid = tuple(r.state.rho.shape)
+    cells = int(np.prod(grid))
+    model_gib = cells * bytes_per_cell("bf16", thermal) / 2**30
+    setup = {k: v for k, v in r.timing.items()
+             if k.startswith("setup_") or k == "voxelize_seconds"}
+    log(f"[{tag}] grid (Z, Y, X) = {grid}, {cells / 1e6:.2f}M cells, storage "
+        f"{r.state.fi.dtype}, sizing model {model_gib:.2f} GiB; launches {launches}")
+    log(f"[{tag}] solver {r.solver_seconds:.2f} s, {r.timing['mlups']:.0f} MLUPs "
+        f"(RunInfo calibration), averaging phase "
+        f"{r.timing.get('avg_steps_per_second', 0.0):.1f} steps/s, set-up by "
+        f"stage {({k: round(v, 2) for k, v in setup.items()})}, whole run "
+        f"{wall:.1f} s, peak device memory {peak / 2**30:.2f} GiB")
+    if shape is not None and grid != tuple(shape):
+        raise AssertionError(f"[{tag}] deck grid {grid} != {tuple(shape)}")
+    if model_gib < NWP_MIN_GIB:
+        raise AssertionError(f"[{tag}] a {model_gib:.2f} GiB state is no real size")
+    for want in ("bc=patch-2d", f"T={'on' if thermal else 'off'}",
+                 "| VK inlet        | active:"):
+        if want not in printed:
+            raise AssertionError(f"[{tag}] the run did not print {want!r}")
+    cfg = seen["case"].config
+    if cfg.thermal != thermal or (r.state.gi is not None) != thermal:
+        raise AssertionError(f"[{tag}] thermal state of the run: {cfg}")
+    n_avg = len(range(steps - purge + 1, steps, stride))   # the last step is no sample
+    expect = {"stream_collide": steps, "stream_collide_vk": steps,
+              "stream_collide_wall": 0,
+              "stream_collide_thermal": steps if thermal else 0,
+              "avg_update": 0 if thermal else n_avg, "avg_update_wall": 0}
+    if launches != expect:
+        raise AssertionError(f"[{tag}] launch counts {launches} != {expect}")
+    if r.avg.count != n_avg or (r.avg.mean_T is not None) != thermal:
+        raise AssertionError(f"[{tag}] averaging: {r.avg.count} samples")
+
+    names = sorted(f.name for f in r.files)
+    want = [f"{DATETIME}_{k}-{steps:09d}.vtk"
+            for k in ("avg", "raw_rho", "raw_u") + (("raw_T",) if thermal else ())]
+    if thermal:
+        want.append("121.324_31.12.csv")
+    if names != sorted(want):
+        raise AssertionError(f"[{tag}] outputs {names} != {sorted(want)}")
+    files = {f.name: f for f in r.files}
+    _, fields = read_structured_points(files[want[0]])
+    fluid = fields["fluid"] > 0.5
+    for key, arr in fields.items():
+        if not np.isfinite(arr[..., fluid]).all():
+            raise AssertionError(f"[{tag}] non-finite {key} at fluid cells")
+    if ("T_avg" in fields) != thermal:
+        raise AssertionError(f"[{tag}] fields {sorted(fields)}")
+    mean_u = float(fields["u_avg"][0][fluid].mean())
+    # the interior starts at rest and 300 steps of 3 m cells are 15 s of flow:
+    # the mean is far below the deck's um_vol of (5.4, 1.3) m/s, but along +x
+    if not mean_u > 0.3:
+        raise AssertionError(f"[{tag}] u_avg is not the +x flow: {mean_u}")
+    log(f"[{tag}] _avg VTK: fields {sorted(fields)}, shape "
+        f"{fields['u_avg'].shape}, finite at fluid cells, mean u = {mean_u:.3f} m/s")
+    out = {"launches": launches, "solver_seconds": r.solver_seconds,
+           "mlups": r.timing["mlups"], "wall": wall, "setup": setup,
+           "avg_steps_per_second": r.timing.get("avg_steps_per_second", 0.0),
+           "peak_gib": peak / 2**30, "cells": cells}
+    if thermal:
+        # the CSV's temperature is one value (a uniform 288.15 K), so its
+        # range is a point: the lattice T leaves it by the divergence of the
+        # advecting velocity; held to a band of +-5 K around the CSV's range,
+        # with the fluid mean within 0.5 K of it
+        tmin, tmax = read_surfdata_csv(
+            case / "proj_temp" / f"SurfData_{DATETIME}.csv").temperature_range()
+        _, raw_t = read_structured_points(files[f"{DATETIME}_raw_T-{steps:09d}.vtk"])
+        for name, arr in (("raw T", raw_t["data"]), ("T_avg", fields["T_avg"])):
+            lo, hi = float(arr[fluid].min()), float(arr[fluid].max())
+            mean = float(arr[fluid].mean())
+            log(f"[{tag}] {name} at fluid cells: [{lo:.3f}, {hi:.3f}] K, mean "
+                f"{mean:.4f} K; the CSV's range [{tmin:.2f}, {tmax:.2f}] K")
+            if not (np.isfinite(arr).all() and tmin - 5.0 <= lo and hi <= tmax + 5.0
+                    and tmin - 0.5 <= mean <= tmax + 0.5):
+                raise AssertionError(f"[{tag}] {name} outside the CSV's range band")
+            out[name.replace(" ", "_") + "_range_K"] = [lo, hi, mean]
+        rows = files["121.324_31.12.csv"].read_text().splitlines()
+        cells0 = rows[1].split(",")
+        if len(cells0) != 1 + n_avg or len(rows) < 4:
+            raise AssertionError(f"[{tag}] probe CSV: {len(rows)} rows, "
+                                 f"{len(cells0)} columns")
+        log(f"[{tag}] probe CSV: {len(rows) - 1} heights x {n_avg} samples")
+    loop = step_loop_breakdown(seen["case"], r.state)
+    log(f"[{tag}] step loop, ms/step by events: K-SC without sites "
+        f"{loop['sc_novk_ms']:.4f}, with sites {loop['sc_vk_ms']:.4f}, whole "
+        f"step (refresh + K-SC) {loop['step_ms']:.4f}; host enqueue / device "
+        f"ms per call: refresh {loop['refresh_host_ms']:.4f} / "
+        f"{loop['refresh_device_ms']:.4f}, whole step "
+        f"{loop['step_host_ms']:.4f} / {loop['step_device_ms']:.4f}"
+        + (f"; update_fields per sample {loop['update_fields_ms']:.2f} ms"
+           if thermal else ""))
+    out["step_loop"] = loop
+    shutil.rmtree(case, ignore_errors=True)     # ~3 GB of VTKs per run
+    return out
+
+
 def phase_main_path(work: Path) -> dict:
     log("== phase 4: the example decks through run_deck")
     main = run_example_deck(work, "vk-bf16-400", storage="bf16", steps=400, vk=True)
@@ -943,15 +1236,39 @@ def phase_main_path(work: Path) -> dict:
                              f"only {du} m/s")
     wall["near_ground_du"] = du
     dg = run_datagen_deck(work, "dg-bf16-300", storage="bf16", steps=300, cases=2)
+    torch.cuda.empty_cache()
+    nwp_t = run_nwp_deck(work, "nwp-t-bf16-300", steps=300, thermal=True)
+    torch.cuda.empty_cache()
+    nwp = run_nwp_deck(work, "nwp-bf16-300", steps=300, thermal=False)
     paths = {"vk-bf16-400": main, "novk-bf16-100": off, "vk-fp16c-200": fp16c,
-             "wall-vk-bf16-400": wall, "dg-bf16-300": dg}
+             "wall-vk-bf16-400": wall, "dg-bf16-300": dg,
+             "nwp-t-bf16-300": nwp_t, "nwp-bf16-300": nwp}
     for p in paths.values():
         p.pop("raw_u", None)
         p.pop("flags", None)
     return {"paths": paths}
 
 
+def nwp_at(cell_m: float) -> int:
+    """`python3 chip_smoke.py --nwp-cell 2.0`: only the thermal NWP deck at
+    another cell size, to see what fits on the card; prints no result
+    line."""
+    from latticeurbanwind_tpu_torch.utils.cuda_build import BUILD_DIR
+
+    phase_card()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_", dir=BUILD_DIR))
+    try:
+        run_nwp_deck(work, f"nwp-t-bf16-300 at {cell_m} m", steps=300,
+                     thermal=True, cell_m=cell_m, shape=None)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return 0
+
+
 def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == "--nwp-cell":
+        return nwp_at(float(sys.argv[2]))
     card = phase_card()
     from latticeurbanwind_tpu_torch.utils.cuda_build import BUILD_DIR
 
@@ -971,11 +1288,12 @@ def main() -> int:
     # the wall models
     main_sc = paths["vk-bf16-400"]["launches"]
     main_wall = paths["wall-vk-bf16-400"]["launches"]
+    main_th = paths["nwp-t-bf16-300"]["launches"]
 
-    def times(prefix, wall):
+    def times(prefix, wall, thermal=False):
         return {k: v for k, v in timing["configs"].items()
-                if k.startswith(prefix)
-                and wall == any(w in k for w in (" wall", " trt"))}
+                if k.startswith(prefix) and thermal == (" thermal" in k)
+                and (thermal or wall == any(w in k for w in (" wall", " trt")))}
 
     def timed(t):
         return {"ms": t["ms"], "plain_ms": t["plain_ms"],
@@ -991,11 +1309,13 @@ def main() -> int:
          "max_abs_err": max(errs["stream_collide"].values()),
          **timed(timing["sc"]),
          "launches_by_path": {k: v["stream_collide"] - v["stream_collide_wall"]
+                              - v["stream_collide_thermal"]
                               for k, v in by_path.items()},
          "max_abs_err_by_config": errs["stream_collide"],
          "times_by_config": times("K-SC", False),
          "step_loop_by_path": {k: v["step_loop"] for k, v in paths.items()
-                               if "step_loop" in v and not k.startswith("wall")}},
+                               if "step_loop" in v
+                               and not k.startswith(("wall", "nwp-t"))}},
         {"name": "stream_collide_wall", "route": "cuda",
          "source": "latticeurbanwind_tpu_torch/csrc/stream_collide_wall.cu",
          "replaces": "latticeurbanwind_tpu/ops/stream_collide.py:618",
@@ -1010,6 +1330,22 @@ def main() -> int:
          "step_loop_by_path": {k: v["step_loop"] for k, v in paths.items()
                                if "step_loop" in v and k.startswith("wall")},
          "near_ground_du_m_per_s": paths["wall-vk-bf16-400"]["near_ground_du"]},
+        {"name": "stream_collide_thermal", "route": "cuda",
+         "source": "latticeurbanwind_tpu_torch/csrc/stream_collide_thermal.cu",
+         "replaces": "latticeurbanwind_tpu/ops/stream_collide.py:732",
+         "launches": main_th["stream_collide_thermal"],
+         "launches_with_vk_sites": main_th["stream_collide_vk"],
+         "max_abs_err": max(errs["stream_collide_thermal"].values()),
+         **timed(timing["sc_thermal"]),
+         "launches_by_path": {k: v["stream_collide_thermal"]
+                              for k, v in by_path.items()},
+         "max_abs_err_by_config": errs["stream_collide_thermal"],
+         "times_by_config": times("K-SC", False, thermal=True),
+         "step_loop_by_path": {"nwp-t-bf16-300":
+                               paths["nwp-t-bf16-300"]["step_loop"]},
+         "update_fields_thermal": timing["thermal_fields"],
+         "decks": {k: {kk: vv for kk, vv in paths[k].items() if kk != "step_loop"}
+                   for k in ("nwp-t-bf16-300", "nwp-bf16-300")}},
         {"name": "avg_update", "route": "cuda",
          "source": "latticeurbanwind_tpu_torch/csrc/avg_update.cu",
          "replaces": "latticeurbanwind_tpu/ops/avg_kernel.py:85",

@@ -1,6 +1,7 @@
-"""Run the PyTorch port of the solver on a profile (.luwpf) or
-dataset-generation (.luwdg) deck.
+"""Run the PyTorch port of the solver on a standard NWP-coupled (.luw),
+profile (.luwpf) or dataset-generation (.luwdg) deck.
 
+    python -m latticeurbanwind_tpu_torch.cli.run conf.luw
     python -m latticeurbanwind_tpu_torch.cli.run conf.luwpf
     python -m latticeurbanwind_tpu_torch.cli.run conf.luwdg --device cpu
 
@@ -8,9 +9,11 @@ Counterpart of `latticeurbanwind_tpu/cli/run.py`.  There is no --impl
 switch: the run goes to the CUDA device (the hand-written kernels, built on
 first use) and raises when there is none; `--device cpu` runs the kernels'
 plain torch versions on the CPU instead.  The deck runs as written, the VK
-synthetic-turbulence inlet, the wall models and every `lbm_storage`
-included.  Standard decks (.luw) raise `NotImplementedError` naming their
-ROADMAP item.
+synthetic-turbulence inlet, the wall models, the temperature sub-lattice
+and every `lbm_storage` included.  A `.luw` deck needs its prepared inputs
+(`proj_temp/SurfData_<datetime>.csv` and the case STL, which the JAX
+package's `makeluw` writes; `examples/example_NWP-LBM_prepared` holds a
+prepared copy of the NWP example).
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ from pathlib import Path
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="runluw-torch", description=__doc__)
-    parser.add_argument("deck", help="path to conf.luwpf or conf.luwdg")
+    parser.add_argument("deck", help="path to conf.luw, conf.luwpf or conf.luwdg")
     parser.add_argument("--device", default="cuda",
                         help="torch device (default: cuda, which must be "
                              "present; cpu runs the plain versions)")

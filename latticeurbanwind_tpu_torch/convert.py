@@ -65,8 +65,11 @@ def forcing_from_jax(forcing, device: torch.device | str = "cpu") -> Forcing:
 
 
 def face_bc_from_jax(fbc, device: torch.device | str = "cpu") -> FaceBC:
-    return FaceBC(*(to_torch(getattr(fbc, k), device).contiguous()
-                    for k in FaceBC._fields))
+    def c(a):
+        t = to_torch(a, device)
+        return None if t is None else t.contiguous()
+
+    return FaceBC(*(c(getattr(fbc, k, None)) for k in FaceBC._fields))
 
 
 def dyn_from_jax(dyn) -> DynParams:

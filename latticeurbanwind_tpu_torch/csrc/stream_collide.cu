@@ -7,7 +7,8 @@
 // bound and design are described there); this unit instantiates it for the
 // configurations without a wall model under SRT -- every storage codec,
 // with and without the volume force, nudging and the sponge -- and hands
-// the wall-model and TRT configurations to stream_collide_wall.cu.
+// the wall-model and TRT configurations to stream_collide_wall.cu and the
+// thermal ones to stream_collide_thermal.cu.
 //
 // VK inlet sites (the Pallas kernel's `vk` spec, make_pallas_step
 // :915-978): at the boundary faces that carry a site mask, the cell's
@@ -149,10 +150,12 @@ vk_site_kernel(typename C::T* __restrict__ fb, VkMasks vm,
   for (int d = 0; d < 19; ++d) fb[d * N + n] = o[d];
 }
 
-// One SRT step without a wall model; the wall models and TRT go to the
-// instances of stream_collide_wall.cu.
+// One SRT step without a wall model; thermal steps go to the instances of
+// stream_collide_thermal.cu, the wall models and TRT to those of
+// stream_collide_wall.cu.
 template <class C>
 cudaError_t sc_dispatch_force(const ScArgs& a, cudaStream_t stream) {
+  if (a.thermal) return sc_dispatch_thermal<C>(a, stream);
   if (a.wall || a.trt) return sc_dispatch_wall<C>(a, stream);
   if (!a.volume_force) {
     if (a.has_nudge || a.has_sponge) return cudaErrorInvalidValue;
@@ -193,17 +196,22 @@ cudaError_t sc_dispatch(const ScArgs& a, cudaStream_t stream) {
 // Schumann stress at wall_cd), 2 wall_sides too (side stress at
 // wall_cd_sides); trt: TRT instead of SRT collision.  Launches on `stream`,
 // does not synchronise, and returns cudaGetLastError() after the launch (0
-// on success).
+// on success).  thermal: also step the D3Q7 populations ga -> gb (storage
+// type, (7, Z, Y, X)) at omega_t, with the sponge's temperature target tt
+// (Y, X; null without a sponge) and the Boussinesq term beta * (T - t_avg);
+// the VK site pass leaves g alone.
 extern "C" int luw_stream_collide(
     const void* fa, void* fb, const void* flags, const void* dyn,
     const void* nudge_sigma, const void* nudge_face, const void* uw,
     const void* ue, const void* us, const void* un, const void* ut,
     const void* ub, const void* sponge_z, const void* mask_uw,
     const void* mask_ue, const void* mask_us, const void* mask_un,
-    const void* mask_ut, const void* mask_ub, int Z, int Y, int X,
-    int storage, int volume_force, int has_nudge, int has_sponge,
-    int nudge_vertical, int subgrid, float omega, float tau0, float tau0_sq,
-    int wall, int trt, float wall_cd, float wall_cd_sides, void* stream) {
+    const void* mask_ut, const void* mask_ub, const void* ga, void* gb,
+    const void* tt, int Z, int Y, int X, int storage, int volume_force,
+    int has_nudge, int has_sponge, int nudge_vertical, int subgrid,
+    float omega, float tau0, float tau0_sq, int wall, int trt, float wall_cd,
+    float wall_cd_sides, int thermal, float omega_t, float beta, float t_avg,
+    void* stream) {
   using luw::ScArgs;
   auto F = [](const void* p) { return static_cast<const float*>(p); };
   ScArgs a;
@@ -237,6 +245,8 @@ extern "C" int luw_stream_collide(
   a.trt = trt;
   a.wall_cd = wall_cd;
   a.wall_cd_sides = wall_cd_sides;
+  a.thermal = thermal;
+  a.th = {ga, gb, F(tt), omega_t, beta, t_avg};
   const auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (storage) {

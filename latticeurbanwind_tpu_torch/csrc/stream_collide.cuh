@@ -1,7 +1,8 @@
 // The fused D3Q19 stream-collide step kernel (K-SC), a template over the
-// storage codec and the configuration, shared by the two translation units
+// storage codec and the configuration, shared by the three translation units
 // that instantiate it: stream_collide.cu (SRT without a wall model, and the
-// C entry point) and stream_collide_wall.cu (the wall models and TRT).
+// C entry point), stream_collide_wall.cu (the wall models and TRT) and
+// stream_collide_thermal.cu (the thermal D3Q7 sub-lattice).
 //
 // Replaces: latticeurbanwind_tpu/ops/stream_collide.py::make_pallas_step,
 // the Pallas TPU kernel that advances the lattice by one time step.  Stages,
@@ -36,7 +37,9 @@
 // existed, register for register and instruction for instruction
 // (chip_compare.py against that checkout); the wall instances take
 // 72-80 registers and cost +6% (ground) to +38% (wall_sides) per step at
-// 256^3 bf16 on the H100, most of it the side mirrors.  Shared-memory tiling
+// 256^3 bf16 on the H100, most of it the side mirrors.  The thermal
+// sub-lattice (thermal.cuh) is a template argument too, its arguments one
+// trailing struct that the other instances never read.  Shared-memory tiling
 // and TMA are later work.
 
 #pragma once
@@ -46,6 +49,7 @@
 
 #include "codec.cuh"
 #include "lattice.cuh"
+#include "thermal.cuh"
 
 namespace luw {
 
@@ -107,11 +111,15 @@ struct ScArgs {
   float omega, tau0, tau0_sq;
   int wall, trt;  // wall: 0 none, 1 wall_model, 2 wall_sides
   float wall_cd, wall_cd_sides;
+  int thermal;
+  ThermArgs th;
 };
 
 // kNudge / kSponge: 0 off, 1 on, 2 on where the pointer is not null (the
-// wall and TRT instances take them at run time to keep their count down).
-template <class C, bool kForce, int kNudge, int kSponge, int kWall, bool kTrt>
+// wall, TRT and thermal instances take them at run time to keep their count
+// down).  kThermal steps the g populations of `th` with the cell (thermal.cuh).
+template <class C, bool kForce, int kNudge, int kSponge, int kWall, bool kTrt,
+          bool kThermal = false>
 __global__ void __launch_bounds__(kScThreads)
 stream_collide_kernel(const typename C::T* __restrict__ fa,
                       typename C::T* __restrict__ fb,
@@ -124,7 +132,8 @@ stream_collide_kernel(const typename C::T* __restrict__ fa,
                       const float* __restrict__ ut, const float* __restrict__ ub,
                       const float* __restrict__ sponge_z, int Z, int Y, int X,
                       int nudge_vertical, int subgrid, float omega, float tau0,
-                      float tau0_sq, float wall_cd, float wall_cd_sides) {
+                      float tau0_sq, float wall_cd, float wall_cd_sides,
+                      ThermArgs th) {
   // cz-grouped D3Q19 order of latticeurbanwind_tpu/lbm/lattice.py
   const int CX[19] = {0, 1, -1, 0, 0, 1, -1, 1, -1, 0, 1, -1, 0, 0, 0, -1, 1, 0, 0};
   const int CY[19] = {0, 0, 0, 1, -1, 1, -1, -1, 1, 0, 0, 0, 1, -1, 0, 0, 0, -1, 1};
@@ -144,9 +153,32 @@ stream_collide_kernel(const typename C::T* __restrict__ fa,
   const int z = (int)(zy / Y);
 
   const uint8_t fl = flags[n];
+  const typename C::T* __restrict__ ga =
+      static_cast<const typename C::T*>(th.ga);
+  typename C::T* __restrict__ gb = static_cast<typename C::T*>(th.gb);
   if (fl & kTypeS) {
 #pragma unroll
     for (int d = 0; d < 19; ++d) fb[d * N + n] = C::enc(0.0f);
+    if (kThermal) thermal_zero<C>(gb, n, N);
+    return;
+  }
+  if (kThermal && (fl & kTypeE)) {
+    // frozen f; g collides with the prescribed velocity, recovered as the
+    // moments of the cell's own stored equilibria; no sponge on T here
+    float rho = 0.0f, mx = 0.0f, my = 0.0f, mz = 0.0f;
+#pragma unroll
+    for (int d = 0; d < 19; ++d) {
+      const typename C::T v = fa[d * N + n];
+      fb[d * N + n] = v;
+      const float q = C::dec(v);
+      rho = d == 0 ? q : rho + q;
+      if (CX[d] == 1) mx += q; else if (CX[d] == -1) mx -= q;
+      if (CY[d] == 1) my += q; else if (CY[d] == -1) my -= q;
+      if (CZ[d] == 1) mz += q; else if (CZ[d] == -1) mz -= q;
+    }
+    const float inv = 1.0f / (rho + 1.0f);
+    thermal_cell<C>(ga, gb, flags, fl, n, z, y, x, Z, Y, X, N, mx * inv,
+                    my * inv, mz * inv, 0.0f, th.tt, th.omega_t);
     return;
   }
   if (fl & kTypeE) {  // frozen equilibrium: the stored bits go back unchanged
@@ -217,6 +249,18 @@ stream_collide_kernel(const typename C::T* __restrict__ fa,
     Fx += rs * (ut[yx] - ux);
     Fy += rs * (ut[plane + yx] - uy);
     Fz += rs * (ut[2 * plane + yx] - uz);
+  }
+
+  if (kThermal) {
+    // ---- thermal D3Q7 with the streamed, unforced velocity; the Boussinesq
+    // ---- term rides on the global force vector
+    const float T = thermal_cell<C>(
+        ga, gb, flags, fl, n, z, y, x, Z, Y, X, N, ux, uy, uz,
+        sponge_z != nullptr ? sponge_z[z] : 0.0f, th.tt, th.omega_t);
+    const float bterm = th.beta * (T - th.t_avg);
+    Fx -= dyn[0] * bterm;
+    Fy -= dyn[1] * bterm;
+    Fz -= dyn[2] * bterm;
   }
 
   // ---- Guo half-step + clamp ----
@@ -303,18 +347,19 @@ stream_collide_kernel(const typename C::T* __restrict__ fa,
   }
 }
 
-template <class C, bool kForce, int kNudge, int kSponge, int kWall, bool kTrt>
+template <class C, bool kForce, int kNudge, int kSponge, int kWall, bool kTrt,
+          bool kThermal = false>
 cudaError_t sc_launch(const ScArgs& a, cudaStream_t stream) {
   using T = typename C::T;
   const long long cells = (long long)a.Z * a.Y * a.X;
   const unsigned int blocks =
       (unsigned int)((cells + kScThreads - 1) / kScThreads);
-  stream_collide_kernel<C, kForce, kNudge, kSponge, kWall, kTrt>
+  stream_collide_kernel<C, kForce, kNudge, kSponge, kWall, kTrt, kThermal>
       <<<blocks, kScThreads, 0, stream>>>(
           static_cast<const T*>(a.fa), static_cast<T*>(a.fb), a.flags, a.dyn,
           a.nudge_sigma, a.nudge_face, a.uw, a.ue, a.us, a.un, a.ut, a.ub,
           a.sponge_z, a.Z, a.Y, a.X, a.nudge_vertical, a.subgrid, a.omega,
-          a.tau0, a.tau0_sq, a.wall_cd, a.wall_cd_sides);
+          a.tau0, a.tau0_sq, a.wall_cd, a.wall_cd_sides, a.th);
   return cudaGetLastError();
 }
 
@@ -322,5 +367,10 @@ cudaError_t sc_launch(const ScArgs& a, cudaStream_t stream) {
 // instantiated for the four codecs in stream_collide_wall.cu).
 template <class C>
 cudaError_t sc_dispatch_wall(const ScArgs& a, cudaStream_t stream);
+
+// One step of a thermal configuration in codec C (defined and instantiated
+// for the four codecs in stream_collide_thermal.cu).
+template <class C>
+cudaError_t sc_dispatch_thermal(const ScArgs& a, cudaStream_t stream);
 
 }  // namespace luw

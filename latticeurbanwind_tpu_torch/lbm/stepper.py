@@ -4,8 +4,9 @@ Counterpart of `latticeurbanwind_tpu/lbm/stepper.py::make_runner`.  The JAX
 runner compiles one program per chunk; PyTorch runs eagerly, so a run of n
 steps is n launches of `ops.stream_collide.stream_collide`, each pulling
 from one DDF buffer into the other, and the two buffers swap by reference
-after every step.  rho/u in the returned state are stale (pure-DDF
-stepping): `lbm.fields.update_fields` refreshes them at events.
+after every step; a thermal run keeps two `gi` buffers the same way.
+rho/u/T in the returned state are stale (pure-DDF stepping):
+`lbm.fields.update_fields` refreshes them at events.
 
 A pre-step hook (the VK inlet, `bc.vk_inlet.make_vk_pre_step`) runs before
 every step as in the JAX loop (`post=False`): at step t its `.ddf` variant
@@ -36,10 +37,11 @@ def make_runner(config: StepConfig, forcing: Forcing = Forcing(), *,
 
     `run` updates IN PLACE: it keeps exactly two DDF buffers, the incoming
     `state.fi` and one spare it allocates once, and after every step the
-    two swap.  The returned state holds whichever buffer has the newest
-    DDFs; the incoming state's `fi` becomes the spare and must not be read
-    afterwards.  One runner serves one simulation: `run.reset()` forgets the
-    carried FaceBC and the spare buffer before a runner is reused.
+    two swap (and the same pair for `state.gi` when thermal).  The returned
+    state holds whichever buffers have the newest DDFs; the incoming
+    state's `fi`/`gi` become the spares and must not be read afterwards.
+    One runner serves one simulation: `run.reset()` forgets the carried
+    FaceBC and the spare buffers before a runner is reused.
 
     `pre_step` is a hook with a pure-DDF variant `.ddf(fbc, t, aux) ->
     (fbc, aux)` (the VK inlet); `t0` is the global index of the first step,
@@ -59,33 +61,44 @@ def make_runner(config: StepConfig, forcing: Forcing = Forcing(), *,
     dev = torch.device(device)
     needs_fbc = (forcing.nudge_sigma is not None
                  or forcing.sponge_sigma_z is not None or vk_spec is not None)
-    cell = {"fbc": None, "init": False, "spare": None}
+    thermal = config.thermal
+    cell = {"fbc": None, "init": False, "spare": None, "gspare": None}
+
+    def spare_for(cur, spare):
+        if (spare is None or spare.shape != cur.shape or spare.dtype != cur.dtype
+                or spare.data_ptr() == cur.data_ptr()):
+            return torch.empty_like(cur)
+        return spare
 
     def run(state: LBMState, dyn: DynParams, t0: int = 0,
             n_steps: int = 1) -> LBMState:
         if not cell["init"]:
-            cell["fbc"] = build_face_bc(state.u) if needs_fbc else None
+            cell["fbc"] = (build_face_bc(state.u, state.T if thermal else None)
+                           if needs_fbc else None)
             cell["init"] = True
         aux = pre_ddf.init_aux(t0) if hasattr(pre_ddf, "init_aux") else None
         fbc = cell["fbc"]
         row = dyn_row(dyn, dev)
         cur = state.fi
-        spare = cell["spare"]
-        if (spare is None or spare.shape != cur.shape or spare.dtype != cur.dtype
-                or spare.data_ptr() == cur.data_ptr()):
-            spare = torch.empty_like(cur)
+        spare = spare_for(cur, cell["spare"])
+        gcur = gspare = None
+        if thermal:
+            gcur = state.gi
+            gspare = spare_for(gcur, cell["gspare"])
         for i in range(int(n_steps)):
             if pre_ddf is not None:
                 fbc, aux = pre_ddf(fbc, int(t0) + i, aux)
             stream_collide(cur, state.flags, row, config, forcing, fbc,
-                           out=spare, vk=vk_spec)
+                           out=spare, vk=vk_spec, gi=gcur, gi_out=gspare)
             cur, spare = spare, cur
+            gcur, gspare = gspare, gcur
         cell["fbc"] = fbc
         cell["spare"] = spare
-        return state._replace(fi=cur)
+        cell["gspare"] = gspare
+        return state._replace(fi=cur, gi=gcur) if thermal else state._replace(fi=cur)
 
     def reset():
-        cell.update(fbc=None, init=False, spare=None)
+        cell.update(fbc=None, init=False, spare=None, gspare=None)
 
     def set_fbc(fbc: Optional[FaceBC]):
         if fbc is not None:
@@ -96,11 +109,17 @@ def make_runner(config: StepConfig, forcing: Forcing = Forcing(), *,
                 if tuple(getattr(fbc, k).shape) != shp:
                     raise ValueError(f"FaceBC {k} shape {tuple(getattr(fbc, k).shape)}"
                                      f" does not match this runner's grid (want {shp})")
+            if thermal and forcing.sponge_sigma_z is not None and fbc.tt is None:
+                raise ValueError("FaceBC has no thermal target 'tt' but this "
+                                 "runner is thermal")
+            if fbc.tt is not None and tuple(fbc.tt.shape) != (Y, X):
+                raise ValueError(f"FaceBC tt shape {tuple(fbc.tt.shape)} does not "
+                                 f"match this runner's grid (want {(Y, X)})")
         cell.update(fbc=fbc, init=True)
 
     run.reset = reset
     run.get_fbc = lambda: cell["fbc"]
     run.set_fbc = set_fbc
-    # pure-DDF stepping on every device: rho/u stay stale until refreshed
+    # pure-DDF stepping on every device: rho/u/T stay stale until refreshed
     run.fields_stale = True
     return run, ("cuda" if dev.type == "cuda" else "plain")

@@ -29,8 +29,9 @@ from .stream_collide import _STORAGE_CODE, _check_tensor
 def check_config(config: StepConfig) -> None:
     if config.thermal:
         raise NotImplementedError(
-            "the averaging pass is ported for non-thermal configurations "
-            "(ROADMAP kernel item K7)")
+            "the fused averaging pass is non-thermal, as the JAX package's "
+            "make_avg_update: a thermal run samples update_fields + "
+            "welford_update")
     if config.storage not in _STORAGE_CODE:
         raise ValueError(f"unknown storage {config.storage!r}")
 

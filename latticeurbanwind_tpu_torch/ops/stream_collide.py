@@ -10,13 +10,26 @@ come from the static `FaceBC` built once from the initial velocity field.
 `stream_collide_plain` (torch ops with `torch.roll` pulls); a CUDA tensor
 launches `csrc/stream_collide.cu` (no wall model, SRT) or
 `csrc/stream_collide_wall.cu` (the wall models or TRT) or raises.  There is
-no fallback between the two.  Both take every non-thermal configuration:
+no fallback between the two.  Both take every single-device configuration:
 SRT or TRT collision with Smagorinsky LES and equilibrium boundaries, f32,
 bf16, f16 or fp16c storage, volume force (global force + Coriolis) on or
 off, buffer nudging, the top sponge, the wall models (`wall_model`,
-`wall_sides`) and the VK inlet sites of `bc.vk_inlet` (`vk`, the hook's
-`kernel_spec`).  Thermal raises `NotImplementedError` naming the ROADMAP
-kernel item that ports it.
+`wall_sides`), the VK inlet sites of `bc.vk_inlet` (`vk`, the hook's
+`kernel_spec`) and the thermal D3Q7 sub-lattice (`thermal`, instances of
+`csrc/stream_collide_thermal.cu`).
+
+Thermal (Pallas `make_pallas_step` :732-807): the 7 `g` populations are
+pulled with halfway bounce-back from solid sources (no mirrors); T = 1 +
+sum g, at TYPE_T cells 1 + the sum of the cell's own frozen populations; the
+top sponge relaxes T toward the FaceBC target `tt` (the initial top plane
+of T) at cells that are neither TYPE_E nor TYPE_T; g_eq = w0 (T - 1) and
+ws (T - 1) +- T u_axis / 2 with the streamed, unforced velocity (TYPE_E
+cells: the velocity of their own frozen f); g relaxes at omega_t, TYPE_T
+cells keep their stored g and solid cells write 0; the Boussinesq term
+F -= dyn.force * beta * (T - t_avg) enters F before the Guo half-step.  The
+JAX reference tier (`lbm/reference.py:305`) takes the current `T[-1]` as
+the sponge target; the kernels, the Pallas one and this one, stream no T
+field and take `tt`.
 
 Wall models (Pallas `make_pallas_step` :618-650 and :678-703, reference
 `lbm/reference.py::_stream`): a direction d whose pull source is solid
@@ -59,10 +72,10 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..lbm.fields import pull, wall_stress
-from ..lbm.lattice import C19, CS, OPP19, SMAGORINSKY_FACTOR, W19
+from ..lbm.fields import pull, pull_g, wall_stress
+from ..lbm.lattice import C19, CS, OPP19, SMAGORINSKY_FACTOR, W7, W19
 from ..lbm.state import (
-    Forcing, StepConfig, TYPE_E, TYPE_S, decode_ddf, encode_ddf,
+    Forcing, StepConfig, TYPE_E, TYPE_S, TYPE_T, decode_ddf, encode_ddf,
     storage_dtype, wall_mode,
 )
 
@@ -78,7 +91,8 @@ class FaceBC(NamedTuple):
 
     Layouts as in the JAX package: uw/ue (Z, 3, Y), us/un (Z, 3, X),
     ut/ub (3, Y, X), all f32.  With pure-DDF stepping the face velocities
-    are those of the initial field (the faces are TYPE_E cells)."""
+    are those of the initial field (the faces are TYPE_E cells).  `tt`
+    (Y, X) is the sponge's temperature target of a thermal run."""
 
     uw: torch.Tensor
     ue: torch.Tensor
@@ -86,10 +100,15 @@ class FaceBC(NamedTuple):
     un: torch.Tensor
     ut: torch.Tensor
     ub: torch.Tensor
+    tt: Optional[torch.Tensor] = None
 
 
-def build_face_bc(u: torch.Tensor) -> FaceBC:
-    """Face targets from the initialized boundary velocity field (3,Z,Y,X)."""
+_FACE_FIELDS = ("uw", "ue", "us", "un", "ut", "ub")
+
+
+def build_face_bc(u: torch.Tensor, T: Optional[torch.Tensor] = None) -> FaceBC:
+    """Face targets from the initialized boundary fields: the velocity
+    (3,Z,Y,X) and, for a thermal run, the temperature (Z,Y,X)."""
     def c(a):
         return a.to(torch.float32).contiguous()
 
@@ -97,14 +116,12 @@ def build_face_bc(u: torch.Tensor) -> FaceBC:
         uw=c(u[:, :, :, 0].transpose(0, 1)), ue=c(u[:, :, :, -1].transpose(0, 1)),
         us=c(u[:, :, 0, :].transpose(0, 1)), un=c(u[:, :, -1, :].transpose(0, 1)),
         ut=c(u[:, -1, :, :]), ub=c(u[:, 0, :, :]),
+        tt=None if T is None else c(T[-1]),
     )
 
 
 def check_config(config: StepConfig, forcing: Forcing, vk=None) -> None:
     """Raise for a configuration K-SC (and its plain version) does not take."""
-    if config.thermal:
-        raise NotImplementedError(
-            "thermal D3Q7 is not ported yet (ROADMAP kernel item K7)")
     if config.storage not in _STORAGE_CODE:
         raise ValueError(f"unknown storage {config.storage!r}")
     if vk is not None:
@@ -116,8 +133,9 @@ def check_config(config: StepConfig, forcing: Forcing, vk=None) -> None:
                 raise ValueError(f"VK site {kind!r} has no mask {field!r}")
     has_forcing = (forcing.nudge_sigma is not None
                    or forcing.sponge_sigma_z is not None)
-    if not config.volume_force and has_forcing:
-        raise ValueError("volume_force=False requires no nudge/sponge forcing")
+    if not config.volume_force and (has_forcing or config.thermal):
+        raise ValueError("volume_force=False requires no nudge/sponge "
+                         "forcing and no thermal buoyancy")
 
 
 def _roll(a: torch.Tensor, c) -> torch.Tensor:
@@ -187,14 +205,65 @@ def apply_vk_sites(out: torch.Tensor, fbc: FaceBC, vk, storage: str) -> None:
         _raw(slab).copy_(_raw(new))
 
 
+def _thermal_plain(gi, f_prev, un, solid, eqbc, tfix, sponge_sig, tt,
+                   config: StepConfig):
+    """(post-collision g (7,Z,Y,X) in storage dtype, T) of one thermal step:
+    the D3Q7 half of `stream_collide_plain`, in the Pallas step's order."""
+    g_prev = decode_ddf(gi, config.storage)
+    # TYPE_E cells collide g with their prescribed velocity: the moments of
+    # their own frozen f
+    rho_own = f_prev[0]
+    for d in range(1, 19):
+        rho_own = rho_own + f_prev[d]
+    rho_own = rho_own + 1.0
+    mom_own = [None, None, None]
+    for d in range(1, 19):
+        for a in range(3):
+            c = int(C19[d, a])
+            if c == 0:
+                continue
+            t = f_prev[d] if c == 1 else -f_prev[d]
+            mom_own[a] = t if mom_own[a] is None else mom_own[a] + t
+    inv_rho_own = 1.0 / rho_own
+    un_t = [torch.where(eqbc, mom_own[a] * inv_rho_own, un[a])
+            for a in range(3)]
+
+    gpl = [pull_g(g_prev.__getitem__, solid, d) for d in range(7)]
+    T_m, T_own = gpl[0], g_prev[0]
+    for d in range(1, 7):
+        T_m = T_m + gpl[d]
+        T_own = T_own + g_prev[d]
+    Tn = torch.where(tfix, T_own + 1.0, T_m + 1.0)
+    if sponge_sig is not None:
+        sig_t = torch.where(eqbc | tfix, 0.0, sponge_sig)
+        Tn = Tn + sig_t * (tt[None] - Tn)
+    tm1_q = float(W7[1]) * (Tn - 1.0)
+    geq = [float(W7[0]) * (Tn - 1.0)]
+    for ax in range(3):
+        cu_t = 0.5 * Tn * un_t[ax]
+        geq.append(tm1_q + cu_t)
+        geq.append(tm1_q - cu_t)
+    g_out = torch.empty_like(gi)
+    raw_out, raw_in = _raw(g_out), _raw(gi)
+    zero = torch.zeros((), dtype=raw_out.dtype, device=gi.device)
+    for d in range(7):
+        coll = (1.0 - config.omega_t) * gpl[d] + config.omega_t * geq[d]
+        post = torch.where(tfix, raw_in[d],
+                           _raw(encode_ddf(coll, config.storage)))
+        raw_out[d] = torch.where(solid, zero, post)
+    return g_out, Tn
+
+
 def stream_collide_plain(fi: torch.Tensor, flags: torch.Tensor,
                          dyn: torch.Tensor, config: StepConfig,
                          forcing: Forcing,
-                         fbc: Optional[FaceBC] = None, vk=None) -> torch.Tensor:
+                         fbc: Optional[FaceBC] = None, vk=None,
+                         gi: Optional[torch.Tensor] = None):
     """One step in plain torch: returns the post-collision DDFs (19,Z,Y,X) in
-    storage dtype.  `dyn` is the (8,) row of `lbm.state.dyn_row`; `vk` the
-    inlet site spec.  Same stages and evaluation order as the kernel and the
-    Pallas step."""
+    storage dtype, and with `config.thermal` the pair of them and the
+    post-collision `g` (7,Z,Y,X) from `gi`.  `dyn` is the (8,) row of
+    `lbm.state.dyn_row`; `vk` the inlet site spec.  Same stages and
+    evaluation order as the kernel and the Pallas step."""
     check_config(config, forcing, vk)
     use_force = config.volume_force
     has_nudge = forcing.nudge_sigma is not None
@@ -202,6 +271,11 @@ def stream_collide_plain(fi: torch.Tensor, flags: torch.Tensor,
     if (has_nudge or has_sponge or vk is not None) and fbc is None:
         raise ValueError("nudging, sponge and VK sites need the FaceBC "
                          "targets (fbc)")
+    if config.thermal:
+        if gi is None:
+            raise ValueError("a thermal step needs the g populations (gi)")
+        if has_sponge and fbc.tt is None:
+            raise ValueError("a thermal step with the sponge needs FaceBC.tt")
     f_prev = decode_ddf(fi, config.storage)
     solid = (flags & TYPE_S) != 0
     eqbc = (flags & TYPE_E) != 0
@@ -248,6 +322,15 @@ def stream_collide_plain(fi: torch.Tensor, flags: torch.Tensor,
         rs = rho * torch.where(eqbc, 0.0, sig)
         for a in range(3):
             F[a] = F[a] + rs * (fbc.ut[a][None] - un[a])
+
+    g_out = None
+    if config.thermal:
+        g_out, Tn = _thermal_plain(
+            gi, f_prev, un, solid, eqbc, (flags & TYPE_T) != 0,
+            forcing.sponge_sigma_z[:, None, None] if has_sponge else None,
+            fbc.tt if has_sponge else None, config)
+        bterm = config.beta * (Tn - config.t_avg)
+        F = [F[a] - dyn[a] * bterm for a in range(3)]
 
     if use_force:
         half = 0.5 / rho
@@ -334,7 +417,7 @@ def stream_collide_plain(fi: torch.Tensor, flags: torch.Tensor,
         raw_out[d] = torch.where(solid, zero, post)
     if vk is not None:
         apply_vk_sites(out, fbc, vk, config.storage)
-    return out
+    return (out, g_out) if config.thermal else out
 
 
 def _check_tensor(name, t, dtype, shape, device):
@@ -351,13 +434,17 @@ def _check_tensor(name, t, dtype, shape, device):
 def stream_collide(fi: torch.Tensor, flags: torch.Tensor, dyn: torch.Tensor,
                    config: StepConfig, forcing: Forcing,
                    fbc: Optional[FaceBC] = None, *,
-                   out: Optional[torch.Tensor] = None, vk=None) -> torch.Tensor:
+                   out: Optional[torch.Tensor] = None, vk=None,
+                   gi: Optional[torch.Tensor] = None,
+                   gi_out: Optional[torch.Tensor] = None):
     """One time step from `fi` into `out` (allocated when None; must not
-    alias `fi`), with the VK inlet sites of `vk` when given.  CPU tensors
-    run the plain version; CUDA tensors launch K-SC and count the launch in
-    `stream_collide.launches` (and, with sites, in
-    `stream_collide.launches_vk` too; with a wall model, an instance of
-    `csrc/stream_collide_wall.cu`, in `stream_collide.launches_wall`)."""
+    alias `fi`), with the VK inlet sites of `vk` when given; a thermal
+    configuration also steps `gi` into `gi_out` and returns `(out, gi_out)`.
+    CPU tensors run the plain version; CUDA tensors launch K-SC and count
+    the launch in `stream_collide.launches` (and, with sites, in
+    `stream_collide.launches_vk` too; with a wall model, in
+    `stream_collide.launches_wall`; thermal, an instance of
+    `csrc/stream_collide_thermal.cu`, in `stream_collide.launches_thermal`)."""
     check_config(config, forcing, vk)
     if fi.device.type not in ("cpu", "cuda"):
         raise NotImplementedError(f"no stream-collide kernel for {fi.device}")
@@ -365,10 +452,24 @@ def stream_collide(fi: torch.Tensor, flags: torch.Tensor, dyn: torch.Tensor,
         out = torch.empty_like(fi)
     if out.data_ptr() == fi.data_ptr():
         raise ValueError("out must not alias fi (the kernel pulls from fi)")
+    thermal = config.thermal
+    if thermal:
+        if gi is None:
+            raise ValueError("a thermal step needs the g populations (gi)")
+        if gi_out is None:
+            gi_out = torch.empty_like(gi)
+        if gi_out.data_ptr() == gi.data_ptr():
+            raise ValueError("gi_out must not alias gi (the kernel pulls "
+                             "from gi)")
     if fi.device.type == "cpu":
-        _raw(out).copy_(_raw(stream_collide_plain(fi, flags, dyn, config,
-                                                  forcing, fbc, vk)))
-        return out
+        res = stream_collide_plain(fi, flags, dyn, config, forcing, fbc, vk,
+                                   gi)
+        if not thermal:
+            _raw(out).copy_(_raw(res))
+            return out
+        _raw(out).copy_(_raw(res[0]))
+        _raw(gi_out).copy_(_raw(res[1]))
+        return out, gi_out
 
     dev = fi.device
     Z, Y, X = (int(v) for v in flags.shape)
@@ -380,7 +481,7 @@ def stream_collide(fi: torch.Tensor, flags: torch.Tensor, dyn: torch.Tensor,
     has_sponge = forcing.sponge_sigma_z is not None
     ptr = {k: None for k in ("nsig", "nface", "uw", "ue", "us", "un", "ut",
                              "ub", "sz")}
-    mptr = {k: None for k in FaceBC._fields}
+    mptr = {k: None for k in _FACE_FIELDS}
     if has_nudge:
         _check_tensor("nudge_sigma", forcing.nudge_sigma, torch.float32,
                       (Z, Y, X), dev)
@@ -409,6 +510,16 @@ def stream_collide(fi: torch.Tensor, flags: torch.Tensor, dyn: torch.Tensor,
             _check_tensor(f"vk mask {field}", m, torch.float32, mshape[field],
                           dev)
             mptr[field] = m.data_ptr()
+    tt_ptr = None
+    if thermal:
+        _check_tensor("gi", gi, fi.dtype, (7, Z, Y, X), dev)
+        _check_tensor("gi_out", gi_out, fi.dtype, (7, Z, Y, X), dev)
+        if has_sponge:
+            if fbc.tt is None:
+                raise ValueError("a thermal step with the sponge needs "
+                                 "FaceBC.tt")
+            _check_tensor("fbc.tt", fbc.tt, torch.float32, (Y, X), dev)
+            tt_ptr = fbc.tt.data_ptr()
 
     from ..utils.cuda_build import load_library
 
@@ -420,12 +531,15 @@ def stream_collide(fi: torch.Tensor, flags: torch.Tensor, dyn: torch.Tensor,
             fi.data_ptr(), out.data_ptr(), flags.data_ptr(), dyn.data_ptr(),
             ptr["nsig"], ptr["nface"], ptr["uw"], ptr["ue"], ptr["us"],
             ptr["un"], ptr["ut"], ptr["ub"], ptr["sz"], mptr["uw"],
-            mptr["ue"], mptr["us"], mptr["un"], mptr["ut"], mptr["ub"], Z, Y, X,
+            mptr["ue"], mptr["us"], mptr["un"], mptr["ut"], mptr["ub"],
+            gi.data_ptr() if thermal else None,
+            gi_out.data_ptr() if thermal else None, tt_ptr, Z, Y, X,
             _STORAGE_CODE[config.storage], int(config.volume_force),
             int(has_nudge), int(has_sponge), int(forcing.nudge_vertical),
             int(config.subgrid), config.omega, tau0, tau0 * tau0,
             wall_mode(config), int(config.collision == "trt"), config.wall_cd,
-            config.wall_cd_sides, stream)
+            config.wall_cd_sides, int(thermal), config.omega_t, config.beta,
+            config.t_avg, stream)
     if rc != 0:
         raise RuntimeError(f"luw_stream_collide launch failed: CUDA error {rc}")
     stream_collide.launches += 1
@@ -433,9 +547,13 @@ def stream_collide(fi: torch.Tensor, flags: torch.Tensor, dyn: torch.Tensor,
         stream_collide.launches_vk += 1
     if config.wall_model:
         stream_collide.launches_wall += 1
+    if thermal:
+        stream_collide.launches_thermal += 1
+        return out, gi_out
     return out
 
 
 stream_collide.launches = 0
 stream_collide.launches_vk = 0
 stream_collide.launches_wall = 0
+stream_collide.launches_thermal = 0

@@ -1,4 +1,5 @@
-"""Run modes: profile research (.luwpf) and dataset generation (.luwdg).
+"""Run modes: profile research (.luwpf) and dataset generation (.luwdg);
+`run_deck` also dispatches standard decks (.luw) to `run.standard`.
 
 Counterpart of `latticeurbanwind_tpu/run/modes.py::run_profile_mode`,
 `run_datagen_mode` and `run_deck` (reference: setup.cpp:5762-6153).
@@ -17,9 +18,7 @@ Both run on the CUDA device unless the caller names another (`device`);
 without one they raise.  `case_parallel = true` runs the cases one after
 another on the one device the run has, as the JAX package does on one
 device; the case-parallel batch runner is ROADMAP module item 10.  The
-wall models follow the deck's `ground_z0` / `building_z0`.  Standard
-NWP-coupled decks (`.luw`) raise `NotImplementedError` naming their ROADMAP
-item.
+wall models follow the deck's `ground_z0` / `building_z0`.
 """
 
 from __future__ import annotations
@@ -63,7 +62,7 @@ def _format_tag(v: float) -> str:
 
 def _find_case_stl(parent: Path, casename: str, mode: str) -> Path:
     """Geometry search order (reference: setup.cpp:4001-4067)."""
-    suffix = {"luwdg": "_DG", "luwpf": "_PF"}[mode]
+    suffix = {"luw": "_DG", "luwdg": "_DG", "luwpf": "_PF"}[mode]
     candidates = [
         parent / "proj_temp" / f"{casename}{suffix}.stl",
         parent / "proj_temp" / f"{casename}_DG.stl",
@@ -411,12 +410,13 @@ def run_datagen_mode(deck_path: Path | str, *,
 
 def run_deck(deck_path: Path | str, **kw) -> List[RunResult]:
     """Run a deck by its kind: `.luwpf` profile research, `.luwdg` dataset
-    generation; `device` defaults to "cuda"."""
+    generation, `.luw` the standard NWP-coupled mode; `device` defaults to
+    "cuda"."""
     mode = deck_mode_from_path(deck_path)
     if mode == "luwpf":
         return run_profile_mode(deck_path, **kw)
     if mode == "luwdg":
         return run_datagen_mode(deck_path, **kw)
-    raise NotImplementedError(
-        "standard NWP-coupled decks (.luw) are not ported yet (ROADMAP module "
-        "item 8, with kernel item K7)")
+    from .standard import run_standard_mode
+
+    return run_standard_mode(deck_path, **kw)

@@ -88,9 +88,10 @@ def test_profile_deck_matches_jax_pure_ddf_tier(tmp_path):
 
 
 def test_port_refuses_what_it_does_not_run(tmp_path):
-    """The wall models (`ground_z0`, K4) and dataset-generation decks
-    (`.luwdg`) run; standard decks (`.luw`, module item 8) and thermal
-    configurations (K7) raise naming their ROADMAP item."""
+    """The wall models (`ground_z0`, K4), dataset-generation decks
+    (`.luwdg`), standard decks (`.luw`, module item 8) and thermal
+    configurations (K7) run; a device mesh (`n_gpu`, module item 11) raises
+    naming its ROADMAP item."""
     from latticeurbanwind_tpu_torch.deck import load_deck
     from latticeurbanwind_tpu_torch.lbm.state import StepConfig
     from latticeurbanwind_tpu_torch.lbm.stepper import make_runner
@@ -115,13 +116,24 @@ def test_port_refuses_what_it_does_not_run(tmp_path):
     (r,) = run_deck(dg / "conf.luwdg", device="cpu", quiet=True, max_cases=1)
     assert r.total_steps == 4 and r.files[0].name.startswith("DG_4_0_")
 
-    other = tmp_path / "conf.luw"
-    other.write_text("casename = x\n")
-    with pytest.raises(NotImplementedError, match="module item 8"):
-        run_deck(other, device="cpu", quiet=True)
-    with pytest.raises(NotImplementedError, match="K7"):
-        make_runner(StepConfig(omega=1.5, thermal=True), shape=(4, 8, 8),
-                    device="cpu")
+    nwp = tmp_path / "nwp"
+    shutil.copytree(EXAMPLE.parent / "example_NWP-LBM_prepared", nwp)
+    deck = load_deck(nwp / "conf.luw")
+    deck.set_float("cell_size", 64.0)
+    deck.set_int("run_nstep", 4)
+    deck.set_int("purge_avg", 0)
+    deck.save()
+    (r,) = run_deck(nwp / "conf.luw", device="cpu", quiet=True)
+    assert r.total_steps == 4 and r.state.gi is not None
+    assert any("_raw_T-" in f.name for f in r.files)
+    run, impl = make_runner(StepConfig(omega=1.5, thermal=True),
+                            shape=(4, 8, 8), device="cpu")
+    assert impl == "plain"
+
+    deck.set_raw("n_gpu", "[2, 1, 1]")
+    deck.save()
+    with pytest.raises(NotImplementedError, match="module item 11"):
+        run_deck(nwp / "conf.luw", device="cpu", quiet=True)
 
 
 def test_entry_points_need_the_card_unless_asked_for_the_cpu(tmp_path,

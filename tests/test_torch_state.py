@@ -135,6 +135,11 @@ def test_port_never_imports_jax():
         "       or m == 'latticeurbanwind_tpu'\n"
         "       or m.startswith('latticeurbanwind_tpu.')]\n"
         "assert not bad, bad\n"
+        "new = ['run.standard', 'bc.nearest', 'bc.patch2d', 'bc.samples',\n"
+        "       'bc.high_order', 'run.probes', 'run.probe_parse',\n"
+        "       'post.transform', 'pre.utm']\n"
+        "missing = [m for m in new if p.__name__ + '.' + m not in sys.modules]\n"
+        "assert not missing, missing\n"
         "print('ok', len(sys.modules))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)

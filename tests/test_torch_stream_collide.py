@@ -243,16 +243,16 @@ def test_stepper_runs_the_wrapper_over_two_buffers():
     (dict(collision="trt"), None),
     (dict(wall_model=True, wall_cd=0.01), None),
     (dict(wall_model=True, wall_cd=0.01, wall_sides=True), None),
-    (dict(thermal=True), "K7"),
+    (dict(thermal=True, omega_t=1.2), None),
     (dict(storage="f16"), None),
     (dict(storage="fp16c"), None),
     (dict(), None),
 ])
 def test_wrapper_refuses_unported_configs(change, item):
-    """Thermal (K7) raises naming its ROADMAP item; TRT (K2), the wall
-    models (K4), the f16/fp16c storages (K5) and the VK inlet sites (K6, the
-    last case) are taken: a rest state stays at rest, except the west lane,
-    whose site writes feq(rho=1, u_west)."""
+    """Nothing single-device is refused any more: TRT (K2), the wall models
+    (K4), the f16/fp16c storages (K5), the VK inlet sites (K6, the last
+    case) and thermal (K7, with g at rest) are taken: a rest state stays at
+    rest, except the west lane, whose site writes feq(rho=1, u_west)."""
     from latticeurbanwind_tpu_torch.lbm.state import (
         Forcing, StepConfig, decode_ddf, encode_ddf, storage_dtype,
     )
@@ -271,12 +271,14 @@ def test_wrapper_refuses_unported_configs(change, item):
         fbc = build_face_bc(u)
         vk = {"sites": (("lane0", "uw"),),
               "masks": {"uw": torch.ones((shape[0], 1, shape[1]))}}
-    if item is not None:
-        with pytest.raises(NotImplementedError, match=item):
-            stream_collide(fi, flags, torch.zeros(8), cfg, Forcing(), fbc, vk=vk)
-        return
-    out = decode_ddf(stream_collide(fi, flags, torch.zeros(8), cfg, Forcing(),
-                                    fbc, vk=vk), cfg.storage)
+    assert item is None
+    gi = torch.zeros((7, *shape), dtype=fi.dtype) if cfg.thermal else None
+    out = stream_collide(fi, flags, torch.zeros(8), cfg, Forcing(), fbc, vk=vk,
+                         gi=gi)
+    if cfg.thermal:
+        out, g_out = out
+        assert g_out.shape == gi.shape and not bool(g_out.any())
+    out = decode_ddf(out, cfg.storage)
     assert out.shape == (19, *shape) and bool(torch.isfinite(out).all())
     want = torch.zeros_like(out)
     if vk is not None:
@@ -302,9 +304,9 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     assert len(cuda_build.source_digest()) == 64
     assert [p.name for p in cuda_build.sources()] == [
         "avg_update.cu", "codec.cu", "stream_collide.cu",
-        "stream_collide_wall.cu"]
+        "stream_collide_thermal.cu", "stream_collide_wall.cu"]
     assert [p.name for p in cuda_build.headers()] == [
-        "codec.cuh", "lattice.cuh", "stream_collide.cuh"]
+        "codec.cuh", "lattice.cuh", "stream_collide.cuh", "thermal.cuh"]
 
 
 def test_kernel_build_compiles_translation_units_only(monkeypatch, tmp_path):

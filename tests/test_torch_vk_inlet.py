@@ -257,7 +257,7 @@ def test_facebc_refresh_matches_jax(stride, interp):
     s = split_state(js, with_fbc=True)
     hook_j = jax.jit(pre_j.ddf)
     fbc = build_face_bc(_port_state(flags, u).u)
-    for name in fbc._fields:
+    for name in fbc._fields[:6]:      # the velocity targets (tt: thermal runs)
         np.testing.assert_array_equal(getattr(fbc, name).numpy(),
                                       np.asarray(getattr(s.fbc, name)))
     aux = None
@@ -268,7 +268,7 @@ def test_facebc_refresh_matches_jax(stride, interp):
         s = hook_j(s, t)
         fbc, aux = pre_t.ddf(fbc, t, aux)
         if t in (0, 3, 7, 40):
-            for name in fbc._fields:
+            for name in fbc._fields[:6]:      # the velocity targets (tt: thermal runs)
                 np.testing.assert_allclose(getattr(fbc, name).numpy(),
                                            np.asarray(getattr(s.fbc, name)),
                                            atol=1e-6, err_msg=f"{name} t={t}")
@@ -435,7 +435,7 @@ def test_runner_with_the_hook_matches_the_plain_loop():
     assert impl == "plain" and stream_collide.launches == launches
     np.testing.assert_array_equal(convert.to_numpy(out.fi).view(np.uint16),
                                   convert.to_numpy(fi).view(np.uint16))
-    for name in fbc._fields:
+    for name in fbc._fields[:6]:      # the velocity targets (tt: thermal runs)
         np.testing.assert_array_equal(getattr(run.get_fbc(), name).numpy(),
                                       getattr(fbc, name).numpy())
     with pytest.raises(NotImplementedError, match="pure-DDF"):

@@ -22,10 +22,14 @@ nvcc per source, in parallel), then:
      (averaging) for 4 samples against update_fields + welford_update after
      each of the K-SC runs without sites (the wall-model K-AVG after the
      wall runs); K-SC thermal (the D3Q7 sub-lattice: TYPE_T cells, sponge on
-     T, a non-zero global force so the Boussinesq term is live) in all four
-     storages, without and with the wall models and TRT, without and with
-     VK sites, and in bf16 with hook sites at the NWP deck's grid, both its
-     f and g outputs;
+     T, and a global force, expansion coefficient and temperature spread
+     large enough that the Boussinesq term moves f by at least 10x the
+     tolerance in 5 steps, which is checked against the same steps with
+     beta = 0) in all four storages, without and with the wall models and
+     TRT, without and with VK sites, and in bf16 with hook sites at the NWP
+     deck's grid, both its f and g outputs, the 2-byte storages by their
+     stored codes (at most one storage step apart wherever the decoded
+     values are further apart than the tolerance, and few such elements);
      the device codecs bit for bit against the torch codecs (all 65,536
      fp16c and f16 codes, a dense sweep of every float32 exponent band with
      ties);
@@ -64,9 +68,6 @@ nvcc per source, in parallel), then:
      FaceBC refresh and the whole step (refresh + K-SC), each by device time
      and by host enqueue time.
 
-`python3 chip_smoke.py --nwp-cell 2.0` runs only the thermal NWP deck at
-another cell size and prints no result line.
-
 The second-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero; so
 does a machine without CUDA.
@@ -99,12 +100,25 @@ STORAGES = ("f32", "bf16", "f16", "fp16c")
 TOL = {"f32": 6e-6, "bf16": 2e-4, "f16": 2e-5, "fp16c": 2e-5}
 AVG_TOL = 1e-5                          # the JAX fused pass's own (test_avg_kernel.py)
 WALL_TOL_F32 = 1e-5                     # f32 wall models (test_pallas_kernel.py:165-168)
-# thermal, the 2-byte floats: the g populations carry T u / 2, which reaches
-# 1/32 in these cases (|u| up to ~0.1), where one storage step is 2^-12 =
-# 2.44e-4 in bf16 and 2^-15 = 3.05e-5 in f16; the kernel (fused multiply-adds)
-# and the plain version may round such a value to neighbouring codes, so the
-# tolerance is one step there.  The JAX tests run no bf16 or f16 thermal case.
-THERMAL_TOL = {"bf16": 2.5e-4, "f16": 4e-5}
+# thermal, the 2-byte floats: the g populations carry T u / 2, which passes
+# 1/32 in these cases (|u| up to ~0.15), where one storage step is 2^-12 =
+# 2.44e-4 in bf16 and 2^-15 = 3.05e-5 in f16 and so exceeds the tolerance.
+# The kernel (fused multiply-adds) and the plain version may round such a
+# value to neighbouring codes.  So the stored codes are compared: an element
+# whose decoded values differ by more than TOL must be at most ONE storage
+# step apart (below 1/32 a step is under TOL, so there TOL alone holds), and
+# no more than THERMAL_STEP_SHARE of a run's elements may be such; nor may
+# more than THERMAL_DIFFERING_SHARE of the stored codes differ at all: a
+# bias of one code in every cell would fail it.  (An H100 run of these
+# cases showed at most 5.2e-5 and 1.9e-2.)
+THERMAL_STEP_SHARE = 1e-3
+THERMAL_DIFFERING_SHARE = 0.1
+# the thermal case's buoyancy: force * beta * (T - t_avg) ~ 5e-3 per step and
+# its cell-to-cell spread ~ 2.5e-4, against ~4e-10 with the JAX kernel
+# test's force 2e-5, beta 0.002, |T - 1| ~ 0.01, which no tolerance here sees
+THERMAL_CASE = dict(omega_t=1.1, beta=0.5, t_avg=0.0)
+THERMAL_FORCE = (5e-3, 0.0, -1e-2)
+THERMAL_T_SPREAD = 0.05
 # the wall-model and TRT configurations (the JAX kernel tests' coefficients)
 WALL = dict(wall_model=True, wall_cd=0.0134)
 SIDES = dict(WALL, wall_sides=True, wall_cd_sides=0.004)
@@ -155,11 +169,9 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return a.elapsed_time(b) / reps
 
 
-def tolerance(storage: str, variant: str = "", thermal: bool = False) -> float:
+def tolerance(storage: str, variant: str = "") -> float:
     """The JAX tests' tolerance of a K-SC comparison."""
     wall = VARIANTS.get(variant, {}).get("wall_model", False)
-    if thermal and storage in THERMAL_TOL:
-        return THERMAL_TOL[storage]
     return WALL_TOL_F32 if storage == "f32" and wall else TOL[storage]
 
 
@@ -168,10 +180,10 @@ def make_case(shape, storage, *, forcing=True, seed=0, inflow=0.0,
     """LUW-shell case (TYPE_E outer faces, solid ground, solid blocks) from a
     numpy seed, with an optional uniform inflow along x added to the random
     velocities and one of the wall/TRT `VARIANTS`: (config, state, forcing,
-    dyn row).  `thermal` adds the D3Q7 sub-lattice (omega_t 1.1, beta 0.002,
-    the JAX kernel test's values): a random T field, TYPE_T on the west face,
-    the top plane, every solid cell (as the patch route marks them) and a
-    block of fluid cells."""
+    dyn row).  `thermal` adds the D3Q7 sub-lattice (`THERMAL_CASE`, with the
+    strong global force `THERMAL_FORCE`): a random T field, TYPE_T on the
+    west face, the top plane, every solid cell (as the patch route marks
+    them) and a block of fluid cells."""
     from latticeurbanwind_tpu_torch.lbm.forcing import (
         NudgeSpec, SpongeSpec, build_forcing,
     )
@@ -187,7 +199,7 @@ def make_case(shape, storage, *, forcing=True, seed=0, inflow=0.0,
     cfg = replace(StepConfig(omega=omega_from_nu(0.03), storage=storage,
                              volume_force=forcing), **VARIANTS.get(variant, {}))
     if thermal:
-        cfg = replace(cfg, thermal=True, omega_t=1.1, beta=0.002)
+        cfg = replace(cfg, thermal=True, **THERMAL_CASE)
     u = (0.02 * rng.standard_normal((3, Z, Y, X))).astype(np.float32)
     u[0] += np.float32(inflow)
     rho = (1.0 + 0.001 * rng.standard_normal(shape)).astype(np.float32)
@@ -206,7 +218,8 @@ def make_case(shape, storage, *, forcing=True, seed=0, inflow=0.0,
         flags[-1] |= TYPE_T
         flags[(flags & TYPE_S) != 0] |= TYPE_T
         flags[Z // 2, Y // 2:Y // 2 + 4, X // 2:X // 2 + 6] |= TYPE_T
-        T = (1.0 + 0.01 * rng.standard_normal(shape)).astype(np.float32)
+        T = (1.0 + THERMAL_T_SPREAD
+             * rng.standard_normal(shape)).astype(np.float32)
     state = make_initial_state(shape, config=cfg, rho=rho, u=u, flags=flags,
                                T=T, device=device)
     if forcing:
@@ -214,7 +227,8 @@ def make_case(shape, storage, *, forcing=True, seed=0, inflow=0.0,
                                                    downstream_face=2),
                             sponge=SpongeSpec(n_cells=3, inv_tau=0.05),
                             device=device)
-        dyn = DynParams(force=torch.tensor([1e-5, 0.0, -2e-5]),
+        dyn = DynParams(force=torch.tensor(THERMAL_FORCE if thermal
+                                           else (1e-5, 0.0, -2e-5)),
                         omega_coriolis=torch.tensor([0.0, 1e-5, 2e-5]))
     else:
         frc = Forcing()
@@ -257,6 +271,37 @@ def max_err(a: torch.Tensor, b: torch.Tensor, storage: str = "f32") -> float:
 
     return float((decode_ddf(a, storage).float()
                   - decode_ddf(b, storage).float()).abs().max())
+
+
+def stored_steps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Distance of two tensors of 2-byte stored codes (bf16, f16, fp16c: all
+    sign-magnitude floats) in storage steps, element by element."""
+    def ordered(t):
+        k = t.view(torch.int16).to(torch.int32)
+        return torch.where(k < 0, -(k & 0x7FFF), k)
+
+    return (ordered(a) - ordered(b)).abs()
+
+
+def thermal_diff(a: torch.Tensor, b: torch.Tensor, storage: str, tol: float) -> dict:
+    """Kernel against plain DDFs of a thermal run: the largest decoded
+    difference; `bad`, the elements further apart than `tol` that are not
+    within one storage step of each other (f32: all those over `tol`);
+    `over`, the share of elements over `tol` (the one-step exceptions);
+    `differing`, the share whose stored codes differ at all (f32: 0, its
+    last bits are not judged)."""
+    from latticeurbanwind_tpu_torch.lbm.state import decode_ddf
+
+    d = (decode_ddf(a, storage).float() - decode_ddf(b, storage).float()).abs()
+    over = d > tol
+    if storage == "f32":
+        bad, differing = over, torch.zeros_like(over)
+    else:
+        steps = stored_steps(a, b)
+        bad, differing = over & (steps > 1), steps > 0
+    return {"max_abs": float(d.max()), "bad": int(bad.sum()),
+            "over": float(over.float().mean()),
+            "differing": float(differing.float().mean())}
 
 
 # ---------------------------------------------------------------- phases
@@ -324,9 +369,9 @@ def kernel_registers(build_log: str):
 def compare_steps(shape, storage, forcing, steps, *, vk=None, hook=False,
                   inflow=0.0, variant="", thermal=False):
     """K-SC against its plain version over `steps` steps; returns the max
-    decoded difference (thermal: of the f and of the g populations, the
-    larger), whether the kernel's DDFs are finite, and the case with the
-    kernel's DDFs."""
+    decoded difference of f, whether the kernel's DDFs are finite, the case
+    with the kernel's DDFs, and of a thermal run the `thermal_diff` of f and
+    of g at the storage's tolerance (else None)."""
     from latticeurbanwind_tpu_torch.lbm.state import decode_ddf
     from latticeurbanwind_tpu_torch.ops.stream_collide import (
         build_face_bc, stream_collide, stream_collide_plain,
@@ -341,30 +386,105 @@ def compare_steps(shape, storage, forcing, steps, *, vk=None, hook=False,
     fbc = build_face_bc(st.u, st.T) if (forcing or vk is not None) else None
     fk = st.fi
     fp = st.fi.clone()
-    gk = st.gi
-    gp = st.gi.clone() if thermal else None
+    # g: kernel and plain pairs (current, next); all None without T
+    gk = [st.gi, torch.empty_like(st.gi)] if thermal else [None, None]
+    gp = [st.gi.clone(), torch.empty_like(st.gi)] if thermal else [None, None]
     aux = pre.ddf.init_aux(0) if pre is not None else None
     for t in range(steps):
         if pre is not None:
             fbc, aux = pre.ddf(fbc, t, aux)
-        if thermal:
-            fk, gk = stream_collide(fk, st.flags, row, cfg, frc, fbc, vk=vk,
-                                    gi=gk)
-            fp, gp = stream_collide_plain(fp, st.flags, row, cfg, frc, fbc,
-                                          vk=vk, gi=gp)
-        else:
-            fk = stream_collide(fk, st.flags, row, cfg, frc, fbc, vk=vk)
-            fp = stream_collide_plain(fp, st.flags, row, cfg, frc, fbc, vk=vk)
+        fk = stream_collide(fk, st.flags, row, cfg, frc, fbc, vk=vk,
+                            gi=gk[0], gi_out=gk[1])
+        fp = stream_collide_plain(fp, st.flags, row, cfg, frc, fbc, vk=vk,
+                                  gi=gp[0], gi_out=gp[1])
+        gk.reverse()
+        gp.reverse()
     torch.cuda.synchronize()
     e = max_err(fk, fp, storage)
     finite = bool(torch.isfinite(decode_ddf(fk, storage)).all())
+    diffs = None
     if thermal:
-        eg = max_err(gk, gp, storage)
-        if not float(decode_ddf(gk, storage).abs().max()) > 1e-4:
+        if not float(decode_ddf(gk[0], storage).abs().max()) > 1e-4:
             raise AssertionError("the thermal case's g populations are trivial")
-        finite = finite and bool(torch.isfinite(decode_ddf(gk, storage)).all())
-        e = max(e, eg)
-    return e, finite, (cfg, st, frc, row, fbc, fk)
+        finite = finite and bool(torch.isfinite(decode_ddf(gk[0], storage)).all())
+        tol = tolerance(storage, variant)
+        diffs = {"f": thermal_diff(fk, fp, storage, tol),
+                 "g": thermal_diff(gk[0], gp[0], storage, tol)}
+    return e, finite, (cfg, st, frc, row, fbc, fk), diffs
+
+
+def buoyancy_effect(shape, storage, steps) -> float:
+    """Largest decoded difference of the kernel's f after `steps` thermal
+    steps with the case's beta and with beta = 0: what the Boussinesq term
+    contributes there."""
+    from latticeurbanwind_tpu_torch.lbm.state import decode_ddf
+    from latticeurbanwind_tpu_torch.ops.stream_collide import (
+        build_face_bc, stream_collide,
+    )
+
+    cfg, st, frc, row = make_case(shape, storage, thermal=True)
+    fbc = build_face_bc(st.u, st.T)
+    outs = []
+    for c in (cfg, replace(cfg, beta=0.0)):
+        f, g = st.fi, [st.gi, torch.empty_like(st.gi)]
+        for _ in range(steps):
+            f = stream_collide(f, st.flags, row, c, frc, fbc, gi=g[0],
+                               gi_out=g[1])
+            g.reverse()
+        outs.append(decode_ddf(f, storage).float())
+    return float((outs[0] - outs[1]).abs().max())
+
+
+def compare_thermal(small) -> tuple:
+    """K-SC thermal against its plain version on the card: ({config: max
+    decoded difference over f and g}, {config: shares of elements over the
+    tolerance and with differing codes})."""
+    errs, shares = {}, {}
+    # K-SC thermal.  First: the case's Boussinesq term moves f by 10x the
+    # tolerance and more, so a kernel without it, with its sign flipped or
+    # with the wrong T fails the comparisons that follow
+    for storage in STORAGES:
+        moved = buoyancy_effect(small, storage, 5)
+        ok = moved >= 10 * TOL[storage]
+        log(f"K-SC {storage} thermal {small} 5 steps: max|f(beta) - f(beta=0)|"
+            f" = {moved:.3e} (10x tol {10 * TOL[storage]:.0e}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("the thermal case's buoyancy is below what "
+                                 f"the comparison resolves: {moved}")
+    # then f and g against the plain version
+    th_runs = [(small, s, kind, 5, v) for s in STORAGES
+               for kind, v in (("", ""), ("random", ""), ("hook", ""),
+                               ("", "wall"), ("", "wall+sides"), ("", "trt"),
+                               ("hook", "trt+wall+sides"))]
+    th_runs += [(NWP_SHAPE, "bf16", "hook", 2, "")]
+    for shape, storage, kind, steps, variant in th_runs:
+        vk = random_sites(shape) if kind == "random" else None
+        _, finite, _, diffs = compare_steps(shape, storage, True, steps, vk=vk,
+                                            hook=kind == "hook",
+                                            inflow=0.05 if kind else 0.0,
+                                            variant=variant, thermal=True)
+        name = (f"{storage} thermal nudge+sponge{' ' + variant if variant else ''}"
+                f"{' VK ' + kind + ' sites' if kind else ''} {shape}")
+        tol = tolerance(storage, variant)
+        ok = finite and all(d["bad"] == 0 and d["over"] <= THERMAL_STEP_SHARE
+                            and d["differing"] <= THERMAL_DIFFERING_SHARE
+                            for d in diffs.values())
+        log(f"K-SC {name} {steps} steps, tol {tol:.0e}: " + "; ".join(
+            f"{k} max|kernel-plain| = {d['max_abs']:.3e}, {d['bad']} elements "
+            f"over tol and more than one storage step apart, {d['over']:.2e} "
+            f"of the elements over tol (limit {THERMAL_STEP_SHARE:.0e}), "
+            f"{d['differing']:.2e} with differing codes (limit "
+            f"{THERMAL_DIFFERING_SHARE:.0e})"
+            for k, d in diffs.items()) + f" {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"K-SC thermal disagrees with its plain "
+                                 f"version: {diffs}")
+        errs[name] = max(d["max_abs"] for d in diffs.values())
+        shares[name] = {k: {"over": d["over"], "differing": d["differing"]}
+                        for k, d in diffs.items()}
+        torch.cuda.empty_cache()
+    return errs, shares
 
 
 def phase_compare() -> dict:
@@ -377,13 +497,13 @@ def phase_compare() -> dict:
 
     log("== phase 2: kernels against their plain versions on the card")
     errs = {"stream_collide": {}, "stream_collide_wall": {},
-            "stream_collide_thermal": {}, "avg_update": {}}
+            "avg_update": {}}
     small = (24, 72, 136)
     runs = [(small, s, f, 5, "") for s in STORAGES for f in (True, False)]
     runs += [(small, s, True, 5, v) for s in STORAGES for v in VARIANTS]
     runs += [(MAIN_SHAPE, s, True, 2, "") for s in ("bf16", "fp16c")]
     for shape, storage, forcing, steps, variant in runs:
-        e, finite, (cfg, st, frc, row, fbc, fk) = compare_steps(
+        e, finite, (cfg, st, frc, row, fbc, fk), _ = compare_steps(
             shape, storage, forcing, steps, variant=variant)
         name = (f"{storage} {'nudge+sponge' if forcing else 'flagship'}"
                 f"{' ' + variant if variant else ''} {shape}")
@@ -425,9 +545,9 @@ def phase_compare() -> dict:
     vk_runs += [(MAIN_SHAPE, "bf16", "hook", 2, "wall+sides")]
     for shape, storage, kind, steps, variant in vk_runs:
         vk = random_sites(shape) if kind == "random" else None
-        e, finite, _ = compare_steps(shape, storage, True, steps, vk=vk,
-                                     hook=kind == "hook", inflow=0.05,
-                                     variant=variant)
+        e, finite, _, _ = compare_steps(shape, storage, True, steps, vk=vk,
+                                        hook=kind == "hook", inflow=0.05,
+                                        variant=variant)
         name = (f"{storage} nudge+sponge{' ' + variant if variant else ''} "
                 f"VK {kind} sites {shape}")
         tol = tolerance(storage, variant)
@@ -439,31 +559,8 @@ def phase_compare() -> dict:
         errs["stream_collide_wall" if variant else "stream_collide"][name] = e
         torch.cuda.empty_cache()
 
-    # K-SC thermal: f and g against the plain version, the Boussinesq term
-    # live (make_case's dyn.force is not zero)
-    th_runs = [(small, s, kind, 5, v) for s in STORAGES
-               for kind, v in (("", ""), ("random", ""), ("hook", ""),
-                               ("", "wall"), ("", "wall+sides"), ("", "trt"),
-                               ("hook", "trt+wall+sides"))]
-    th_runs += [(NWP_SHAPE, "bf16", "hook", 2, "")]
-    for shape, storage, kind, steps, variant in th_runs:
-        vk = random_sites(shape) if kind == "random" else None
-        e, finite, _ = compare_steps(shape, storage, True, steps, vk=vk,
-                                     hook=kind == "hook",
-                                     inflow=0.05 if kind else 0.0,
-                                     variant=variant, thermal=True)
-        name = (f"{storage} thermal nudge+sponge{' ' + variant if variant else ''}"
-                f"{' VK ' + kind + ' sites' if kind else ''} {shape}")
-        tol = tolerance(storage, variant, thermal=True)
-        ok = e <= tol and finite
-        log(f"K-SC {name} {steps} steps: max|kernel-plain| over f and g = "
-            f"{e:.3e} (tol {tol:.1e}) {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"K-SC thermal disagrees with its plain "
-                                 f"version: {e}")
-        errs["stream_collide_thermal"][name] = e
-        torch.cuda.empty_cache()
-
+    errs["stream_collide_thermal"], errs["thermal_code_shares"] = \
+        compare_thermal(small)
     phase_codecs()
     return errs
 
@@ -605,7 +702,7 @@ def time_step_kernel(shape, storage, forcing, *, vk=None, plain_reps=3,
     ms = cuda_ms(step, reps=50, warmup=5)
     plain = cuda_ms(lambda: stream_collide_plain(bufs[0], st.flags, row, cfg,
                                                  frc, fbc, vk=spec,
-                                                 gi=gbufs[0]),
+                                                 gi=gbufs[0], gi_out=gbufs[1]),
                     reps=plain_reps, warmup=1)
     return {"ms": ms, "plain_ms": plain, **step_bound(st, frc, fbc, spec)}
 
@@ -1072,8 +1169,7 @@ def run_datagen_deck(work: Path, tag: str, *, storage: str, steps: int,
             "mlups": [r.timing["mlups"] for r in results]}
 
 
-def run_nwp_deck(work: Path, tag: str, *, steps: int, thermal: bool,
-                 cell_m: float = NWP_CELL_M, shape=NWP_SHAPE) -> dict:
+def run_nwp_deck(work: Path, tag: str, *, steps: int, thermal: bool) -> dict:
     """The prepared NWP-coupled standard deck (`.luw`) at 3 m cells in bf16,
     otherwise as it ships (patch-2d boundary samples with a T column, VK
     inlet, Coriolis, nudging, top sponge, one probe column), through
@@ -1081,6 +1177,7 @@ def run_nwp_deck(work: Path, tag: str, *, steps: int, thermal: bool,
     just after.  `thermal=False` sets `buoyancy = false` and takes the
     probes out: with a probe each averaging sample needs the fields, and no
     sample would reach the fused averaging pass."""
+    import latticeurbanwind_tpu_torch.run.modes as modes
     import latticeurbanwind_tpu_torch.run.standard as standard
     from latticeurbanwind_tpu_torch.bc.samples import read_surfdata_csv
     from latticeurbanwind_tpu_torch.deck import load_deck
@@ -1092,7 +1189,7 @@ def run_nwp_deck(work: Path, tag: str, *, steps: int, thermal: bool,
     deck = load_deck(case / "conf.luw")
     if deck.get_int("run_nstep") != steps or deck.get_raw("probes") != "[center]":
         raise AssertionError("the prepared deck is not the one this phase expects")
-    deck.set_float("cell_size", cell_m)
+    deck.set_float("cell_size", NWP_CELL_M)
     deck.set_text("lbm_storage", "bf16")
     if not thermal:
         deck.set_bool("buoyancy", False)
@@ -1114,7 +1211,7 @@ def run_nwp_deck(work: Path, tag: str, *, steps: int, thermal: bool,
         zero_launches()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
-            (r,) = standard.run_standard_mode(case / "conf.luw", device=DEVICE)
+            (r,) = modes.run_deck(case / "conf.luw", device=DEVICE)
         wall = time.perf_counter() - t0
         launches = read_launches()
     finally:
@@ -1135,8 +1232,8 @@ def run_nwp_deck(work: Path, tag: str, *, steps: int, thermal: bool,
         f"{r.timing.get('avg_steps_per_second', 0.0):.1f} steps/s, set-up by "
         f"stage {({k: round(v, 2) for k, v in setup.items()})}, whole run "
         f"{wall:.1f} s, peak device memory {peak / 2**30:.2f} GiB")
-    if shape is not None and grid != tuple(shape):
-        raise AssertionError(f"[{tag}] deck grid {grid} != {tuple(shape)}")
+    if grid != NWP_SHAPE:
+        raise AssertionError(f"[{tag}] deck grid {grid} != {NWP_SHAPE}")
     if model_gib < NWP_MIN_GIB:
         raise AssertionError(f"[{tag}] a {model_gib:.2f} GiB state is no real size")
     for want in ("bc=patch-2d", f"T={'on' if thermal else 'off'}",
@@ -1249,26 +1346,7 @@ def phase_main_path(work: Path) -> dict:
     return {"paths": paths}
 
 
-def nwp_at(cell_m: float) -> int:
-    """`python3 chip_smoke.py --nwp-cell 2.0`: only the thermal NWP deck at
-    another cell size, to see what fits on the card; prints no result
-    line."""
-    from latticeurbanwind_tpu_torch.utils.cuda_build import BUILD_DIR
-
-    phase_card()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    work = Path(tempfile.mkdtemp(prefix="chip_smoke_", dir=BUILD_DIR))
-    try:
-        run_nwp_deck(work, f"nwp-t-bf16-300 at {cell_m} m", steps=300,
-                     thermal=True, cell_m=cell_m, shape=None)
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
-    return 0
-
-
 def main() -> int:
-    if len(sys.argv) == 3 and sys.argv[1] == "--nwp-cell":
-        return nwp_at(float(sys.argv[2]))
     card = phase_card()
     from latticeurbanwind_tpu_torch.utils.cuda_build import BUILD_DIR
 
@@ -1340,6 +1418,7 @@ def main() -> int:
          "launches_by_path": {k: v["stream_collide_thermal"]
                               for k, v in by_path.items()},
          "max_abs_err_by_config": errs["stream_collide_thermal"],
+         "share_over_tol_and_differing_by_config": errs["thermal_code_shares"],
          "times_by_config": times("K-SC", False, thermal=True),
          "step_loop_by_path": {"nwp-t-bf16-300":
                                paths["nwp-t-bf16-300"]["step_loop"]},

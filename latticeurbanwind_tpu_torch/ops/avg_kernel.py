@@ -39,7 +39,7 @@ def check_config(config: StepConfig) -> None:
 def avg_update_plain(fi: torch.Tensor, flags: torch.Tensor, dyn: torch.Tensor,
                      inv_n: float, avg: AvgState, config: StepConfig) -> None:
     """Plain torch: the fields pass + one Welford step, in place."""
-    rho, u = field_moments(fi, flags, dyn, config)
+    rho, u, _ = field_moments(fi, flags, dyn, config)
     solid = (flags & TYPE_S) != 0
     delta = torch.where(solid, 0.0, u - avg.mean_u)
     avg.mean_u.add_(delta * inv_n)

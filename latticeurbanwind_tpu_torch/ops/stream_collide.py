@@ -258,11 +258,12 @@ def stream_collide_plain(fi: torch.Tensor, flags: torch.Tensor,
                          dyn: torch.Tensor, config: StepConfig,
                          forcing: Forcing,
                          fbc: Optional[FaceBC] = None, vk=None,
-                         gi: Optional[torch.Tensor] = None):
+                         gi: Optional[torch.Tensor] = None,
+                         gi_out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One step in plain torch: returns the post-collision DDFs (19,Z,Y,X) in
-    storage dtype, and with `config.thermal` the pair of them and the
-    post-collision `g` (7,Z,Y,X) from `gi`.  `dyn` is the (8,) row of
-    `lbm.state.dyn_row`; `vk` the inlet site spec.  Same stages and
+    storage dtype; with `config.thermal` it also writes the post-collision
+    `g` (7,Z,Y,X) of `gi` into the caller's `gi_out`.  `dyn` is the (8,) row
+    of `lbm.state.dyn_row`; `vk` the inlet site spec.  Same stages and
     evaluation order as the kernel and the Pallas step."""
     check_config(config, forcing, vk)
     use_force = config.volume_force
@@ -272,8 +273,7 @@ def stream_collide_plain(fi: torch.Tensor, flags: torch.Tensor,
         raise ValueError("nudging, sponge and VK sites need the FaceBC "
                          "targets (fbc)")
     if config.thermal:
-        if gi is None:
-            raise ValueError("a thermal step needs the g populations (gi)")
+        _check_thermal(gi, gi_out)
         if has_sponge and fbc.tt is None:
             raise ValueError("a thermal step with the sponge needs FaceBC.tt")
     f_prev = decode_ddf(fi, config.storage)
@@ -323,12 +323,12 @@ def stream_collide_plain(fi: torch.Tensor, flags: torch.Tensor,
         for a in range(3):
             F[a] = F[a] + rs * (fbc.ut[a][None] - un[a])
 
-    g_out = None
     if config.thermal:
         g_out, Tn = _thermal_plain(
             gi, f_prev, un, solid, eqbc, (flags & TYPE_T) != 0,
             forcing.sponge_sigma_z[:, None, None] if has_sponge else None,
             fbc.tt if has_sponge else None, config)
+        _raw(gi_out).copy_(_raw(g_out))
         bterm = config.beta * (Tn - config.t_avg)
         F = [F[a] - dyn[a] * bterm for a in range(3)]
 
@@ -417,7 +417,15 @@ def stream_collide_plain(fi: torch.Tensor, flags: torch.Tensor,
         raw_out[d] = torch.where(solid, zero, post)
     if vk is not None:
         apply_vk_sites(out, fbc, vk, config.storage)
-    return (out, g_out) if config.thermal else out
+    return out
+
+
+def _check_thermal(gi, gi_out) -> None:
+    if gi is None or gi_out is None:
+        raise ValueError("a thermal step needs the g populations (gi) and a "
+                         "buffer for the new ones (gi_out)")
+    if gi_out.data_ptr() == gi.data_ptr():
+        raise ValueError("gi_out must not alias gi (the step pulls from gi)")
 
 
 def _check_tensor(name, t, dtype, shape, device):
@@ -436,10 +444,10 @@ def stream_collide(fi: torch.Tensor, flags: torch.Tensor, dyn: torch.Tensor,
                    fbc: Optional[FaceBC] = None, *,
                    out: Optional[torch.Tensor] = None, vk=None,
                    gi: Optional[torch.Tensor] = None,
-                   gi_out: Optional[torch.Tensor] = None):
+                   gi_out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One time step from `fi` into `out` (allocated when None; must not
-    alias `fi`), with the VK inlet sites of `vk` when given; a thermal
-    configuration also steps `gi` into `gi_out` and returns `(out, gi_out)`.
+    alias `fi`), with the VK inlet sites of `vk` when given; returns `out`.
+    A thermal configuration also steps `gi` into the caller's `gi_out`.
     CPU tensors run the plain version; CUDA tensors launch K-SC and count
     the launch in `stream_collide.launches` (and, with sites, in
     `stream_collide.launches_vk` too; with a wall model, in
@@ -454,22 +462,12 @@ def stream_collide(fi: torch.Tensor, flags: torch.Tensor, dyn: torch.Tensor,
         raise ValueError("out must not alias fi (the kernel pulls from fi)")
     thermal = config.thermal
     if thermal:
-        if gi is None:
-            raise ValueError("a thermal step needs the g populations (gi)")
-        if gi_out is None:
-            gi_out = torch.empty_like(gi)
-        if gi_out.data_ptr() == gi.data_ptr():
-            raise ValueError("gi_out must not alias gi (the kernel pulls "
-                             "from gi)")
+        _check_thermal(gi, gi_out)
     if fi.device.type == "cpu":
         res = stream_collide_plain(fi, flags, dyn, config, forcing, fbc, vk,
-                                   gi)
-        if not thermal:
-            _raw(out).copy_(_raw(res))
-            return out
-        _raw(out).copy_(_raw(res[0]))
-        _raw(gi_out).copy_(_raw(res[1]))
-        return out, gi_out
+                                   gi, gi_out)
+        _raw(out).copy_(_raw(res))
+        return out
 
     dev = fi.device
     Z, Y, X = (int(v) for v in flags.shape)
@@ -549,7 +547,6 @@ def stream_collide(fi: torch.Tensor, flags: torch.Tensor, dyn: torch.Tensor,
         stream_collide.launches_wall += 1
     if thermal:
         stream_collide.launches_thermal += 1
-        return out, gi_out
     return out
 
 

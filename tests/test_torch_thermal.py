@@ -5,9 +5,14 @@ The case is tests/test_pallas_kernel.py::_mk_case(thermal=True): the LUW
 shell (outer faces TYPE_E, solid ground), solid blocks, TYPE_T on the west
 face and the top plane, buffer nudging and the top sponge, Coriolis and a
 NON-ZERO global force, so the Boussinesq term F -= force * beta * (T -
-t_avg) is live (a standard-mode run builds `force = 0` and would leave it
-inert).  Inputs come from one numpy seed and cross to the port bit for bit
-through `convert`.  Tolerances are the JAX kernel's own against its
+t_avg) is present (a standard-mode run builds `force = 0` and would leave it
+inert).  With the JAX test's values (|force| ~ 2e-5, beta = 0.002) the term
+moves the DDFs by ~1e-9, far below every tolerance here, so those cases
+cannot see it: the `buoyant` variant of the case (|force| ~ 1e-2, beta =
+0.5, t_avg = 0, T off 1 by ~0.05) moves them by 10x the tolerance and more,
+and the step is held against both JAX tiers on it in all four storages.
+Inputs come from one numpy seed and cross to the port bit for bit through
+`convert`.  Tolerances are the JAX kernel's own against its
 reference: 6e-6 for f32, 2e-4 for bf16, 2e-5 for decoded fp16c after 5
 steps, 4x that on the fields.
 
@@ -33,7 +38,10 @@ def _interpret_mode(monkeypatch):
     monkeypatch.setenv("LUW_PALLAS_INTERPRET", "1")
 
 
-def _mk_case(shape, storage, thermal=True):
+def _mk_case(shape, storage, thermal=True, buoyant=False):
+    """`buoyant`: a force, an expansion coefficient and a temperature spread
+    large enough that the Boussinesq term moves the DDFs far above the
+    comparison tolerances within 5 steps."""
     import jax.numpy as jnp
 
     from latticeurbanwind_tpu.lbm import (
@@ -45,6 +53,8 @@ def _mk_case(shape, storage, thermal=True):
     rng = np.random.default_rng(0)
     cfg = StepConfig(omega=omega_from_nu(0.03), subgrid=True, thermal=thermal,
                      omega_t=1.1, beta=0.002, storage=storage)
+    if buoyant:
+        cfg = dataclasses.replace(cfg, beta=0.5, t_avg=0.0)
     u = 0.02 * rng.standard_normal((3, Z, Y, X)).astype(np.float32)
     rho = (1.0 + 0.001 * rng.standard_normal(shape)).astype(np.float32)
     flags = np.zeros(shape, np.uint8)
@@ -58,13 +68,15 @@ def _mk_case(shape, storage, thermal=True):
     flags[1:3, 5:9, 20:30] = TYPE_S
     flags[:, :, 0] |= TYPE_T
     flags[-1] |= TYPE_T
-    T = (1.0 + 0.01 * rng.standard_normal(shape)).astype(np.float32)
+    T = (1.0 + (0.05 if buoyant else 0.01)
+         * rng.standard_normal(shape)).astype(np.float32)
     state = make_initial_state(shape, config=cfg, rho=rho, u=u, flags=flags,
                                T=T)
     forcing = build_forcing(shape,
                             nudge=NudgeSpec(n_cells=3, inv_tau=0.02, downstream_face=2),
                             sponge=SpongeSpec(n_cells=3, inv_tau=0.05))
-    dyn = DynParams(force=jnp.array([1e-5, 0.0, -2e-5]),
+    force = [5e-3, 0.0, -1e-2] if buoyant else [1e-5, 0.0, -2e-5]
+    dyn = DynParams(force=jnp.array(force),
                     omega_coriolis=jnp.array([0.0, 1e-5, 2e-5]))
     return cfg, state, forcing, dyn, (rho, u, flags, T)
 
@@ -79,6 +91,12 @@ def _decoded(a, storage):
     from latticeurbanwind_tpu.lbm.state import decode_ddf
 
     return np.asarray(decode_ddf(a, storage)).astype(np.float32)
+
+
+def _port_decoded(t, storage):
+    from latticeurbanwind_tpu_torch.lbm.state import decode_ddf
+
+    return decode_ddf(t, storage).float().numpy()
 
 
 def _port_steps(cfg, state, forcing, dyn, n=5):
@@ -96,7 +114,10 @@ def _port_steps(cfg, state, forcing, dyn, n=5):
     tcfg = _port_config(cfg)
     fi, gi = ts.fi, ts.gi
     for _ in range(n):
-        fi, gi = stream_collide_plain(fi, ts.flags, row, tcfg, tf, fbc, gi=gi)
+        g_new = torch.empty_like(gi)
+        fi = stream_collide_plain(fi, ts.flags, row, tcfg, tf, fbc, gi=gi,
+                                  gi_out=g_new)
+        gi = g_new
     return ts._replace(fi=fi, gi=gi)
 
 
@@ -249,15 +270,76 @@ def test_thermal_sponge_target_is_the_face_bc_not_the_current_top():
     assert float(np.abs(g - np.asarray(ref.gi)).max()) > 6e-6
 
 
+BUOYANT_TOL = {"f32": 6e-6, "bf16": 2e-4, "f16": 2e-5, "fp16c": 2e-5}
+
+
 def test_thermal_buoyancy_moves_the_flow():
-    """The Boussinesq term is live in these cases: the same steps with
-    beta = 0 give other DDFs."""
+    """The Boussinesq term decides the result of the buoyant case: the same
+    steps with beta = 0, with the term's sign flipped (beta -> -beta) or with
+    a uniform T in its place give DDFs that differ by at least 10x the
+    tolerance the comparisons below hold, in every storage.  The JAX test's
+    own values move them by ~1e-9 only."""
     shape = (7, 21, 45)
+    for storage, tol in BUOYANT_TOL.items():
+        cfg, state, forcing, dyn, _ = _mk_case(shape, storage, buoyant=True)
+        a = _port_decoded(_port_steps(cfg, state, forcing, dyn).fi, storage)
+        for other in (dataclasses.replace(cfg, beta=0.0),
+                      dataclasses.replace(cfg, beta=-cfg.beta)):
+            b = _port_decoded(_port_steps(other, state, forcing, dyn).fi,
+                              storage)
+            assert float(np.abs(a - b).max()) > 10 * tol, (storage, other.beta)
+    # f32: the term reads the cell's T, not a constant
+    cfg, state, forcing, dyn, (rho, u, flags, T) = _mk_case(shape, "f32",
+                                                            buoyant=True)
+    from latticeurbanwind_tpu.lbm import make_initial_state
+
+    flat = make_initial_state(shape, config=cfg, rho=rho, u=u, flags=flags,
+                              T=np.ones_like(T))
+    a = _port_steps(cfg, state, forcing, dyn).fi.numpy()
+    b = _port_steps(cfg, flat, forcing, dyn).fi.numpy()
+    assert float(np.abs(a - b).max()) > 10 * BUOYANT_TOL["f32"]
     cfg, state, forcing, dyn, _ = _mk_case(shape, "f32")
     a = _port_steps(cfg, state, forcing, dyn).fi.numpy()
     b = _port_steps(dataclasses.replace(cfg, beta=0.0), state, forcing,
                     dyn).fi.numpy()
-    assert float(np.abs(a - b).max()) > 1e-9
+    assert 0 < float(np.abs(a - b).max()) < 6e-6
+
+
+@pytest.mark.parametrize("storage", ["f32", "bf16", "f16", "fp16c"])
+def test_thermal_buoyant_step_matches_jax_pallas_kernel(storage):
+    """The buoyant case (the Boussinesq term 10x above the tolerance and
+    more) against the Pallas kernel in interpret mode, fi, gi and the
+    fields."""
+    cfg, state, forcing, dyn, _ = _mk_case((7, 21, 45), storage, buoyant=True)
+    got = _port_steps(cfg, state, forcing, dyn)
+    want = _jax_pallas_steps(cfg, state, forcing, dyn)
+    _compare(got, want, cfg, dyn, BUOYANT_TOL[storage])
+
+
+@pytest.mark.parametrize("storage", ["f32", "fp16c"])
+def test_thermal_buoyant_step_matches_jax_reference(storage):
+    """The buoyant case against JAX `make_step`, away from the TYPE_E shell.
+    The two JAX tiers differ AT the shell once the force is large: the
+    reference tier rewrites a TYPE_E cell's f as f_eq(rho, u + F / 2 rho)
+    (`lbm/reference.py:349`, force included), the Pallas kernel and the port
+    keep the stored equilibria.  With the JAX test's |F| ~ 1e-5 that is
+    below the tolerance; here it is not, and it travels inward one cell per
+    step.  So: 2 steps, and the cells more than 2 away from every TYPE_E
+    cell, where the buoyancy still moves f by 10x the tolerance."""
+    n, tol = 2, BUOYANT_TOL[storage]
+    inner = (slice(None), slice(1, 4), slice(3, -3), slice(3, -3))
+    cfg, state, forcing, dyn, _ = _mk_case((7, 21, 45), storage, buoyant=True)
+    got = _port_steps(cfg, state, forcing, dyn, n=n)
+    want = _jax_reference_steps(cfg, state, forcing, dyn, n=n)
+    off = _port_steps(dataclasses.replace(cfg, beta=0.0), state, forcing, dyn,
+                      n=n)
+    f_got = _port_decoded(got.fi, storage)
+    f_want = _decoded(want.fi, storage)
+    np.testing.assert_allclose(f_got[inner], f_want[inner], atol=tol)
+    np.testing.assert_allclose(_port_decoded(got.gi, storage)[inner],
+                               _decoded(want.gi, storage)[inner], atol=tol)
+    assert float(np.abs(f_got - _port_decoded(off.fi, storage))[inner].max()) > 10 * tol
+    assert float(np.abs(f_got - f_want).max()) > 10 * tol    # the shell
 
 
 @pytest.mark.parametrize("storage,wall", [("f32", False), ("bf16", False),
@@ -346,15 +428,20 @@ def test_thermal_wrapper_checks_its_arguments():
     fbc = build_face_bc(ts.u, ts.T)
     with pytest.raises(ValueError, match="gi"):
         stream_collide(ts.fi, ts.flags, row, tcfg, tf, fbc)
+    with pytest.raises(ValueError, match="gi_out"):
+        stream_collide(ts.fi, ts.flags, row, tcfg, tf, fbc, gi=ts.gi)
+    gout = torch.empty_like(ts.gi)
     with pytest.raises(ValueError, match="alias"):
         stream_collide(ts.fi, ts.flags, row, tcfg, tf, fbc, gi=ts.gi,
                        gi_out=ts.gi)
     with pytest.raises(ValueError, match="tt"):
         stream_collide(ts.fi, ts.flags, row, tcfg, tf, build_face_bc(ts.u),
-                       gi=ts.gi)
+                       gi=ts.gi, gi_out=gout)
     with pytest.raises(ValueError, match="volume_force"):
         stream_collide(ts.fi, ts.flags, row,
                        dataclasses.replace(tcfg, volume_force=False), tf, fbc,
-                       gi=ts.gi)
-    out, gout = stream_collide(ts.fi, ts.flags, row, tcfg, tf, fbc, gi=ts.gi)
-    assert out.shape == ts.fi.shape and gout.shape == ts.gi.shape
+                       gi=ts.gi, gi_out=gout)
+    gout.fill_(float("nan"))
+    out = stream_collide(ts.fi, ts.flags, row, tcfg, tf, fbc, gi=ts.gi,
+                         gi_out=gout)
+    assert out.shape == ts.fi.shape and bool(torch.isfinite(gout).all())

@@ -6,11 +6,11 @@ Builds both checkouts' kernels (each in its own `_build/`), prints every
 kernel instance's ptxas register count and SASS instruction count (by
 `cuobjdump -sass`) side by side, with the instances named by their
 template arguments so that checkouts whose templates took fewer arguments
-line up (a missing wall, TRT or thermal argument reads as 0), and then times, in
-turns (other, this, this, other, ...), the configurations both take: K-SC
-at 256^3 in bf16, f32 and fp16c (flagship) and bf16 with nudge + sponge,
-and K-AVG at 256^3 in bf16 and fp16c, by CUDA events, each turn in a fresh
-process of its checkout.  The last line is one JSON object with the
+line up (a missing wall, TRT, thermal or halo argument reads as 0), and
+then times, in turns (other, this, this, other, ...), the configurations
+both take: K-SC at 256^3 in bf16, f32 and fp16c (flagship) and bf16 with
+nudge + sponge, and K-AVG at 256^3 in bf16 and fp16c, by CUDA events, each
+turn in a fresh process of its checkout.  The last line is one JSON object with the
 registers and the times.  It exits non-zero without a card.
 """
 
@@ -90,12 +90,13 @@ def sass_sizes(lib: str) -> dict:
 
 def padded(regs: dict) -> dict:
     """Instance names with the template arguments an older checkout lacks
-    (stream_collide_kernel: wall, trt, thermal; avg_update_kernel: wall) as 0."""
+    (stream_collide_kernel: wall, trt, thermal, halo; avg_update_kernel:
+    wall) as 0."""
     out = {}
     for name, n in regs.items():
         base, args = name.rstrip(">").split("<")
         args = args.split(",")
-        want = {"stream_collide_kernel": 7, "avg_update_kernel": 2}.get(base)
+        want = {"stream_collide_kernel": 8, "avg_update_kernel": 2}.get(base)
         if want:
             args += ["0"] * (want - len(args))
         out[f"{base}<{','.join(args)}>"] = n

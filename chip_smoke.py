@@ -30,6 +30,17 @@ nvcc per source, in parallel), then:
      deck's grid, both its f and g outputs, the 2-byte storages by their
      stored codes (at most one storage step apart wherever the decoded
      values are further apart than the tolerance, and few such elements);
+     K8, the halo mode of K-SC, against its plain version on one z slab
+     (no ground, no TYPE_E top) with random halo planes and ghost widths
+     (1, 1), 3 steps, in all four storages: without a wall model with and
+     without the volume force, with `wall_model`, `wall_sides`, TRT, and
+     thermal (the strong-buoyancy case) without a wall model, with
+     `wall_sides` and with TRT, each without and with random VK sites (a
+     step that wraps inside the slab instead lands 4.8e-2 away); the sharded
+     runner with every shard on card 0 against the single-device runner,
+     6 steps with a VK hook over the splits (1,1,2), (1,2,2), (2,1,1) and
+     (2,2,2), f32 and bf16, bf16 `wall_sides`, thermal bf16 and fp16c: the
+     stored DDFs (and g) and the fields pass's rho, u (and T) EQUAL;
      the device codecs bit for bit against the torch codecs (all 65,536
      fp16c and f16 codes, a dense sweep of every float32 exponent band with
      ties);
@@ -41,12 +52,24 @@ nvcc per source, in parallel), then:
      models) and K-AVG (without and with `wall_sides`) at the main grid and
      at 256^3; K-SC thermal at 256^3 in bf16 and f32 and, with VK sites, at
      the NWP deck's grid, and the thermal `update_fields` (which a thermal
-     run takes at every averaging sample) alone at that grid;
+     run takes at every averaging sample) alone at that grid; K8 at the
+     split deck's shard (59x214x424 with its ghost rows, bf16, VK sites)
+     against the non-halo instance on the same shard, and the whole split
+     step of the main grid on one card (n_gpu [1, 2, 2]) against the
+     single-device step, with its parts (the four K8 launches, the ghost
+     exchange, the FaceBC refresh with its per-shard slices) by device time
+     and host enqueue time;
   4. runs the example profile deck at 1.5 m cells (424x424x118 = 21.2M
      cells, one angle) through the port's `run_deck` as it ships, with the
      VK inlet on: bf16 for 400 steps (K-SC 400 launches with sites, K-AVG
      50, the inlet on faces {0,1,2,3}, the upstream face's raw u at t = 200
-     and 400 off the initial profile by an RMS within [0.3, 3] sigma), then
+     and 400 off the initial profile by an RMS within [0.3, 3] sigma); the
+     same deck split `n_gpu = [1, 2, 2]` with its four shards on card 0
+     (`vk-bf16-sharded`: 1600 K8 launches, all with sites, no K-AVG; its
+     final DDFs and raw VTKs equal to the unsplit run's, its averages within
+     the K-AVG tolerance at cells that are not solid; on a machine with four
+     cards also spread over them with `device="cuda"`, else one line says it
+     was not run), with its split step timed on the run's own state; then
      the inlet-off deck for 100 steps and the inlet-on deck in fp16c for 200
      steps; then the same bf16 400-step deck with the wall models
      (`ground_z0 = 0.055`, `building_z0 = 0.01`: 400 K-SC launches, all
@@ -148,6 +171,11 @@ NWP_SHAPE = (79, 887, 1017)                 # its grid there, sponge rows includ
 NWP_MIN_GIB = 2.0                           # a state below this is no real size
 DEVICE = "cuda"
 DATETIME = "20260101120000"                 # both example decks' datetime
+# the splits of the sharded runner's comparison (tests/test_sharded_pallas.py)
+# and the sharded deck's n_gpu [Dx, Dy, Dz]: 4 shards of 59x212x424 cells
+SPLITS = ((1, 1, 2), (1, 2, 2), (2, 1, 1), (2, 2, 2))
+SHARD_SPLIT = (1, 2, 2)
+SHARD_DEVICE = "cuda:0"                     # every shard on one card
 
 
 def log(msg: str = "") -> None:
@@ -176,14 +204,16 @@ def tolerance(storage: str, variant: str = "") -> float:
 
 
 def make_case(shape, storage, *, forcing=True, seed=0, inflow=0.0,
-              device=None, variant="", thermal=False):
+              device=None, variant="", thermal=False, slab=False):
     """LUW-shell case (TYPE_E outer faces, solid ground, solid blocks) from a
     numpy seed, with an optional uniform inflow along x added to the random
     velocities and one of the wall/TRT `VARIANTS`: (config, state, forcing,
     dyn row).  `thermal` adds the D3Q7 sub-lattice (`THERMAL_CASE`, with the
     strong global force `THERMAL_FORCE`): a random T field, TYPE_T on the
     west face, the top plane, every solid cell (as the patch route marks
-    them) and a block of fluid cells."""
+    them) and a block of fluid cells.  `slab`: a z slab from inside a split
+    domain, without the solid ground plane and the TYPE_E top plane, so its
+    first and last planes read the halo planes."""
     from latticeurbanwind_tpu_torch.lbm.forcing import (
         NudgeSpec, SpongeSpec, build_forcing,
     )
@@ -204,18 +234,21 @@ def make_case(shape, storage, *, forcing=True, seed=0, inflow=0.0,
     u[0] += np.float32(inflow)
     rho = (1.0 + 0.001 * rng.standard_normal(shape)).astype(np.float32)
     flags = np.zeros(shape, np.uint8)
-    flags[-1] = TYPE_E
+    if not slab:
+        flags[-1] = TYPE_E
     flags[:, 0, :] |= TYPE_E
     flags[:, -1, :] |= TYPE_E
     flags[:, :, 0] |= TYPE_E
     flags[:, :, -1] |= TYPE_E
-    flags[0] = TYPE_S
+    if not slab:
+        flags[0] = TYPE_S
     flags[(rng.random(shape) < 0.03) & (flags == 0)] = TYPE_S
     flags[2:Z // 3, Y // 4:Y // 2, X // 3:X // 2] = TYPE_S
     T = None
     if thermal:
         flags[:, :, 0] |= TYPE_T
-        flags[-1] |= TYPE_T
+        if not slab:
+            flags[-1] |= TYPE_T
         flags[(flags & TYPE_S) != 0] |= TYPE_T
         flags[Z // 2, Y // 2:Y // 2 + 4, X // 2:X // 2 + 6] |= TYPE_T
         T = (1.0 + THERMAL_T_SPREAD
@@ -487,6 +520,189 @@ def compare_thermal(small) -> tuple:
     return errs, shares
 
 
+def random_halo(shape, storage, thermal, seed=11, gy=1, gx=1):
+    """Random z-halo planes for a slab of `shape`: both sides' 5 channels as
+    views with a channel stride of three planes (the kernel takes any), flag
+    planes 15% solid, and the g planes of a thermal slab.  They are not the
+    slab's own edge planes, so a kernel that wraps instead of reading them
+    disagrees with the plain version."""
+    from latticeurbanwind_tpu_torch.lbm.state import TYPE_S, ZHalo, encode_ddf
+
+    _, Y, X = shape
+    rng = np.random.default_rng(seed)
+
+    def ddf(*s):
+        v = torch.from_numpy((0.01 * rng.standard_normal(s)).astype(np.float32))
+        return encode_ddf(v.to(DEVICE), storage)
+
+    def flag():
+        return torch.from_numpy(np.where(rng.random((Y, X)) < 0.15, TYPE_S, 0)
+                                .astype(np.uint8)).to(DEVICE)
+
+    below, above = ddf(19, 3, Y, X), ddf(19, 3, Y, X)
+    return ZHalo(fp=below[9:14, 1], fm=above[14:19, 1], flb=flag(), fla=flag(),
+                 gp=ddf(Y, X) if thermal else None,
+                 gm=ddf(Y, X) if thermal else None, gy=gy, gx=gx)
+
+
+def compare_halo(small) -> tuple:
+    """K8, the halo mode of K-SC, against its plain version on one slab with
+    random halo planes and ghost widths (1, 1), 3 steps: every storage; the
+    no-wall step with and without the volume force, `wall_model`,
+    `wall_sides`, TRT, and thermal (the strong-buoyancy case) without a wall
+    model, with `wall_sides` and with TRT; each with nudge + sponge without
+    and with random VK sites (the sites then sit on the box inside the
+    ghosts).  ({config: max decoded difference}, {config: thermal code
+    shares})."""
+    from latticeurbanwind_tpu_torch.lbm.state import decode_ddf
+    from latticeurbanwind_tpu_torch.ops.stream_collide import (
+        build_face_bc, stream_collide, stream_collide_plain,
+    )
+
+    errs, shares = {}, {}
+    families = [("", True, False), ("", False, False), ("wall", True, False),
+                ("wall+sides", True, False), ("trt", True, False),
+                ("", True, True), ("wall+sides", True, True), ("trt", True, True)]
+    for storage in STORAGES:
+        for variant, forcing, thermal in families:
+            for sites in ((False, True) if forcing else (False,)):
+                cfg, st, frc, row = make_case(small, storage, forcing=forcing,
+                                              inflow=0.05 if sites else 0.0,
+                                              variant=variant, thermal=thermal,
+                                              slab=True)
+                vk = random_sites(small) if sites else None
+                fbc = build_face_bc(st.u, st.T) if (forcing or sites) else None
+                h = random_halo(small, storage, thermal)
+                fk, fp = st.fi, st.fi.clone()
+                gk = [st.gi, torch.empty_like(st.gi)] if thermal else [None, None]
+                gp = ([st.gi.clone(), torch.empty_like(st.gi)] if thermal
+                      else [None, None])
+                for _ in range(3):
+                    fk = stream_collide(fk, st.flags, row, cfg, frc, fbc, vk=vk,
+                                        gi=gk[0], gi_out=gk[1], halo=h)
+                    fp = stream_collide_plain(fp, st.flags, row, cfg, frc, fbc,
+                                              vk=vk, gi=gp[0], gi_out=gp[1],
+                                              halo=h)
+                    gk.reverse()
+                    gp.reverse()
+                torch.cuda.synchronize()
+                name = (f"{storage} {'nudge+sponge' if forcing else 'flagship'}"
+                        f"{' thermal' if thermal else ''}"
+                        f"{' ' + variant if variant else ''}"
+                        f"{' VK random sites' if sites else ''} {small}")
+                tol = tolerance(storage, variant)
+                finite = bool(torch.isfinite(decode_ddf(fk, storage)).all())
+                if thermal:
+                    diffs = {"f": thermal_diff(fk, fp, storage, tol),
+                             "g": thermal_diff(gk[0], gp[0], storage, tol)}
+                    ok = finite and all(
+                        d["bad"] == 0 and d["over"] <= THERMAL_STEP_SHARE
+                        and d["differing"] <= THERMAL_DIFFERING_SHARE
+                        for d in diffs.values())
+                    e = max(d["max_abs"] for d in diffs.values())
+                    shares[name] = {k: {"over": d["over"],
+                                        "differing": d["differing"]}
+                                    for k, d in diffs.items()}
+                else:
+                    e = max_err(fk, fp, storage)
+                    ok = finite and e <= tol
+                log(f"K8 {name} 3 steps: max|kernel-plain| = {e:.3e} (tol "
+                    f"{tol:.0e}{', thermal by stored codes' if thermal else ''})"
+                    f" {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"K8 disagrees with its plain version: "
+                                         f"{name}: {e}")
+                errs[name] = e
+        torch.cuda.empty_cache()
+    # the halo planes matter: the plain step of the same slab that wraps
+    # inside it instead of reading them lands far outside the tolerance
+    cfg, st, frc, row = make_case(small, "f32", slab=True)
+    fbc = build_face_bc(st.u)
+    h = random_halo(small, "f32", False)
+    moved = max_err(stream_collide_plain(st.fi, st.flags, row, cfg, frc, fbc,
+                                         halo=h),
+                    stream_collide_plain(st.fi, st.flags, row, cfg, frc, fbc))
+    log(f"K8 f32 {small}: one step with the random halos against the step that "
+        f"wraps inside the slab: max difference {moved:.3e}")
+    if not moved > 100 * TOL["f32"]:
+        raise AssertionError("the random halo planes do not move the step")
+    return errs, shares
+
+
+def codes_apart(a: torch.Tensor, b: torch.Tensor) -> dict:
+    """How two tensors of stored values differ: the number of differing
+    elements and the largest distance in storage steps (f32: decoded)."""
+    if a.dtype == torch.float32:
+        d = (a - b).abs()
+        return {"differing": int((d > 0).sum()), "max": float(d.max())}
+    steps = stored_steps(a, b)
+    return {"differing": int((steps > 0).sum()), "max": int(steps.max())}
+
+
+def compare_sharded() -> dict:
+    """The sharded runner with every shard on cuda:0 (one K8 launch per
+    shard and step, the ghost exchange and halo views between) against the
+    single-device runner (K-SC) on the same case, 6 steps in two calls with
+    the case's VK hook, over the four splits: f32 and bf16 nudge + sponge,
+    bf16 `wall_sides`, thermal bf16 and fp16c.  Each cell runs the same
+    arithmetic on the same inputs, so the stored DDFs (and g), and rho, u
+    (and T) from the fields pass, must be EQUAL; returns their differences
+    (all zero)."""
+    from latticeurbanwind_tpu_torch.lbm.fields import update_fields
+    from latticeurbanwind_tpu_torch.lbm.state import DynParams
+    from latticeurbanwind_tpu_torch.lbm.stepper import make_runner
+    from latticeurbanwind_tpu_torch.parallel import (
+        domain_mesh, gather_state, shard_state,
+    )
+    from latticeurbanwind_tpu_torch.parallel.halo import (
+        make_sharded_runner, update_fields_sharded,
+    )
+    from latticeurbanwind_tpu_torch.ops.stream_collide import stream_collide
+
+    shape = (24, 72, 136)
+    out = {}
+    for storage, variant, thermal in (("f32", "", False), ("bf16", "", False),
+                                      ("bf16", "wall+sides", False),
+                                      ("bf16", "", True), ("fp16c", "", True)):
+        cfg, st, frc, row = make_case(shape, storage, inflow=0.05,
+                                      variant=variant, thermal=thermal)
+        dyn = DynParams(force=row[:3].cpu(), omega_coriolis=row[3:6].cpu())
+        pre, _ = vk_hook(st)
+        run, _ = make_runner(cfg, frc, shape=shape, device=DEVICE, pre_step=pre)
+        single = run(st._replace(fi=st.fi.clone(),
+                                 gi=None if st.gi is None else st.gi.clone()),
+                     dyn, 0, 6)
+        single = update_fields(single, cfg, dyn)
+        for split in SPLITS:
+            mesh = domain_mesh(split, shape, SHARD_DEVICE)
+            srun, impl = make_sharded_runner(cfg, frc, mesh, pre_step=pre)
+            halo0 = stream_collide.launches_halo
+            ss = srun(shard_state(st, mesh), dyn, 0, 3)
+            ss = srun(ss, dyn, 3, 3)
+            got = gather_state(update_fields_sharded(ss, cfg, dyn), DEVICE)
+            torch.cuda.synchronize()
+            launched = stream_collide.launches_halo - halo0
+            diff = {k: codes_apart(getattr(got, k), getattr(single, k))
+                    for k in ("fi", "gi", "rho", "u", "T")
+                    if getattr(single, k) is not None}
+            name = (f"{storage} nudge+sponge{' thermal' if thermal else ''}"
+                    f"{' ' + variant if variant else ''} hook sites {shape} "
+                    f"split {list(split)}")
+            ok = (impl == "cuda-sharded" and launched == 6 * mesh.n
+                  and all(d["differing"] == 0 for d in diff.values()))
+            log(f"sharded runner {name}, 6 steps ({launched} K8 launches) "
+                f"against the single-device kernel: differing elements "
+                + ", ".join(f"{k} {d['differing']}" for k, d in diff.items())
+                + f" {'equal' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"the sharded runner differs from the "
+                                     f"single-device kernel: {name}: {diff}")
+            out[name] = diff
+        del st, single, ss, got
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_compare() -> dict:
     """Kernels against plain versions on the card; returns the errors."""
     from latticeurbanwind_tpu_torch.lbm.fields import update_fields
@@ -561,6 +777,8 @@ def phase_compare() -> dict:
 
     errs["stream_collide_thermal"], errs["thermal_code_shares"] = \
         compare_thermal(small)
+    errs["stream_collide_halo"], errs["halo_code_shares"] = compare_halo(small)
+    errs["sharded"] = compare_sharded()
     phase_codecs()
     return errs
 
@@ -647,11 +865,13 @@ def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def step_bound(st, frc, fbc, spec) -> dict:
+def step_bound(st, frc, fbc, spec, halo=None) -> dict:
     """K-SC's bound on this case: every DDF written once, the DDFs of the
     cells that are not solid read once (a solid cell only writes zeros), the
     flags, the forcing fields, the FaceBC targets and the site masks read
-    once; a thermal step moves the 7 g populations the same way."""
+    once; a thermal step moves the 7 g populations the same way; K8 also
+    reads its halo planes once (5 channels and a flag plane each side, and
+    the thermal g channel)."""
     from latticeurbanwind_tpu_torch.lbm.state import TYPE_S
 
     live = int(((st.flags & TYPE_S) == 0).sum())
@@ -659,7 +879,9 @@ def step_bound(st, frc, fbc, spec) -> dict:
     per = (26 if thermal else 19) * st.fi.element_size()
     nbytes = (per * (st.flags.numel() + live) + _nbytes(
         st.flags, frc.nudge_sigma, frc.nudge_face, frc.sponge_sigma_z,
-        *(fbc or ()), *((spec or {}).get("masks", {}).values())))
+        *(fbc or ()), *((spec or {}).get("masks", {}).values()),
+        *(() if halo is None else
+          (halo.fp, halo.fm, halo.flb, halo.fla, halo.gp, halo.gm))))
     return bound("stream_collide_thermal" if thermal else "stream_collide",
                  nbytes, live)
 
@@ -747,7 +969,9 @@ def run_ahead(fn, n: int = 16, sleep_cycles: int = 400_000_000):
     """(host ms, device ms) per call of `fn`: n calls enqueued behind a
     device sleep (~0.2 s), so the host runs ahead of the card and the events
     around the calls time the device work alone.  Raises when the sleep
-    ended before the host had enqueued the n calls."""
+    ended before the host had enqueued the n calls.  The n calls' launches
+    must fit the card's queue of pending launches (~1000): beyond it a
+    launch waits for the device and the host no longer runs ahead."""
     fn()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
@@ -831,6 +1055,131 @@ def step_loop_breakdown(case, final) -> dict:
     return out
 
 
+def time_halo_kernel(local) -> dict:
+    """K8 at a shard's ghost-extended shape `local` (bf16, nudge + sponge,
+    the VK hook's sites) with random halo planes (ghosts on y, as the split
+    deck's shards have them): one step held against its plain version at
+    the bf16 tolerance (`max_abs_err`; raises when it disagrees), then ms
+    per step with and without the sites against the non-halo K-SC instance
+    on the same shard and the plain version, and the bound of the K8 call."""
+    from latticeurbanwind_tpu_torch.lbm.state import decode_ddf
+    from latticeurbanwind_tpu_torch.ops.stream_collide import (
+        build_face_bc, stream_collide, stream_collide_plain,
+    )
+
+    cfg, st, frc, row = make_case(local, "bf16", inflow=0.05, slab=True)
+    pre, _ = vk_hook(st)
+    spec = pre.ddf.kernel_spec
+    fbc = build_face_bc(st.u)
+    h = random_halo(local, "bf16", False, gy=1, gx=0)
+    got = stream_collide(st.fi, st.flags, row, cfg, frc, fbc, vk=spec, halo=h)
+    want = stream_collide_plain(st.fi, st.flags, row, cfg, frc, fbc, vk=spec,
+                                halo=h)
+    torch.cuda.synchronize()
+    err, tol = max_err(got, want, "bf16"), tolerance("bf16")
+    ok = err <= tol and bool(torch.isfinite(decode_ddf(got, "bf16")).all())
+    log(f"K8 bf16 nudge+sponge VK hook sites {local} (the split deck's shard, "
+        f"random halos) 1 step: max|kernel-plain| = {err:.3e} (tol {tol:.0e}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"K8 disagrees with its plain version at the "
+                             f"split deck's shard {local}: {err}")
+    del got, want
+    bufs = [st.fi, torch.empty_like(st.fi)]
+
+    def step(halo, vk):
+        stream_collide(bufs[0], st.flags, row, cfg, frc, fbc, out=bufs[1],
+                       vk=vk, halo=halo)
+        bufs.reverse()
+
+    out = {"ms": cuda_ms(lambda: step(h, spec), reps=50, warmup=5),
+           "ms_no_sites": cuda_ms(lambda: step(h, None), reps=50, warmup=5),
+           "non_halo_ms": cuda_ms(lambda: step(None, spec), reps=50, warmup=5),
+           "non_halo_ms_no_sites": cuda_ms(lambda: step(None, None), reps=50,
+                                           warmup=5),
+           "plain_ms": cuda_ms(lambda: stream_collide_plain(
+               bufs[0], st.flags, row, cfg, frc, fbc, vk=spec, halo=h),
+               reps=3, warmup=1),
+           "max_abs_err": err,
+           **step_bound(st, frc, fbc, spec, h)}
+    out["halo_bytes"] = _nbytes(h.fp, h.fm, h.flb, h.fla)
+    del bufs, st
+    torch.cuda.empty_cache()
+    return out
+
+
+def kernels_per_call(fn, calls: int = 3) -> float:
+    """Device operations (kernels and copies) per call of `fn`, counted by
+    torch.profiler's CUDA activity over `calls` calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / calls
+
+
+def time_sharded_step() -> dict:
+    """The whole step of the deck's split (SHARD_SPLIT, 4 shards on cuda:0)
+    at the main grid (bf16, nudge + sponge, a VK hook), against the
+    single-device step on the same case, and its parts, the runner's own
+    stages (`run.stages`): ms per step by CUDA events, and host enqueue /
+    device ms per call of the whole step, of the four K8 launches alone, of
+    the ghost exchange with the z halos alone and of the FaceBC refresh with
+    its per-shard slicing alone."""
+    from latticeurbanwind_tpu_torch.lbm.state import DynParams
+    from latticeurbanwind_tpu_torch.lbm.stepper import make_runner
+    from latticeurbanwind_tpu_torch.parallel import domain_mesh, shard_state
+    from latticeurbanwind_tpu_torch.parallel.halo import make_sharded_runner
+
+    cfg, st, frc, row = make_case(MAIN_SHAPE, "bf16", inflow=0.05)
+    dyn = DynParams(force=row[:3].cpu(), omega_coriolis=row[3:6].cpu())
+    pre, _ = vk_hook(st)
+    run, _ = make_runner(cfg, frc, shape=MAIN_SHAPE, device=DEVICE, pre_step=pre)
+    mesh = domain_mesh(SHARD_SPLIT, MAIN_SHAPE, SHARD_DEVICE)
+    srun, _ = make_sharded_runner(cfg, frc, mesh, pre_step=pre)
+    one = {"s": st._replace(fi=st.fi.clone()), "t": 0}
+    split = {"s": shard_state(st, mesh), "t": 0}
+
+    def single_step():
+        one["s"] = run(one["s"], dyn, one["t"], 1)
+        one["t"] += 1
+
+    def sharded_step():
+        split["s"] = srun(split["s"], dyn, split["t"], 1)
+        split["t"] += 1
+
+    out = {"single_step_ms": cuda_ms(single_step, reps=50, warmup=5),
+           "sharded_step_ms": cuda_ms(sharded_step, reps=50, warmup=5)}
+
+    def enqueue(name, fn):
+        # 8 calls: a one-step run() call of the split step enqueues the
+        # inlet's anchors and refresh, the FaceBC slices, the exchange and 4
+        # K8 with their site passes (`*_device_ops`); 16 calls overflow the
+        # launch queue
+        out[f"{name}_host_ms"], out[f"{name}_device_ms"] = run_ahead(fn, n=8)
+        out[f"{name}_device_ops"] = kernels_per_call(fn)
+
+    enqueue("single_step", single_step)
+    enqueue("sharded_step", sharded_step)
+    # the stages last: they step into the runner's spare buffers
+    stage = srun.stages(split["s"], dyn, split["t"])
+    for fn in (stage.refresh, stage.exchange, stage.kernels):
+        fn()
+    for key, fn in (("k8_x4", stage.kernels), ("exchange", stage.exchange),
+                    ("refresh_slice", stage.refresh)):
+        out[f"{key}_ms"] = cuda_ms(fn, reps=50, warmup=5)
+        enqueue(key, fn)
+    del one, split, stage, st
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_timing() -> dict:
     log("== phase 3: timing (CUDA events, after warm-up)")
     bw = copy_bandwidth()
@@ -903,6 +1252,36 @@ def phase_timing() -> dict:
         f"{t['peak_gib']:.2f} GiB above the state")
     out["thermal_fields"] = t
     torch.cuda.empty_cache()
+    # K8 at the sharded deck's shard (SHARD_SPLIT of the main grid, ghost rows
+    # on y), then the whole sharded step on one card
+    from latticeurbanwind_tpu_torch.parallel import domain_mesh
+
+    local = domain_mesh(SHARD_SPLIT, MAIN_SHAPE, "cpu").local_shape
+    t = time_halo_kernel(local)
+    t["name"] = f"bf16 nudge+sponge VK hook sites {local}"
+    name = f"K8 {local} bf16 nudge+sponge VK sites"
+    log(f"{name}: {t['ms']:.3f} ms/step ({t['ms_no_sites']:.3f} without "
+        f"sites) against the non-halo instance on the same shard "
+        f"{t['non_halo_ms']:.3f} ({t['non_halo_ms_no_sites']:.3f}); bound "
+        f"{t['bound_ms']:.3f} ms ({t['bound_by']}, halo planes "
+        f"{t['halo_bytes'] / 1e6:.2f} MB); plain {t['plain_ms']:.2f}")
+    out["configs"][name] = out["halo"] = t
+    t = time_sharded_step()
+    log(f"sharded step n_gpu={list(SHARD_SPLIT)} at {MAIN_SHAPE} bf16 "
+        f"nudge+sponge VK hook, device operations per step "
+        f"{t['sharded_step_device_ops']:.0f} (single-device step "
+        f"{t['single_step_device_ops']:.0f}), ms/step by events: whole {t['sharded_step_ms']:.4f} "
+        f"against the single-device step {t['single_step_ms']:.4f}; 4 K8 "
+        f"{t['k8_x4_ms']:.4f}, ghost exchange {t['exchange_ms']:.4f}, FaceBC "
+        f"refresh + slices {t['refresh_slice_ms']:.4f}; host enqueue / device "
+        f"ms per call: whole {t['sharded_step_host_ms']:.4f} / "
+        f"{t['sharded_step_device_ms']:.4f}, single-device step "
+        f"{t['single_step_host_ms']:.4f} / {t['single_step_device_ms']:.4f}, "
+        f"4 K8 {t['k8_x4_host_ms']:.4f} / {t['k8_x4_device_ms']:.4f}, "
+        f"exchange {t['exchange_host_ms']:.4f} / {t['exchange_device_ms']:.4f}, "
+        f"refresh + slices {t['refresh_slice_host_ms']:.4f} / "
+        f"{t['refresh_slice_device_ms']:.4f}")
+    out["sharded_step"] = t
     return out
 
 
@@ -914,6 +1293,7 @@ def zero_launches() -> None:
     stream_collide.launches_vk = 0
     stream_collide.launches_wall = 0
     stream_collide.launches_thermal = 0
+    stream_collide.launches_halo = 0
     avg_update.launches = 0
     avg_update.launches_wall = 0
 
@@ -926,19 +1306,25 @@ def read_launches() -> dict:
             "stream_collide_vk": stream_collide.launches_vk,
             "stream_collide_wall": stream_collide.launches_wall,
             "stream_collide_thermal": stream_collide.launches_thermal,
+            "stream_collide_halo": stream_collide.launches_halo,
             "avg_update": avg_update.launches,
             "avg_update_wall": avg_update.launches_wall}
 
 
 def run_example_deck(work: Path, tag: str, *, storage: str, steps: int,
-                     vk: bool, walls=None) -> dict:
+                     vk: bool, walls=None, n_gpu=None, device=None,
+                     keep=False) -> dict:
     """The example deck at 1.5 m, angle 0, through run_deck on the card,
     with the launch counts zeroed just before and read just after; `walls`
-    are deck settings of the wall models (`ground_z0`, `building_z0`)."""
+    are deck settings of the wall models (`ground_z0`, `building_z0`);
+    `n_gpu` a split [Dx, Dy, Dz] (Dx = 1: every shard then owns inlet
+    sites), run on `device`; `keep` returns the final DDFs on the host and
+    the output files too."""
     import latticeurbanwind_tpu_torch.run.modes as modes
     from latticeurbanwind_tpu_torch.deck import load_deck
     from latticeurbanwind_tpu_torch.io.vtk import read_structured_points
 
+    device = device or DEVICE
     case = work / tag
     shutil.copytree(EXAMPLE, case)
     deck = load_deck(case / "conf.luwpf")
@@ -951,6 +1337,8 @@ def run_example_deck(work: Path, tag: str, *, storage: str, steps: int,
         deck.set_text("turb_inflow_enable", "false")
     for key, value in (walls or {}).items():
         deck.set_float(key, value)
+    if n_gpu:
+        deck.set_raw("n_gpu", str(list(n_gpu)))
     purge = {400: 100, 200: 40, 100: 20}[steps]   # the deck: 400 and 100
     deck.set_int("run_nstep", steps)
     deck.set_int("unsteady_output", steps // 2)
@@ -982,7 +1370,8 @@ def run_example_deck(work: Path, tag: str, *, storage: str, steps: int,
         torch.cuda.reset_peak_memory_stats()
         zero_launches()
         t0 = time.perf_counter()
-        results = modes.run_deck(case / "conf.luwpf", device=DEVICE, quiet=False)
+        results = modes.run_deck(case / "conf.luwpf", device=device,
+                                 quiet=False)
         wall = time.perf_counter() - t0
         launches = read_launches()
     finally:
@@ -1012,10 +1401,17 @@ def run_example_deck(work: Path, tag: str, *, storage: str, steps: int,
         raise AssertionError(f"[{tag}] missing outputs {missing}")
     n_avg = purge // 2                  # stride 2; the last step is no sample
     on_wall = bool(walls)
-    expect = {"stream_collide": steps, "stream_collide_vk": steps if vk else 0,
-              "stream_collide_wall": steps if on_wall else 0,
+    shards = int(np.prod(n_gpu)) if n_gpu else 1
+    if n_gpu and n_gpu[0] != 1:
+        raise AssertionError("a split deck here keeps Dx = 1")
+    launched = steps * shards           # one launch per shard and step
+    fused = n_avg if shards == 1 else 0     # no K-AVG under a mesh
+    expect = {"stream_collide": launched,
+              "stream_collide_vk": launched if vk else 0,
+              "stream_collide_wall": launched if on_wall else 0,
               "stream_collide_thermal": 0,
-              "avg_update": n_avg, "avg_update_wall": n_avg if on_wall else 0}
+              "stream_collide_halo": launched if shards > 1 else 0,
+              "avg_update": fused, "avg_update_wall": fused if on_wall else 0}
     cfg = seen["case"].config
     if (cfg.wall_model, cfg.wall_sides) != ("ground_z0" in (walls or {}),
                                             "building_z0" in (walls or {})):
@@ -1035,8 +1431,12 @@ def run_example_deck(work: Path, tag: str, *, storage: str, steps: int,
         f"finite at fluid cells, mean v = {float(u_avg[1][fluid].mean()):.3f} m/s")
 
     out = {"launches": launches, "solver_seconds": r.solver_seconds,
-           "mlups": r.timing["mlups"], "wall": wall,
-           "raw_u": files[want[1]], "flags": seen["case"].state.flags.cpu()}
+           "mlups": r.timing["mlups"], "wall": wall, "peak_gib": peak / 2**30,
+           "raw_u": files[want[1]], "flags": r.state.flags.cpu()}
+    if keep:
+        out.update(fi=r.state.fi.cpu(), files=files,
+                   u_factor=seen["units"].si_u(1.0),
+                   rho_factor=seen["units"].si_rho(1.0))
     if not vk:
         if seen.get("rt") is not None:
             raise AssertionError(f"[{tag}] the inlet is active with it off")
@@ -1066,6 +1466,17 @@ def run_example_deck(work: Path, tag: str, *, storage: str, steps: int,
     if not all(0.3 < v < 3.0 for v in ratios.values()):
         raise AssertionError(f"[{tag}] upstream RMS/sigma {ratios} outside [0.3, 3]")
     stride = seen["cfg"].update_stride
+    if n_gpu:
+        out["sharded_loop"] = sharded_loop(seen["case"], r.state, n_gpu, device)
+        loop = out["sharded_loop"]
+        log(f"[{tag}] sharded step on {device}, ms/step by events on the "
+            f"first card {loop['step_ms']:.4f}, by the host clock between "
+            f"synchronisations of every card {loop['step_wall_ms']:.4f}"
+            + ("" if "step_host_ms" not in loop else
+               f"; host enqueue / device ms per step {loop['step_host_ms']:.4f}"
+               f" / {loop['step_device_ms']:.4f}; device operations per step "
+               f"{loop['step_device_ops']:.0f}"))
+        return out
     loop = step_loop_breakdown(seen["case"], r.state)
     log(f"[{tag}] step loop ({len(rt.sigma)} inlet points, {seen['cfg'].nmodes} "
         f"modes, stride {stride}), ms/step by events: K-SC without sites "
@@ -1083,6 +1494,81 @@ def run_example_deck(work: Path, tag: str, *, storage: str, steps: int,
     out.update(faces=faces, rms_over_sigma=ratios, points=int(len(rt.sigma)),
                update_stride=stride, step_loop=loop)
     return out
+
+
+def sharded_loop(case, final, n_gpu, device) -> dict:
+    """The split deck's step on `device` (the device rule of
+    `parallel/mesh.py`) with the run's own configuration, forcing and inlet
+    hook, from its `final` (host) state: ms per step by CUDA events (on the
+    first card's stream) and host enqueue / device ms per step."""
+    from latticeurbanwind_tpu_torch.parallel import domain_mesh, shard_state
+    from latticeurbanwind_tpu_torch.parallel.halo import make_sharded_runner
+
+    mesh = domain_mesh(n_gpu, tuple(final.rho.shape), device)
+    run, _ = make_sharded_runner(case.config, case.forcing, mesh,
+                                 pre_step=case.pre_step)
+    cell = {"s": shard_state(final, mesh), "t": 0}
+
+    def step():
+        cell["s"] = run(cell["s"], case.dyn, cell["t"], 1)
+        cell["t"] += 1
+
+    from latticeurbanwind_tpu_torch.parallel.mesh import sync
+
+    out = {"step_ms": cuda_ms(step, reps=50, warmup=5)}
+    sync(mesh.devices)
+    t0 = time.perf_counter()
+    for _ in range(50):
+        step()
+    sync(mesh.devices)
+    out["step_wall_ms"] = (time.perf_counter() - t0) * 1e3 / 50
+    if len(set(mesh.devices)) == 1:   # the device sleep holds one card only
+        out["step_host_ms"], out["step_device_ms"] = run_ahead(step, n=8)
+        out["step_device_ops"] = kernels_per_call(step)
+    del cell
+    torch.cuda.empty_cache()
+    return out
+
+
+def compare_split_deck(split: dict, main: dict, tag: str) -> dict:
+    """The split deck against the unsplit one: final DDFs and raw VTKs
+    EQUAL (each shard's cell runs the same arithmetic on the same inputs);
+    the averages within the fused averaging pass's tolerance at cells that
+    are not solid (the unsplit run samples through K-AVG, the split one
+    through update_fields + welford_update, as the JAX package's `run_case`
+    does)."""
+    from latticeurbanwind_tpu_torch.io.vtk import read_structured_points
+
+    fi_same = torch.equal(split["fi"].view(torch.int16),
+                          main["fi"].view(torch.int16))
+    a, b = split["files"], main["files"]        # name -> path
+    if sorted(a) != sorted(b):
+        raise AssertionError(f"[{tag}] outputs {sorted(a)} != {sorted(b)}")
+    # the averages back in lattice units, where the tolerance is stated
+    uf, rf = main["u_factor"], main["rho_factor"]
+    unit = {"u_avg": uf, "rho_avg": rf, "tke": uf * uf}
+    raw_same, avg_err = {}, {}
+    for name in sorted(b):
+        _, fa = read_structured_points(a[name])
+        _, fb = read_structured_points(b[name])
+        if "_avg-" in name:
+            fluid = fb["fluid"] > 0.5
+            for key, f in unit.items():
+                d = np.abs(fa[key][..., fluid] - fb[key][..., fluid]) / f
+                avg_err[key] = float(d.max())
+        else:
+            raw_same[name] = bool(np.array_equal(fa["data"], fb["data"]))
+    ok = (fi_same and all(raw_same.values())
+          and all(v <= AVG_TOL for v in avg_err.values()))
+    log(f"[{tag}] against vk-bf16-400: final DDFs {'equal' if fi_same else 'DIFFER'}"
+        f", raw VTKs " + ", ".join(f"{k} {'equal' if v else 'DIFFER'}"
+                                   for k, v in raw_same.items())
+        + "; averaged VTK at cells that are not solid, max |split - unsplit| "
+        "in lattice units: " + ", ".join(f"{k} {v:.3e}" for k, v in avg_err.items())
+        + f" (tol {AVG_TOL:.0e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"[{tag}] the split deck differs from the unsplit one")
+    return {"fi_equal": fi_same, "raw_equal": raw_same, "avg_max_abs": avg_err}
 
 
 def first_layer_du(a: Path, b: Path, flags: torch.Tensor) -> float:
@@ -1145,6 +1631,7 @@ def run_datagen_deck(work: Path, tag: str, *, storage: str, steps: int,
     n_avg = purge // 2
     expect = {"stream_collide": cases * steps, "stream_collide_vk": 0,
               "stream_collide_wall": 0, "stream_collide_thermal": 0,
+              "stream_collide_halo": 0,
               "avg_update": cases * n_avg, "avg_update_wall": 0}
     if launches != expect:
         raise AssertionError(f"[{tag}] launch counts {launches} != {expect}")
@@ -1247,6 +1734,7 @@ def run_nwp_deck(work: Path, tag: str, *, steps: int, thermal: bool) -> dict:
     expect = {"stream_collide": steps, "stream_collide_vk": steps,
               "stream_collide_wall": 0,
               "stream_collide_thermal": steps if thermal else 0,
+              "stream_collide_halo": 0,
               "avg_update": 0 if thermal else n_avg, "avg_update_wall": 0}
     if launches != expect:
         raise AssertionError(f"[{tag}] launch counts {launches} != {expect}")
@@ -1318,7 +1806,29 @@ def run_nwp_deck(work: Path, tag: str, *, steps: int, thermal: bool) -> dict:
 
 def phase_main_path(work: Path) -> dict:
     log("== phase 4: the example decks through run_deck")
-    main = run_example_deck(work, "vk-bf16-400", storage="bf16", steps=400, vk=True)
+    main = run_example_deck(work, "vk-bf16-400", storage="bf16", steps=400,
+                            vk=True, keep=True)
+    # the same deck split n_gpu = SHARD_SPLIT, every shard on card 0
+    split = run_example_deck(work, "vk-bf16-sharded", storage="bf16",
+                             steps=400, vk=True, n_gpu=SHARD_SPLIT,
+                             device=SHARD_DEVICE, keep=True)
+    split["against_unsplit"] = compare_split_deck(split, main, "vk-bf16-sharded")
+    paths = {"vk-bf16-sharded": split}
+    if torch.cuda.device_count() >= int(np.prod(SHARD_SPLIT)):
+        spread = run_example_deck(work, "vk-bf16-sharded-4cards", storage="bf16",
+                                  steps=400, vk=True, n_gpu=SHARD_SPLIT,
+                                  device="cuda", keep=True)
+        spread["against_unsplit"] = compare_split_deck(
+            spread, main, "vk-bf16-sharded-4cards")
+        paths["vk-bf16-sharded-4cards"] = spread
+    else:
+        log(f"[vk-bf16-sharded-4cards] not run: {torch.cuda.device_count()} "
+            f"card(s) visible, n_gpu={list(SHARD_SPLIT)} on device=\"cuda\" "
+            f"needs {int(np.prod(SHARD_SPLIT))}")
+    for p in (main, *paths.values()):
+        for k in ("fi", "files"):
+            p.pop(k, None)
+    torch.cuda.empty_cache()
     off = run_example_deck(work, "novk-bf16-100", storage="bf16", steps=100, vk=False)
     fp16c = run_example_deck(work, "vk-fp16c-200", storage="fp16c", steps=200,
                              vk=True)
@@ -1337,9 +1847,10 @@ def phase_main_path(work: Path) -> dict:
     nwp_t = run_nwp_deck(work, "nwp-t-bf16-300", steps=300, thermal=True)
     torch.cuda.empty_cache()
     nwp = run_nwp_deck(work, "nwp-bf16-300", steps=300, thermal=False)
-    paths = {"vk-bf16-400": main, "novk-bf16-100": off, "vk-fp16c-200": fp16c,
-             "wall-vk-bf16-400": wall, "dg-bf16-300": dg,
-             "nwp-t-bf16-300": nwp_t, "nwp-bf16-300": nwp}
+    paths.update({"vk-bf16-400": main, "novk-bf16-100": off,
+                  "vk-fp16c-200": fp16c, "wall-vk-bf16-400": wall,
+                  "dg-bf16-300": dg, "nwp-t-bf16-300": nwp_t,
+                  "nwp-bf16-300": nwp})
     for p in paths.values():
         p.pop("raw_u", None)
         p.pop("flags", None)
@@ -1367,6 +1878,8 @@ def main() -> int:
     main_sc = paths["vk-bf16-400"]["launches"]
     main_wall = paths["wall-vk-bf16-400"]["launches"]
     main_th = paths["nwp-t-bf16-300"]["launches"]
+    main_halo = paths["vk-bf16-sharded"]["launches"]
+    errs["stream_collide_halo"][timing["halo"]["name"]] = timing["halo"]["max_abs_err"]
 
     def times(prefix, wall, thermal=False):
         return {k: v for k, v in timing["configs"].items()
@@ -1388,6 +1901,7 @@ def main() -> int:
          **timed(timing["sc"]),
          "launches_by_path": {k: v["stream_collide"] - v["stream_collide_wall"]
                               - v["stream_collide_thermal"]
+                              - v["stream_collide_halo"]
                               for k, v in by_path.items()},
          "max_abs_err_by_config": errs["stream_collide"],
          "times_by_config": times("K-SC", False),
@@ -1425,6 +1939,23 @@ def main() -> int:
          "update_fields_thermal": timing["thermal_fields"],
          "decks": {k: {kk: vv for kk, vv in paths[k].items() if kk != "step_loop"}
                    for k in ("nwp-t-bf16-300", "nwp-bf16-300")}},
+        {"name": "stream_collide_halo", "route": "cuda",
+         "source": "latticeurbanwind_tpu_torch/csrc/stream_collide_halo.cu",
+         "replaces": "latticeurbanwind_tpu/ops/stream_collide.py:409",
+         "launches": main_halo["stream_collide_halo"],
+         "launches_with_vk_sites": main_halo["stream_collide_vk"],
+         "max_abs_err": max(errs["stream_collide_halo"].values()),
+         **timed(timing["halo"]),
+         "bound_includes_halo_bytes": timing["halo"]["halo_bytes"],
+         "non_halo_ms_same_shard": timing["halo"]["non_halo_ms"],
+         "launches_by_path": {k: v["stream_collide_halo"]
+                              for k, v in by_path.items()},
+         "max_abs_err_by_config": errs["stream_collide_halo"],
+         "share_over_tol_and_differing_by_config": errs["halo_code_shares"],
+         "sharded_runner_against_single_device": errs["sharded"],
+         "sharded_step": timing["sharded_step"],
+         "decks": {k: {kk: vv for kk, vv in v.items() if kk != "flags"}
+                   for k, v in paths.items() if k.startswith("vk-bf16-sharded")}},
         {"name": "avg_update", "route": "cuda",
          "source": "latticeurbanwind_tpu_torch/csrc/avg_update.cu",
          "replaces": "latticeurbanwind_tpu/ops/avg_kernel.py:85",

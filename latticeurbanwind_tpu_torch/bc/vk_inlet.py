@@ -23,7 +23,9 @@ cos/sin over (M, R) at time t and a product with a static (2M, 3C) matrix.
 Faces of one shape (west/east, south/north) are stacked and refreshed by
 one batch of torch ops, so a step costs a few launches per face pair.  The
 time argument a0 + omega t is formed in float32 from a float32 t, as in the
-JAX package.  The shard offsets of the JAX hook (multi-GPU) are not ported.
+JAX package.  The JAX hook's shard offsets are not needed: a split run
+(`parallel/halo.py`) refreshes the whole domain's FaceBC once per step and
+slices it per shard.
 """
 
 from __future__ import annotations

@@ -8,7 +8,10 @@ profile (.luwpf) or dataset-generation (.luwdg) deck.
 Counterpart of `latticeurbanwind_tpu/cli/run.py`.  There is no --impl
 switch: the run goes to the CUDA device (the hand-written kernels, built on
 first use) and raises when there is none; `--device cpu` runs the kernels'
-plain torch versions on the CPU instead.  The deck runs as written, the VK
+plain torch versions on the CPU instead.  A deck whose `n_gpu` asks for
+several devices is split over them: `--device cuda` puts shard i on card i
+(one card when fewer are visible), `--device cuda:k` every shard on card k,
+`--device cpu` every shard on the CPU.  The deck runs as written, the VK
 synthetic-turbulence inlet, the wall models, the temperature sub-lattice
 and every `lbm_storage` included.  A `.luw` deck needs its prepared inputs
 (`proj_temp/SurfData_<datetime>.csv` and the case STL, which the JAX
@@ -28,7 +31,9 @@ def main(argv=None) -> int:
     parser.add_argument("deck", help="path to conf.luw, conf.luwpf or conf.luwdg")
     parser.add_argument("--device", default="cuda",
                         help="torch device (default: cuda, which must be "
-                             "present; cpu runs the plain versions)")
+                             "present; cpu runs the plain versions); an "
+                             "n_gpu deck's shards go to card i under cuda, "
+                             "all to card k under cuda:k")
     parser.add_argument("--max-cases", type=int, default=0,
                         help="run only the first N cases")
     parser.add_argument("--quiet", action="store_true")

@@ -1,11 +1,13 @@
 // D3Q19 helpers shared by the stream-collide and averaging kernels: cell
-// types, the periodic wrap, and the wall models' streaming and stress.
+// types, the periodic wrap, the wall models' streaming and stress, and the
+// z-halo reads of the step's halo mode.
 //
 // Replaces: the wall-model branches of
 // latticeurbanwind_tpu/ops/stream_collide.py::make_pallas_step (specular
 // mirrors :618-650, Schumann stress :678-703) and of
 // latticeurbanwind_tpu/ops/avg_kernel.py::make_avg_update (:179-192,
-// :218-234), which compute the same terms.
+// :218-234), which compute the same terms; and the halo mode's z-neighbour
+// reads of make_pallas_step (:1032-1042, :1222-1241).
 //
 // Directions are the cz-grouped D3Q19 order of lbm/lattice.py.  The tables
 // are local arrays in each function: the callers' loops over d are
@@ -78,19 +80,110 @@ __device__ __forceinline__ long long solid_source_index(
   return OPP[d] * N + n;
 }
 
+// The z-halo planes of a halo-mode step (K8, the Pallas kernel's halo_mode:
+// make_pallas_step :1032-1042, :1222-1241), one z slab of a domain split
+// over several devices.  A pull whose z source leaves the slab's [0, Z)
+// reads the plane the neighbouring slab supplies instead of wrapping: fp
+// holds the 5 cz = +1 channels (9-13) of the plane below (z = -1), fm the 5
+// cz = -1 channels (14-18) of the plane above (z = Z), each channel a
+// contiguous (Y, X) plane `fps` / `fms` elements after the previous one (a
+// view into the neighbour's DDFs, or a copy); flb / fla are the flags of
+// those planes; gp / gm the thermal cz = +1 / -1 channel (5 / 6) of g of
+// the plane below / above.  The wall models' mirror partners of a cz = +1
+// (-1) direction are cz = +1 (-1) directions too, so 5 channels suffice.
+struct HaloArgs {
+  const void* fp;
+  const void* fm;
+  long long fps, fms;
+  const uint8_t* flb;
+  const uint8_t* fla;
+  const void* gp;
+  const void* gm;
+};
+
+// The flags of the cell (zz, yy, xx) of a halo-mode slab, zz in [-1, Z].
+__device__ __forceinline__ uint8_t halo_flag(
+    const uint8_t* __restrict__ flags, const HaloArgs& h, int zz, int yy,
+    int xx, int Z, int Y, int X) {
+  const long long yx = (long long)yy * X + xx;
+  if (zz < 0) return h.flb[yx];
+  if (zz >= Z) return h.fla[yx];
+  return flags[(long long)zz * Y * X + yx];
+}
+
+// Channel ch of the DDFs at (zz, yy, xx) of a halo-mode slab, zz in
+// [-1, Z]: the base pointer and the element index (ch is a cz = +1 channel
+// where zz = -1, a cz = -1 channel where zz = Z).
+template <class T>
+__device__ __forceinline__ const T* halo_elem(
+    const T* __restrict__ fa, const HaloArgs& h, int ch, int zz, int yy,
+    int xx, int Z, int Y, int X, long long N, long long& idx) {
+  const long long yx = (long long)yy * X + xx;
+  if (zz < 0) {
+    idx = (ch - 9) * h.fps + yx;
+    return static_cast<const T*>(h.fp);
+  }
+  if (zz >= Z) {
+    idx = (ch - 14) * h.fms + yx;
+    return static_cast<const T*>(h.fm);
+  }
+  idx = ch * N + (long long)zz * Y * X + yx;
+  return fa;
+}
+
+// solid_source_index's choice in a halo-mode slab: direction d at cell n =
+// (z, y, x) pulls from (z - cz, ys, xs), which may lie in a halo plane, and
+// so may the x- and y-face mirror partners; the ground partner lies in the
+// cell's own plane.  Returns the base pointer and sets the element index.
+template <class T, int kWall>
+__device__ __forceinline__ const T* halo_source(
+    const T* __restrict__ fa, const uint8_t* __restrict__ flags,
+    const HaloArgs& h, int d, long long n, int z, int y, int x, int ys,
+    int xs, int Z, int Y, int X, long long N, long long& idx) {
+  const int CX[19] = {0, 1, -1, 0, 0, 1, -1, 1, -1, 0, 1, -1, 0, 0, 0, -1, 1, 0, 0};
+  const int CY[19] = {0, 0, 0, 1, -1, 1, -1, -1, 1, 0, 0, 0, 1, -1, 0, 0, 0, -1, 1};
+  const int CZ[19] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1, 1, 1, -1, -1, -1, -1, -1};
+  const int OPP[19] = {0, 2, 1, 4, 3, 6, 5, 8, 7, 14, 15, 16, 17, 18, 9, 10, 11, 12, 13};
+  const int MZ[19] = {-1, -1, -1, -1, -1, -1, -1, -1, -1, 14, 16, 15, 18, 17, -1, -1, -1, -1, -1};
+  const int MX[19] = {-1, 2, 1, -1, -1, 8, 7, 6, 5, -1, 11, 10, -1, -1, -1, 16, 15, -1, -1};
+  const int MY[19] = {-1, -1, -1, 4, 3, 7, 8, 5, 6, -1, -1, -1, 13, 12, -1, -1, -1, 18, 17};
+  const int zs = z - CZ[d];
+  if (!(halo_flag(flags, h, zs, ys, xs, Z, Y, X) & kTypeS))
+    return halo_elem(fa, h, d, zs, ys, xs, Z, Y, X, N, idx);
+  if (kWall >= 1 && CZ[d] == 1) {
+    const long long p = ((long long)z * Y + ys) * X + xs;
+    if (!(flags[p] & kTypeS)) {
+      idx = MZ[d] * N + p;
+      return fa;
+    }
+  }
+  if (kWall == 2 && CX[d] != 0 &&
+      !(halo_flag(flags, h, zs, ys, x, Z, Y, X) & kTypeS))
+    return halo_elem(fa, h, MX[d], zs, ys, x, Z, Y, X, N, idx);
+  if (kWall == 2 && CY[d] != 0 &&
+      !(halo_flag(flags, h, zs, y, xs, Z, Y, X) & kTypeS))
+    return halo_elem(fa, h, MY[d], zs, y, xs, Z, Y, X, N, idx);
+  idx = OPP[d] * N + n;
+  return fa;
+}
+
 // The wall models' Schumann stress on the force at a fluid cell, from its
 // streamed (unforced) velocity u: -cd rho |u_h| u_h when the cell below
-// (z - 1, periodic) is solid; with kWall 2 and cd_sides > 0, -cd_sides rho
+// (z - 1, periodic; in a halo-mode slab, kHalo, the plane below's flags
+// `flb` at z = 0) is solid; with kWall 2 and cd_sides > 0, -cd_sides rho
 // |u_t| u_t beside an x-face solid neighbour (along y and z) and a y-face one
 // (along x and z).  The Pallas step's evaluation order (:678-703).
-template <int kWall>
+template <int kWall, bool kHalo = false>
 __device__ __forceinline__ void wall_stress(
     float& Fx, float& Fy, float& Fz, float ux, float uy, float uz, float rho,
     const uint8_t* __restrict__ flags, int z, int y, int x, int Z, int Y,
-    int X, float cd, float cd_sides) {
+    int X, float cd, float cd_sides, const uint8_t* __restrict__ flb = nullptr) {
   if (kWall == 0) return;
   const long long plane = (long long)Y * X;
-  if (flags[wrap(z - 1, Z) * plane + (long long)y * X + x] & kTypeS) {
+  const uint8_t below =
+      kHalo && z == 0 ? flb[(long long)y * X + x]
+                      : flags[wrap(z - 1, Z) * plane + (long long)y * X + x];
+  if (below & kTypeS) {
     const float cw = cd * rho * sqrtf(ux * ux + uy * uy);
     Fx -= cw * ux;
     Fy -= cw * uy;

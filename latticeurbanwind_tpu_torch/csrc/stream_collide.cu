@@ -7,8 +7,9 @@
 // bound and design are described there); this unit instantiates it for the
 // configurations without a wall model under SRT -- every storage codec,
 // with and without the volume force, nudging and the sponge -- and hands
-// the wall-model and TRT configurations to stream_collide_wall.cu and the
-// thermal ones to stream_collide_thermal.cu.
+// the wall-model and TRT configurations to stream_collide_wall.cu, the
+// thermal ones to stream_collide_thermal.cu and the halo-mode steps of a
+// split domain (K8) to stream_collide_halo.cu.
 //
 // VK inlet sites (the Pallas kernel's `vk` spec, make_pallas_step
 // :915-978): at the boundary faces that carry a site mask, the cell's
@@ -29,7 +30,10 @@
 // (bf16) to +72% (fp16c) fused (96 and more registers against 72, and the
 // fp16c blend's code crowding the instruction cache), and +2% (f32) to
 // +64% (fp16c) as a __noinline__ tail call.  The VK site pass touches only
-// the boundary shell, O(N^(2/3)) cells.
+// the boundary shell, O(N^(2/3)) cells.  In a halo-mode slab the faces lie
+// inside the ghost layers: the pass covers the shell of the box without them
+// (offsets gy / gx, 0 outside halo mode), and the runner gives a slab only
+// the sites of the faces it owns.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -68,19 +72,25 @@ __device__ __forceinline__ void vk_blend(typename C::T (&o)[19], float m,
   for (int d = 0; d < 19; ++d) o[d] = C::enc(m * fe[d] + om * C::dec(o[d]));
 }
 
+// Whether the cell (z, y, x) of the (Z, Y, X) box lies on a masked face, the
+// row and lane faces gy / gx inside the y / x edges.
 __device__ __forceinline__ bool vk_on_site(const VkMasks& vm, int z, int y,
-                                           int x, int Z, int Y, int X) {
-  return (z == Z - 1 && vm.ut) || (z == 0 && vm.ub) || (y == 0 && vm.us) ||
-         (y == Y - 1 && vm.un) || (x == 0 && vm.uw) || (x == X - 1 && vm.ue);
+                                           int x, int Z, int Y, int X, int gy,
+                                           int gx) {
+  return (z == Z - 1 && vm.ut) || (z == 0 && vm.ub) || (y == gy && vm.us) ||
+         (y == Y - 1 - gy && vm.un) || (x == gx && vm.uw) ||
+         (x == X - 1 - gx && vm.ue);
 }
 
-// Every site of the cell in the Pallas order: planes, rows, lanes.
+// Every site of the cell in the Pallas order: planes, rows, lanes; the row
+// and lane faces gy / gx inside the y / x edges.
 template <class C>
 __device__ __forceinline__ void vk_sites(
     typename C::T (&o)[19], const VkMasks& vm, int z, int y, int x, int Z,
-    int Y, int X, const float* __restrict__ uw, const float* __restrict__ ue,
-    const float* __restrict__ us, const float* __restrict__ un,
-    const float* __restrict__ ut, const float* __restrict__ ub) {
+    int Y, int X, int gy, int gx, const float* __restrict__ uw,
+    const float* __restrict__ ue, const float* __restrict__ us,
+    const float* __restrict__ un, const float* __restrict__ ut,
+    const float* __restrict__ ub) {
   const long long plane = (long long)Y * X;
   const long long yx = (long long)y * X + x;
   if (z == Z - 1 && vm.ut)
@@ -89,15 +99,15 @@ __device__ __forceinline__ void vk_sites(
     vk_blend<C>(o, vm.ub[yx], ub[yx], ub[plane + yx], ub[2 * plane + yx]);
   const long long zx = (long long)z * X + x;
   const long long rx = (long long)z * 3 * X + x;
-  if (y == 0 && vm.us)
+  if (y == gy && vm.us)
     vk_blend<C>(o, vm.us[zx], us[rx], us[rx + X], us[rx + 2 * X]);
-  if (y == Y - 1 && vm.un)
+  if (y == Y - 1 - gy && vm.un)
     vk_blend<C>(o, vm.un[zx], un[rx], un[rx + X], un[rx + 2 * X]);
   const long long zy = (long long)z * Y + y;
   const long long ry = (long long)z * 3 * Y + y;
-  if (x == 0 && vm.uw)
+  if (x == gx && vm.uw)
     vk_blend<C>(o, vm.uw[zy], uw[ry], uw[ry + Y], uw[ry + 2 * Y]);
-  if (x == X - 1 && vm.ue)
+  if (x == X - 1 - gx && vm.ue)
     vk_blend<C>(o, vm.ue[zy], ue[ry], ue[ry + Y], ue[ry + 2 * Y]);
 }
 
@@ -106,46 +116,51 @@ __device__ __forceinline__ void vk_sites(
 // the interior z, then the x = 0 and x = X-1 lanes of the interior z and y
 // (a box thinner than 3 cells lists each of its cells once).  A cell on a
 // masked face gets all of its sites, in order, from the step's outputs.
+// The box is the (Z, Y - 2 gy, X - 2 gx) one inside the ghost layers of a
+// halo-mode slab (gy = gx = 0 otherwise).
 template <class C>
 __global__ void __launch_bounds__(kScThreads)
 vk_site_kernel(typename C::T* __restrict__ fb, VkMasks vm,
                const float* __restrict__ uw, const float* __restrict__ ue,
                const float* __restrict__ us, const float* __restrict__ un,
                const float* __restrict__ ut, const float* __restrict__ ub,
-               int Z, int Y, int X) {
+               int Z, int Y, int X, int gy, int gx) {
   using T = typename C::T;
-  const int Zi = max(Z - 2, 0), Yi = max(Y - 2, 0);
-  const long long nP = (long long)Y * X, nR = (long long)Zi * X,
+  const int Yb = Y - 2 * gy, Xb = X - 2 * gx;  // the box inside the ghosts
+  const int Zi = max(Z - 2, 0), Yi = max(Yb - 2, 0);
+  const long long nP = (long long)Yb * Xb, nR = (long long)Zi * Xb,
                   nL = (long long)Zi * Yi;
-  const long long sP = min(Z, 2) * nP, sR = min(Y, 2) * nR,
-                  sL = min(X, 2) * nL;
+  const long long sP = min(Z, 2) * nP, sR = min(Yb, 2) * nR,
+                  sL = min(Xb, 2) * nL;
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   int z, y, x;
   if (i < sP) {
     z = i < nP ? 0 : Z - 1;
     i %= nP;
-    y = (int)(i / X);
-    x = (int)(i % X);
+    y = (int)(i / Xb);
+    x = (int)(i % Xb);
   } else if ((i -= sP) < sR) {
-    y = i < nR ? 0 : Y - 1;
+    y = i < nR ? 0 : Yb - 1;
     i %= nR;
-    z = 1 + (int)(i / X);
-    x = (int)(i % X);
+    z = 1 + (int)(i / Xb);
+    x = (int)(i % Xb);
   } else if ((i -= sR) < sL) {
-    x = i < nL ? 0 : X - 1;
+    x = i < nL ? 0 : Xb - 1;
     i %= nL;
     z = 1 + (int)(i / Yi);
     y = 1 + (int)(i % Yi);
   } else {
     return;
   }
-  if (!vk_on_site(vm, z, y, x, Z, Y, X)) return;
+  y += gy;
+  x += gx;
+  if (!vk_on_site(vm, z, y, x, Z, Y, X, gy, gx)) return;
   const long long N = (long long)Z * Y * X;
   const long long n = ((long long)z * Y + y) * X + x;
   T o[19];
 #pragma unroll
   for (int d = 0; d < 19; ++d) o[d] = fb[d * N + n];
-  vk_sites<C>(o, vm, z, y, x, Z, Y, X, uw, ue, us, un, ut, ub);
+  vk_sites<C>(o, vm, z, y, x, Z, Y, X, gy, gx, uw, ue, us, un, ut, ub);
 #pragma unroll
   for (int d = 0; d < 19; ++d) fb[d * N + n] = o[d];
 }
@@ -168,23 +183,28 @@ cudaError_t sc_dispatch_force(const ScArgs& a, cudaStream_t stream) {
   return sc_launch<C, true, 0, 0, 0, false>(a, stream);
 }
 
-// One step in storage codec C, then the VK site pass when any mask is
-// given.
+// One step in storage codec C (a halo-mode one where halo planes are
+// given), then the VK site pass when any mask is given; gy / gx are the
+// ghost widths of a halo-mode slab's plane.
 template <class C>
-cudaError_t sc_dispatch(const ScArgs& a, cudaStream_t stream) {
-  const cudaError_t err = sc_dispatch_force<C>(a, stream);
+cudaError_t sc_dispatch(const ScArgs& a, int gy, int gx, cudaStream_t stream) {
+  const bool halo = a.halo.fp != nullptr;
+  const cudaError_t err =
+      halo ? sc_dispatch_halo<C>(a, stream) : sc_dispatch_force<C>(a, stream);
   const VkMasks& m = a.vm;
   if (err != cudaSuccess || !(m.uw || m.ue || m.us || m.un || m.ut || m.ub))
     return err;
-  const long long Zi = a.Z > 2 ? a.Z - 2 : 0, Yi = a.Y > 2 ? a.Y - 2 : 0;
-  const long long shell = (a.Z > 1 ? 2 : 1) * (long long)a.Y * a.X +
-                          (a.Y > 1 ? 2 : 1) * Zi * a.X +
-                          (a.X > 1 ? 2 : 1) * Zi * Yi;
+  if (!halo) gy = gx = 0;
+  const long long Yb = a.Y - 2 * gy, Xb = a.X - 2 * gx;
+  const long long Zi = a.Z > 2 ? a.Z - 2 : 0, Yi = Yb > 2 ? Yb - 2 : 0;
+  const long long shell = (a.Z > 1 ? 2 : 1) * Yb * Xb +
+                          (Yb > 1 ? 2 : 1) * Zi * Xb +
+                          (Xb > 1 ? 2 : 1) * Zi * Yi;
   const unsigned int blocks =
       (unsigned int)((shell + kScThreads - 1) / kScThreads);
   vk_site_kernel<C><<<blocks, kScThreads, 0, stream>>>(
       static_cast<typename C::T*>(a.fb), a.vm, a.uw, a.ue, a.us, a.un, a.ut,
-      a.ub, a.Z, a.Y, a.X);
+      a.ub, a.Z, a.Y, a.X, gy, gx);
   return cudaGetLastError();
 }
 
@@ -199,7 +219,12 @@ cudaError_t sc_dispatch(const ScArgs& a, cudaStream_t stream) {
 // on success).  thermal: also step the D3Q7 populations ga -> gb (storage
 // type, (7, Z, Y, X)) at omega_t, with the sponge's temperature target tt
 // (Y, X; null without a sponge) and the Boussinesq term beta * (T - t_avg);
-// the VK site pass leaves g alone.
+// the VK site pass leaves g alone.  fp_halo non-null: a halo-mode step of
+// one z slab of a split domain (lattice.cuh HaloArgs: fp_halo / fm_halo the
+// 5 cz = +1 / -1 channels of the planes below / above with channel strides
+// fp_stride / fm_stride in elements, flb / fla their flags, gp_halo /
+// gm_halo their thermal g channel), whose VK sites lie gy / gx inside the
+// y / x edges of its ghost-extended plane.
 extern "C" int luw_stream_collide(
     const void* fa, void* fb, const void* flags, const void* dyn,
     const void* nudge_sigma, const void* nudge_face, const void* uw,
@@ -211,7 +236,9 @@ extern "C" int luw_stream_collide(
     int has_nudge, int has_sponge, int nudge_vertical, int subgrid,
     float omega, float tau0, float tau0_sq, int wall, int trt, float wall_cd,
     float wall_cd_sides, int thermal, float omega_t, float beta, float t_avg,
-    void* stream) {
+    const void* fp_halo, const void* fm_halo, long long fp_stride,
+    long long fm_stride, const void* flb, const void* fla,
+    const void* gp_halo, const void* gm_halo, int gy, int gx, void* stream) {
   using luw::ScArgs;
   auto F = [](const void* p) { return static_cast<const float*>(p); };
   ScArgs a;
@@ -247,13 +274,16 @@ extern "C" int luw_stream_collide(
   a.wall_cd_sides = wall_cd_sides;
   a.thermal = thermal;
   a.th = {ga, gb, F(tt), omega_t, beta, t_avg};
+  a.halo = {fp_halo, fm_halo, fp_stride, fm_stride,
+            static_cast<const uint8_t*>(flb), static_cast<const uint8_t*>(fla),
+            gp_halo, gm_halo};
   const auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (storage) {
-    case 0: err = luw::sc_dispatch<luw::CodecF32>(a, st); break;
-    case 1: err = luw::sc_dispatch<luw::CodecBF16>(a, st); break;
-    case 2: err = luw::sc_dispatch<luw::CodecF16>(a, st); break;
-    case 3: err = luw::sc_dispatch<luw::CodecFP16C>(a, st); break;
+    case 0: err = luw::sc_dispatch<luw::CodecF32>(a, gy, gx, st); break;
+    case 1: err = luw::sc_dispatch<luw::CodecBF16>(a, gy, gx, st); break;
+    case 2: err = luw::sc_dispatch<luw::CodecF16>(a, gy, gx, st); break;
+    case 3: err = luw::sc_dispatch<luw::CodecFP16C>(a, gy, gx, st); break;
     default: err = cudaErrorInvalidValue;
   }
   return (int)err;

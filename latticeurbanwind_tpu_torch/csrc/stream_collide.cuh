@@ -1,8 +1,10 @@
 // The fused D3Q19 stream-collide step kernel (K-SC), a template over the
-// storage codec and the configuration, shared by the three translation units
+// storage codec and the configuration, shared by the five translation units
 // that instantiate it: stream_collide.cu (SRT without a wall model, and the
-// C entry point), stream_collide_wall.cu (the wall models and TRT) and
-// stream_collide_thermal.cu (the thermal D3Q7 sub-lattice).
+// C entry point), stream_collide_wall.cu (the wall models and TRT),
+// stream_collide_thermal.cu (the thermal D3Q7 sub-lattice) and
+// stream_collide_halo.cu with stream_collide_halo_thermal.cu (the halo mode
+// of a domain split over devices).
 //
 // Replaces: latticeurbanwind_tpu/ops/stream_collide.py::make_pallas_step,
 // the Pallas TPU kernel that advances the lattice by one time step.  Stages,
@@ -39,7 +41,11 @@
 // 72-80 registers and cost +6% (ground) to +38% (wall_sides) per step at
 // 256^3 bf16 on the H100, most of it the side mirrors.  The thermal
 // sub-lattice (thermal.cuh) is a template argument too, its arguments one
-// trailing struct that the other instances never read.  Shared-memory tiling
+// trailing struct that the other instances never read.  So is the halo mode
+// (kHalo, K8): one z slab of a split domain whose z pulls that leave the
+// slab read the neighbouring slabs' planes (HaloArgs, lattice.cuh) instead
+// of wrapping, while y and x still wrap inside the slab's ghost-extended
+// plane; its arguments are one more trailing struct.  Shared-memory tiling
 // and TMA are later work.
 
 #pragma once
@@ -113,13 +119,15 @@ struct ScArgs {
   float wall_cd, wall_cd_sides;
   int thermal;
   ThermArgs th;
+  HaloArgs halo;  // fp null: not a halo-mode step
 };
 
 // kNudge / kSponge: 0 off, 1 on, 2 on where the pointer is not null (the
-// wall, TRT and thermal instances take them at run time to keep their count
-// down).  kThermal steps the g populations of `th` with the cell (thermal.cuh).
+// wall, TRT, thermal and halo instances take them at run time to keep their
+// count down).  kThermal steps the g populations of `th` with the cell
+// (thermal.cuh).  kHalo reads the z neighbours beyond the slab from `ha`.
 template <class C, bool kForce, int kNudge, int kSponge, int kWall, bool kTrt,
-          bool kThermal = false>
+          bool kThermal = false, bool kHalo = false>
 __global__ void __launch_bounds__(kScThreads)
 stream_collide_kernel(const typename C::T* __restrict__ fa,
                       typename C::T* __restrict__ fb,
@@ -133,7 +141,7 @@ stream_collide_kernel(const typename C::T* __restrict__ fa,
                       const float* __restrict__ sponge_z, int Z, int Y, int X,
                       int nudge_vertical, int subgrid, float omega, float tau0,
                       float tau0_sq, float wall_cd, float wall_cd_sides,
-                      ThermArgs th) {
+                      ThermArgs th, HaloArgs ha) {
   // cz-grouped D3Q19 order of latticeurbanwind_tpu/lbm/lattice.py
   const int CX[19] = {0, 1, -1, 0, 0, 1, -1, 1, -1, 0, 1, -1, 0, 0, 0, -1, 1, 0, 0};
   const int CY[19] = {0, 0, 0, 1, -1, 1, -1, -1, 1, 0, 0, 0, 1, -1, 0, 0, 0, -1, 1};
@@ -177,8 +185,9 @@ stream_collide_kernel(const typename C::T* __restrict__ fa,
       if (CZ[d] == 1) mz += q; else if (CZ[d] == -1) mz -= q;
     }
     const float inv = 1.0f / (rho + 1.0f);
-    thermal_cell<C>(ga, gb, flags, fl, n, z, y, x, Z, Y, X, N, mx * inv,
-                    my * inv, mz * inv, 0.0f, th.tt, th.omega_t);
+    thermal_cell<C, kHalo>(ga, gb, flags, fl, n, z, y, x, Z, Y, X, N,
+                           mx * inv, my * inv, mz * inv, 0.0f, th.tt,
+                           th.omega_t, ha);
     return;
   }
   if (fl & kTypeE) {  // frozen equilibrium: the stored bits go back unchanged
@@ -191,21 +200,35 @@ stream_collide_kernel(const typename C::T* __restrict__ fa,
   // ---- mirrors) from solid sources ----
   float f[19];
   f[0] = C::load(fa, n);
+  if (kHalo && (z == 0 || z == Z - 1)) {
+    // halo mode: the slab's first and last planes pull from beyond it; the
+    // planes between take the single-device pull below, whose z never
+    // wraps there, as one straight loop of independent loads
 #pragma unroll
-  for (int d = 1; d < 19; ++d) {
-    const int xs = wrap(x - CX[d], X);
-    const int ys = wrap(y - CY[d], Y);
-    const int zs = wrap(z - CZ[d], Z);
-    const long long src = ((long long)zs * Y + ys) * X + xs;
-    if (kWall == 0) {  // kept as written before the wall models: same code
-      f[d] = (flags[src] & kTypeS) ? C::load(fa, (long long)OPP[d] * N + n)
-                                   : C::load(fa, (long long)d * N + src);
-    } else {
-      f[d] = C::load(fa, (flags[src] & kTypeS)
-                             ? solid_source_index<kWall>(
-                                   flags, d, n, src, z, y, x, zs, ys, xs, X,
-                                   (long long)Y * X, N)
-                             : (long long)d * N + src);
+    for (int d = 1; d < 19; ++d) {
+      long long idx;
+      const typename C::T* p = halo_source<typename C::T, kWall>(
+          fa, flags, ha, d, n, z, y, x, wrap(y - CY[d], Y), wrap(x - CX[d], X),
+          Z, Y, X, N, idx);
+      f[d] = C::load(p, idx);
+    }
+  } else {
+#pragma unroll
+    for (int d = 1; d < 19; ++d) {
+      const int xs = wrap(x - CX[d], X);
+      const int ys = wrap(y - CY[d], Y);
+      const int zs = wrap(z - CZ[d], Z);
+      const long long src = ((long long)zs * Y + ys) * X + xs;
+      if (kWall == 0) {  // kept as written before the wall models: same code
+        f[d] = (flags[src] & kTypeS) ? C::load(fa, (long long)OPP[d] * N + n)
+                                     : C::load(fa, (long long)d * N + src);
+      } else {
+        f[d] = C::load(fa, (flags[src] & kTypeS)
+                               ? solid_source_index<kWall>(
+                                     flags, d, n, src, z, y, x, zs, ys, xs, X,
+                                     (long long)Y * X, N)
+                               : (long long)d * N + src);
+      }
     }
   }
 
@@ -231,8 +254,8 @@ stream_collide_kernel(const typename C::T* __restrict__ fa,
     Fx = dyn[0] - 2.0f * rho * (oy * uz - oz * uy);
     Fy = dyn[1] - 2.0f * rho * (oz * ux - ox * uz);
     Fz = dyn[2] - 2.0f * rho * (ox * uy - oy * ux);
-    wall_stress<kWall>(Fx, Fy, Fz, ux, uy, uz, rho, flags, z, y, x, Z, Y, X,
-                       wall_cd, wall_cd_sides);
+    wall_stress<kWall, kHalo>(Fx, Fy, Fz, ux, uy, uz, rho, flags, z, y, x, Z,
+                              Y, X, wall_cd, wall_cd_sides, ha.flb);
   }
   if (kNudge == 1 || (kNudge == 2 && nudge_sigma != nullptr)) {
     const int face = nudge_face[n];
@@ -254,9 +277,9 @@ stream_collide_kernel(const typename C::T* __restrict__ fa,
   if (kThermal) {
     // ---- thermal D3Q7 with the streamed, unforced velocity; the Boussinesq
     // ---- term rides on the global force vector
-    const float T = thermal_cell<C>(
+    const float T = thermal_cell<C, kHalo>(
         ga, gb, flags, fl, n, z, y, x, Z, Y, X, N, ux, uy, uz,
-        sponge_z != nullptr ? sponge_z[z] : 0.0f, th.tt, th.omega_t);
+        sponge_z != nullptr ? sponge_z[z] : 0.0f, th.tt, th.omega_t, ha);
     const float bterm = th.beta * (T - th.t_avg);
     Fx -= dyn[0] * bterm;
     Fy -= dyn[1] * bterm;
@@ -348,18 +371,19 @@ stream_collide_kernel(const typename C::T* __restrict__ fa,
 }
 
 template <class C, bool kForce, int kNudge, int kSponge, int kWall, bool kTrt,
-          bool kThermal = false>
+          bool kThermal = false, bool kHalo = false>
 cudaError_t sc_launch(const ScArgs& a, cudaStream_t stream) {
   using T = typename C::T;
   const long long cells = (long long)a.Z * a.Y * a.X;
   const unsigned int blocks =
       (unsigned int)((cells + kScThreads - 1) / kScThreads);
-  stream_collide_kernel<C, kForce, kNudge, kSponge, kWall, kTrt, kThermal>
+  stream_collide_kernel<C, kForce, kNudge, kSponge, kWall, kTrt, kThermal,
+                        kHalo>
       <<<blocks, kScThreads, 0, stream>>>(
           static_cast<const T*>(a.fa), static_cast<T*>(a.fb), a.flags, a.dyn,
           a.nudge_sigma, a.nudge_face, a.uw, a.ue, a.us, a.un, a.ut, a.ub,
           a.sponge_z, a.Z, a.Y, a.X, a.nudge_vertical, a.subgrid, a.omega,
-          a.tau0, a.tau0_sq, a.wall_cd, a.wall_cd_sides, a.th);
+          a.tau0, a.tau0_sq, a.wall_cd, a.wall_cd_sides, a.th, a.halo);
   return cudaGetLastError();
 }
 
@@ -372,5 +396,14 @@ cudaError_t sc_dispatch_wall(const ScArgs& a, cudaStream_t stream);
 // for the four codecs in stream_collide_thermal.cu).
 template <class C>
 cudaError_t sc_dispatch_thermal(const ScArgs& a, cudaStream_t stream);
+
+// One halo-mode step of any configuration in codec C (defined and
+// instantiated for the four codecs in stream_collide_halo.cu; the thermal
+// ones in stream_collide_halo_thermal.cu).
+template <class C>
+cudaError_t sc_dispatch_halo(const ScArgs& a, cudaStream_t stream);
+
+template <class C>
+cudaError_t sc_dispatch_halo_thermal(const ScArgs& a, cudaStream_t stream);
 
 }  // namespace luw

@@ -21,6 +21,9 @@
 //     the cell's own frozen f);
 //   * g_post = (1 - omega_t) g + omega_t g_eq, encoded by the step's codec.
 //
+// In a halo-mode slab (kHalo) the z pulls that leave the slab read the
+// neighbouring slabs' planes (HaloArgs of lattice.cuh) instead of wrapping.
+//
 // Bound: device memory, with the step: 2 * 7 * sizeof(storage) bytes per
 // cell on top of the step's 2 * 19 * sizeof(storage) + 1; ~40 flops.  The g
 // block runs between the step's forces and its Guo half-step and writes g
@@ -54,12 +57,16 @@ __device__ __forceinline__ void thermal_zero(typename C::T* __restrict__ gb,
   for (int d = 0; d < 7; ++d) gb[d * N + n] = C::enc(0.0f);
 }
 
-template <class C>
+// kHalo: a halo-mode slab (lattice.cuh HaloArgs): the +z pull at z = 0
+// reads the plane below's g channel 5 and flags, the -z pull at z = Z-1 the
+// plane above's channel 6 and flags.
+template <class C, bool kHalo = false>
 __device__ __forceinline__ float thermal_cell(
     const typename C::T* __restrict__ ga, typename C::T* __restrict__ gb,
     const uint8_t* __restrict__ flags, uint8_t fl, long long n, int z, int y,
     int x, int Z, int Y, int X, long long N, float ux, float uy, float uz,
-    float sig_t, const float* __restrict__ tt, float omega_t) {
+    float sig_t, const float* __restrict__ tt, float omega_t,
+    const HaloArgs& h = HaloArgs{}) {
   const int CX[7] = {0, 1, -1, 0, 0, 0, 0};
   const int CY[7] = {0, 0, 0, 1, -1, 0, 0};
   const int CZ[7] = {0, 0, 0, 0, 0, 1, -1};
@@ -82,6 +89,17 @@ __device__ __forceinline__ float thermal_cell(
   for (int d = 1; d < 7; ++d) {
     const int xs = wrap(x - CX[d], X);
     const int ys = wrap(y - CY[d], Y);
+    if (kHalo && (z - CZ[d] < 0 || z - CZ[d] >= Z)) {
+      // the z pulls (d = 5: +z, 6: -z) from the neighbouring slab's plane
+      const long long yx = (long long)y * X + x;
+      const bool below = z - CZ[d] < 0;
+      const typename C::T* __restrict__ hp =
+          static_cast<const typename C::T*>(below ? h.gp : h.gm);
+      g[d] = ((below ? h.flb : h.fla)[yx] & kTypeS)
+                 ? C::load(ga, (long long)OPP[d] * N + n)
+                 : C::load(hp, yx);
+      continue;
+    }
     const int zs = wrap(z - CZ[d], Z);
     const long long src = ((long long)zs * Y + ys) * X + xs;
     g[d] = (flags[src] & kTypeS) ? C::load(ga, (long long)OPP[d] * N + n)

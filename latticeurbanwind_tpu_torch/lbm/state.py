@@ -83,6 +83,13 @@ def decode_fp16c(x: torch.Tensor) -> torch.Tensor:
     return bits.view(torch.float32)
 
 
+def raw_bits(t: torch.Tensor) -> torch.Tensor:
+    """fp16c bit patterns as int16 (selects, copies and indexing of uint16
+    tensors are not supported on every backend); other storages as they
+    are."""
+    return t.view(torch.int16) if t.dtype == torch.uint16 else t
+
+
 def encode_ddf(x: torch.Tensor, storage: str) -> torch.Tensor:
     """fp32 DDF -> storage representation."""
     if storage == "f32":
@@ -118,6 +125,31 @@ class LBMState(NamedTuple):
     flags: torch.Tensor          # (Z, Y, X) uint8
     gi: Optional[torch.Tensor] = None   # (7, Z, Y, X) storage dtype
     T: Optional[torch.Tensor] = None    # (Z, Y, X) f32
+
+
+class ZHalo(NamedTuple):
+    """The z-halo planes of one z slab of a domain split over devices
+    (`parallel/halo.py`): what a step or a fields pass of the slab reads
+    where its z neighbours leave [0, Z).  The plane below supplies the 5
+    cz = +1 channels (9-13) a cell of the slab's first plane pulls, the
+    plane above the 5 cz = -1 channels (14-18) its last plane pulls; the
+    wall models' mirror partners of a cz = +-1 direction are cz = +-1
+    directions too, so no other channel is read there.  `fp` / `fm` are
+    (5, Y, X) with contiguous (Y, X) planes and any channel stride (a view
+    into the neighbouring slab's DDFs, or a copy); `flb` / `fla` (Y, X)
+    uint8 their flags; `gp` / `gm` (Y, X) the thermal g channel 5 (+z) of
+    the plane below and 6 (-z) of the plane above.  `gy` / `gx` are the
+    ghost widths of the slab's (Y, X) plane, so the VK inlet sites land on
+    the box inside the ghosts."""
+
+    fp: torch.Tensor
+    fm: torch.Tensor
+    flb: torch.Tensor
+    fla: torch.Tensor
+    gp: Optional[torch.Tensor] = None
+    gm: Optional[torch.Tensor] = None
+    gy: int = 0
+    gx: int = 0
 
 
 class DynParams(NamedTuple):

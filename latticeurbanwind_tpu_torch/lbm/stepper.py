@@ -27,6 +27,16 @@ from ..ops.stream_collide import (
 from .state import DynParams, Forcing, LBMState, StepConfig, dyn_row
 
 
+def spare_buffer(cur: torch.Tensor,
+                 spare: Optional[torch.Tensor]) -> torch.Tensor:
+    """`spare` when it can take the next step's output of `cur`, else a new
+    buffer like `cur`."""
+    if (spare is None or spare.shape != cur.shape or spare.dtype != cur.dtype
+            or spare.device != cur.device or spare.data_ptr() == cur.data_ptr()):
+        return torch.empty_like(cur)
+    return spare
+
+
 def make_runner(config: StepConfig, forcing: Forcing = Forcing(), *,
                 shape: Tuple[int, int, int], device: torch.device | str,
                 pre_step=None):
@@ -62,13 +72,8 @@ def make_runner(config: StepConfig, forcing: Forcing = Forcing(), *,
     needs_fbc = (forcing.nudge_sigma is not None
                  or forcing.sponge_sigma_z is not None or vk_spec is not None)
     thermal = config.thermal
-    cell = {"fbc": None, "init": False, "spare": None, "gspare": None}
-
-    def spare_for(cur, spare):
-        if (spare is None or spare.shape != cur.shape or spare.dtype != cur.dtype
-                or spare.data_ptr() == cur.data_ptr()):
-            return torch.empty_like(cur)
-        return spare
+    cell = {"fbc": None, "init": False, "spare": None, "gspare": None,
+            "row": None, "row_of": None}
 
     def run(state: LBMState, dyn: DynParams, t0: int = 0,
             n_steps: int = 1) -> LBMState:
@@ -78,13 +83,15 @@ def make_runner(config: StepConfig, forcing: Forcing = Forcing(), *,
             cell["init"] = True
         aux = pre_ddf.init_aux(t0) if hasattr(pre_ddf, "init_aux") else None
         fbc = cell["fbc"]
-        row = dyn_row(dyn, dev)
+        if cell["row_of"] is not dyn:   # one host-to-device copy per DynParams
+            cell["row"], cell["row_of"] = dyn_row(dyn, dev), dyn
+        row = cell["row"]
         cur = state.fi
-        spare = spare_for(cur, cell["spare"])
+        spare = spare_buffer(cur, cell["spare"])
         gcur = gspare = None
         if thermal:
             gcur = state.gi
-            gspare = spare_for(gcur, cell["gspare"])
+            gspare = spare_buffer(gcur, cell["gspare"])
         for i in range(int(n_steps)):
             if pre_ddf is not None:
                 fbc, aux = pre_ddf(fbc, int(t0) + i, aux)
@@ -98,7 +105,8 @@ def make_runner(config: StepConfig, forcing: Forcing = Forcing(), *,
         return state._replace(fi=cur, gi=gcur) if thermal else state._replace(fi=cur)
 
     def reset():
-        cell.update(fbc=None, init=False, spare=None, gspare=None)
+        cell.update(fbc=None, init=False, spare=None, gspare=None, row=None,
+                    row_of=None)
 
     def set_fbc(fbc: Optional[FaceBC]):
         if fbc is not None:

@@ -10,13 +10,25 @@ come from the static `FaceBC` built once from the initial velocity field.
 `stream_collide_plain` (torch ops with `torch.roll` pulls); a CUDA tensor
 launches `csrc/stream_collide.cu` (no wall model, SRT) or
 `csrc/stream_collide_wall.cu` (the wall models or TRT) or raises.  There is
-no fallback between the two.  Both take every single-device configuration:
+no fallback between the two.  Both take every configuration of one device:
 SRT or TRT collision with Smagorinsky LES and equilibrium boundaries, f32,
 bf16, f16 or fp16c storage, volume force (global force + Coriolis) on or
 off, buffer nudging, the top sponge, the wall models (`wall_model`,
 `wall_sides`), the VK inlet sites of `bc.vk_inlet` (`vk`, the hook's
 `kernel_spec`) and the thermal D3Q7 sub-lattice (`thermal`, instances of
-`csrc/stream_collide_thermal.cu`).
+`csrc/stream_collide_thermal.cu`); and with `halo` every configuration as
+one z slab of a domain split over devices (K8, the Pallas kernel's
+`halo_mode`, instances of `csrc/stream_collide_halo.cu`).
+
+Halo mode (Pallas `make_pallas_step` :409, :1032-1042, :1222-1241): a pull
+whose z source leaves the slab's [0, Z) reads the neighbouring slab's plane
+from the `lbm.state.ZHalo` (its cz = +1 channels below, cz = -1 above, their
+flags, and the thermal g channel) instead of wrapping: the bounce-back test
+on the source's flag, the pulled value, the wall models' x and y mirror
+partners and the Schumann stress's flag below.  y and x still wrap inside
+the slab's ghost-extended plane, and the VK sites sit on the box inside the
+ghosts (`ZHalo.gy`, `.gx`).  The plain version puts the halo planes beside
+the slab (`lbm.fields.halo_extend`), runs the plain step and crops.
 
 Thermal (Pallas `make_pallas_step` :732-807): the 7 `g` populations are
 pulled with halfway bounce-back from solid sources (no mirrors); T = 1 +
@@ -72,11 +84,11 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..lbm.fields import pull, pull_g, wall_stress
+from ..lbm.fields import halo_extend, pull, pull_g, wall_stress
 from ..lbm.lattice import C19, CS, OPP19, SMAGORINSKY_FACTOR, W7, W19
 from ..lbm.state import (
-    Forcing, StepConfig, TYPE_E, TYPE_S, TYPE_T, decode_ddf, encode_ddf,
-    storage_dtype, wall_mode,
+    Forcing, StepConfig, TYPE_E, TYPE_S, TYPE_T, ZHalo, decode_ddf,
+    encode_ddf, raw_bits, storage_dtype, wall_mode,
 )
 
 _STORAGE_CODE = {"f32": 0, "bf16": 1, "f16": 2, "fp16c": 3}
@@ -157,10 +169,7 @@ def _cdot(c, a, b, d):
     return out
 
 
-def _raw(t: torch.Tensor) -> torch.Tensor:
-    """fp16c bit patterns as int16 (selects and copies of uint16 tensors are
-    not supported on every backend); other storages as they are."""
-    return t.view(torch.int16) if t.dtype == torch.uint16 else t
+_raw = raw_bits
 
 
 def feq_vk(ux: torch.Tensor, uy: torch.Tensor, uz: torch.Tensor) -> list:
@@ -254,17 +263,67 @@ def _thermal_plain(gi, f_prev, un, solid, eqbc, tfix, sponge_sig, tt,
     return g_out, Tn
 
 
+def _z_pad(a: Optional[torch.Tensor], dim: int = 0) -> Optional[torch.Tensor]:
+    """`a` with one zero plane before and after along z (axis `dim`)."""
+    if a is None:
+        return None
+    shape = list(a.shape)
+    shape[dim] = 1
+    zero = torch.zeros(shape, dtype=a.dtype, device=a.device)
+    return torch.cat([zero, a, zero], dim)
+
+
+def _inner_box(out: torch.Tensor, fbc: FaceBC, vk, gy: int, gx: int):
+    """(output view, FaceBC views, site spec) of the box inside a slab's
+    ghost layers, where a halo-mode step applies the VK inlet sites."""
+    Y, X = out.shape[-2:]
+    ys, xs = slice(gy, Y - gy), slice(gx, X - gx)
+    box = FaceBC(uw=fbc.uw[:, :, ys], ue=fbc.ue[:, :, ys], us=fbc.us[:, :, xs],
+                 un=fbc.un[:, :, xs], ut=fbc.ut[:, ys, xs], ub=fbc.ub[:, ys, xs])
+    cut = {"uw": (slice(None), slice(None), ys), "ue": (slice(None), slice(None), ys),
+           "us": (slice(None), slice(None), xs), "un": (slice(None), slice(None), xs),
+           "ut": (ys, xs), "ub": (ys, xs)}
+    masks = {k: m[cut[k]] for k, m in vk["masks"].items()}
+    return out[:, :, ys, xs], box, {"sites": vk["sites"], "masks": masks}
+
+
+def _halo_plain(fi, flags, dyn, config, forcing, fbc, vk, gi, gi_out, halo):
+    """K8's plain version: the slab with its halo planes beside it
+    (`lbm.fields.halo_extend`) through the plain step, cropped back to the
+    slab; then the VK sites on the box inside the ghost layers."""
+    fe, fl, ge = halo_extend(fi, flags, halo, gi if config.thermal else None)
+    frc = forcing._replace(nudge_sigma=_z_pad(forcing.nudge_sigma),
+                           nudge_face=_z_pad(forcing.nudge_face),
+                           sponge_sigma_z=_z_pad(forcing.sponge_sigma_z))
+    fbc_e = None if fbc is None else fbc._replace(
+        uw=_z_pad(fbc.uw), ue=_z_pad(fbc.ue), us=_z_pad(fbc.us),
+        un=_z_pad(fbc.un))
+    go = None if ge is None else torch.empty_like(ge)
+    out = stream_collide_plain(fe, fl, dyn, config, frc, fbc_e, None, ge, go)
+    out = out[:, 1:-1].contiguous()
+    if go is not None:
+        _raw(gi_out).copy_(_raw(go[:, 1:-1]))
+    if vk is not None:
+        apply_vk_sites(*_inner_box(out, fbc, vk, halo.gy, halo.gx),
+                       config.storage)
+    return out
+
+
 def stream_collide_plain(fi: torch.Tensor, flags: torch.Tensor,
                          dyn: torch.Tensor, config: StepConfig,
                          forcing: Forcing,
                          fbc: Optional[FaceBC] = None, vk=None,
                          gi: Optional[torch.Tensor] = None,
-                         gi_out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                         gi_out: Optional[torch.Tensor] = None,
+                         halo: Optional[ZHalo] = None) -> torch.Tensor:
     """One step in plain torch: returns the post-collision DDFs (19,Z,Y,X) in
     storage dtype; with `config.thermal` it also writes the post-collision
     `g` (7,Z,Y,X) of `gi` into the caller's `gi_out`.  `dyn` is the (8,) row
     of `lbm.state.dyn_row`; `vk` the inlet site spec.  Same stages and
-    evaluation order as the kernel and the Pallas step."""
+    evaluation order as the kernel and the Pallas step.  `halo`: one z slab
+    of a split domain (K8), whose z neighbours beyond the slab are the
+    halo's planes; y and x wrap inside the slab's plane, and the VK sites
+    apply on the box inside its ghost layers (`halo.gy`, `halo.gx`)."""
     check_config(config, forcing, vk)
     use_force = config.volume_force
     has_nudge = forcing.nudge_sigma is not None
@@ -276,6 +335,9 @@ def stream_collide_plain(fi: torch.Tensor, flags: torch.Tensor,
         _check_thermal(gi, gi_out)
         if has_sponge and fbc.tt is None:
             raise ValueError("a thermal step with the sponge needs FaceBC.tt")
+    if halo is not None:
+        return _halo_plain(fi, flags, dyn, config, forcing, fbc, vk, gi,
+                           gi_out, halo)
     f_prev = decode_ddf(fi, config.storage)
     solid = (flags & TYPE_S) != 0
     eqbc = (flags & TYPE_E) != 0
@@ -444,15 +506,20 @@ def stream_collide(fi: torch.Tensor, flags: torch.Tensor, dyn: torch.Tensor,
                    fbc: Optional[FaceBC] = None, *,
                    out: Optional[torch.Tensor] = None, vk=None,
                    gi: Optional[torch.Tensor] = None,
-                   gi_out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   gi_out: Optional[torch.Tensor] = None,
+                   halo: Optional[ZHalo] = None) -> torch.Tensor:
     """One time step from `fi` into `out` (allocated when None; must not
     alias `fi`), with the VK inlet sites of `vk` when given; returns `out`.
     A thermal configuration also steps `gi` into the caller's `gi_out`.
-    CPU tensors run the plain version; CUDA tensors launch K-SC and count
-    the launch in `stream_collide.launches` (and, with sites, in
+    `halo`: `fi` is one z slab of a split domain and the step is K8, the
+    halo mode (see `stream_collide_plain`).  CPU tensors run the plain
+    version; CUDA tensors launch K-SC and count the launch in
+    `stream_collide.launches` (and, with sites, in
     `stream_collide.launches_vk` too; with a wall model, in
     `stream_collide.launches_wall`; thermal, an instance of
-    `csrc/stream_collide_thermal.cu`, in `stream_collide.launches_thermal`)."""
+    `csrc/stream_collide_thermal.cu`, in `stream_collide.launches_thermal`;
+    halo mode, an instance of `csrc/stream_collide_halo.cu`, in
+    `stream_collide.launches_halo`)."""
     check_config(config, forcing, vk)
     if fi.device.type not in ("cpu", "cuda"):
         raise NotImplementedError(f"no stream-collide kernel for {fi.device}")
@@ -465,7 +532,7 @@ def stream_collide(fi: torch.Tensor, flags: torch.Tensor, dyn: torch.Tensor,
         _check_thermal(gi, gi_out)
     if fi.device.type == "cpu":
         res = stream_collide_plain(fi, flags, dyn, config, forcing, fbc, vk,
-                                   gi, gi_out)
+                                   gi, gi_out, halo)
         _raw(out).copy_(_raw(res))
         return out
 
@@ -518,6 +585,7 @@ def stream_collide(fi: torch.Tensor, flags: torch.Tensor, dyn: torch.Tensor,
                                  "FaceBC.tt")
             _check_tensor("fbc.tt", fbc.tt, torch.float32, (Y, X), dev)
             tt_ptr = fbc.tt.data_ptr()
+    hp = _halo_pointers(halo, fi.dtype, (Y, X), dev, thermal)
 
     from ..utils.cuda_build import load_library
 
@@ -537,7 +605,7 @@ def stream_collide(fi: torch.Tensor, flags: torch.Tensor, dyn: torch.Tensor,
             int(config.subgrid), config.omega, tau0, tau0 * tau0,
             wall_mode(config), int(config.collision == "trt"), config.wall_cd,
             config.wall_cd_sides, int(thermal), config.omega_t, config.beta,
-            config.t_avg, stream)
+            config.t_avg, *hp, stream)
     if rc != 0:
         raise RuntimeError(f"luw_stream_collide launch failed: CUDA error {rc}")
     stream_collide.launches += 1
@@ -547,10 +615,41 @@ def stream_collide(fi: torch.Tensor, flags: torch.Tensor, dyn: torch.Tensor,
         stream_collide.launches_wall += 1
     if thermal:
         stream_collide.launches_thermal += 1
+    if halo is not None:
+        stream_collide.launches_halo += 1
     return out
+
+
+def _halo_pointers(halo: Optional[ZHalo], dtype, plane, dev, thermal) -> tuple:
+    """The entry point's halo arguments (fp, fm, fp channel stride, fm channel
+    stride, flb, fla, gp, gm, gy, gx), all null / 0 without a halo."""
+    if halo is None:
+        return (None, None, 0, 0, None, None, None, None, 0, 0)
+    Y, X = plane
+    for name in ("fp", "fm"):
+        t = getattr(halo, name)
+        if (t.dtype != dtype or tuple(t.shape) != (5, Y, X) or t.device != dev
+                or t.stride(1) != X or t.stride(2) != 1):
+            raise ValueError(f"halo.{name}: want (5, {Y}, {X}) {dtype} on {dev} "
+                             f"with contiguous planes, got {tuple(t.shape)} "
+                             f"{t.dtype} on {t.device}, strides {t.stride()}")
+    _check_tensor("halo.flb", halo.flb, torch.uint8, (Y, X), dev)
+    _check_tensor("halo.fla", halo.fla, torch.uint8, (Y, X), dev)
+    gp = gm = None
+    if thermal:
+        _check_tensor("halo.gp", halo.gp, dtype, (Y, X), dev)
+        _check_tensor("halo.gm", halo.gm, dtype, (Y, X), dev)
+        gp, gm = halo.gp.data_ptr(), halo.gm.data_ptr()
+    if not (0 <= 2 * halo.gy < Y and 0 <= 2 * halo.gx < X):
+        raise ValueError(f"ghost widths ({halo.gy}, {halo.gx}) leave no box "
+                         f"in a ({Y}, {X}) plane")
+    return (halo.fp.data_ptr(), halo.fm.data_ptr(), halo.fp.stride(0),
+            halo.fm.stride(0), halo.flb.data_ptr(), halo.fla.data_ptr(), gp, gm,
+            halo.gy, halo.gx)
 
 
 stream_collide.launches = 0
 stream_collide.launches_vk = 0
 stream_collide.launches_wall = 0
 stream_collide.launches_thermal = 0
+stream_collide.launches_halo = 0

@@ -18,8 +18,20 @@ loop, setup.cpp:4117-4911), with the same event schedule and outputs:
     u_avg/rho_avg[/T_avg]/fluid + tke/TI/TLS (temperatures through the
     affine map back to Kelvin), the probe CSVs, and transform.info.
 
-Not ported: the device mesh, checkpoints and video frames each raise when
-a case asks for them; PNG snapshots are left out with one printed line.
+A case whose `ngpu` = [Dx, Dy, Dz] asks for more than one device runs split
+over a mesh (`parallel/`; the JAX package's `run_case` :169-231) under the
+device rule of `parallel/mesh.py::domain_mesh`: "cuda" puts shard i on card
+i, and with fewer cards than shards runs on one card and prints the JAX
+package's line; "cuda:k" puts every shard on card k; "cpu" every shard on
+the CPU.  Each step is then one K8 launch per shard (`parallel/halo.py`);
+the fields pass and the Welford accumulators run per shard and the fused
+averaging pass is not taken (JAX `run_case` :346); probes read their columns
+from the shards that own them; outputs gather the fields to the host.
+MLUPs count the grid's cells, not the ghosts.  A grid that the split does
+not divide raises.
+
+Not ported: checkpoints and video frames each raise when a case asks for
+them; PNG snapshots are left out with one printed line.
 """
 
 from __future__ import annotations
@@ -38,10 +50,16 @@ from ..lbm.fields import update_fields
 from ..lbm.state import DynParams, Forcing, LBMState, StepConfig, dyn_row
 from ..lbm.stepper import make_runner
 from ..ops.avg_kernel import avg_update
+from ..parallel.halo import make_sharded_runner, update_fields_sharded
+from ..parallel.mesh import (
+    DomainMesh, ShardedState, column_reader, domain_mesh, gather_state,
+    gather_tensors, shard_state, sync,
+)
 from ..units import Units
 from .derived import derived_turbulence_fields
 from .info import RunInfo
 from .probes import GridProbe
+from .sizing import effective_ngpu
 from .welford import AvgState, init_avg, variance_sum_u, welford_update
 
 DEFAULT_RUN_STEPS = 20001
@@ -72,7 +90,9 @@ class SolverCase:
 
     config: StepConfig
     forcing: Forcing
-    state: LBMState
+    # the whole domain's initial state; a run split over a mesh takes it
+    # from the case (sets None) once it is sharded
+    state: Optional[LBMState]
     dyn: DynParams
     units: Units
     cell_m: float
@@ -86,6 +106,9 @@ class SolverCase:
     origin_shift: Tuple[float, float, float] = (0.0, 0.0, 0.0)
     ngpu: Tuple[int, int, int] = (1, 1, 1)
     pre_step: Optional[object] = None  # callable (state, t) -> state (VK inlet)
+    # the device the run asked for (the device rule of parallel/mesh.py):
+    # None is the state's own device
+    device: Optional[torch.device] = None
 
 
 @dataclass
@@ -104,17 +127,26 @@ class RunResult:
         self.avg = None
 
 
-def _sync(state: LBMState) -> None:
-    if state.fi.device.type == "cuda":
-        torch.cuda.synchronize(state.fi.device)
+def _sync(state) -> None:
+    """Wait for the device of a state, or for every shard's device."""
+    if isinstance(state, ShardedState):
+        sync(state.mesh.devices)
+    else:
+        sync([state.fi.device])
+
+
+def _gather_avg(avgs: Tuple[AvgState, ...], mesh: DomainMesh) -> AvgState:
+    """The whole domain's accumulators on the host from the shards' ones,
+    their ghosts stripped."""
+    def part(k):
+        parts = [getattr(a, k) for a in avgs]
+        return None if parts[0] is None else gather_tensors(parts, mesh)
+
+    return AvgState(avgs[0].count, *(part(k) for k in AvgState._fields[1:]))
 
 
 def _check_supported(case: SolverCase) -> None:
     s = case.settings
-    if int(np.prod(case.ngpu)) > 1:
-        raise NotImplementedError(
-            f"n_gpu={list(case.ngpu)}: multi-GPU runs are not ported yet "
-            "(ROADMAP module item 11)")
     if s.checkpoint_interval > 0:
         raise NotImplementedError(
             "checkpoints are not ported yet (ROADMAP module item 9)")
@@ -140,14 +172,40 @@ def run_case(case: SolverCase, *, quiet: bool = False) -> RunResult:
     progress = ProgressEmitter("solve")
     files: List[Path] = []
 
-    advance, impl_name = make_runner(case.config, case.forcing, shape=shape,
-                                     device=device, pre_step=case.pre_step)
+    asked = case.device if case.device is not None else device
+    split = effective_ngpu(case.ngpu, asked)
+    mesh = None
+    if int(np.prod(split)) > 1:
+        mesh = domain_mesh(split, shape, asked)
+        state = shard_state(state, mesh)
+        case.state = None       # the domain is held once, in its shards
+        advance, impl_name = make_sharded_runner(
+            case.config, case.forcing, mesh, pre_step=case.pre_step)
+        if not quiet:
+            print(f"| Device mesh     | n_gpu={list(case.ngpu)} -> {mesh.n} "
+                  f"shards of {mesh.local_shape} (Z, Y, X with ghosts) on "
+                  f"{sorted({str(d) for d in mesh.devices})}")
+    else:
+        if int(np.prod(case.ngpu)) > 1 and not quiet:
+            print(f"| Device mesh     | n_gpu={list(case.ngpu)} requested, "
+                  f"{torch.cuda.device_count()} device(s) visible — "
+                  "single-device run")
+        advance, impl_name = make_runner(case.config, case.forcing,
+                                         shape=shape, device=device,
+                                         pre_step=case.pre_step)
     if unsteady and s.snapshots and not quiet:
         print("| Snapshots       | PNG snapshots are not written by the "
               "PyTorch port (ROADMAP module item 10)")
 
-    def refresh(st: LBMState) -> LBMState:
+    def refresh(st):
+        if mesh is not None:
+            return update_fields_sharded(st, case.config, case.dyn)
         return update_fields(st, case.config, case.dyn)
+
+    def host_u(st) -> torch.Tensor:
+        if mesh is None:
+            return st.u.cpu()
+        return gather_tensors([sh.u for sh in st.shards], mesh)
 
     events = set()
     if unsteady:
@@ -159,16 +217,26 @@ def run_case(case: SolverCase, *, quiet: bool = False) -> RunResult:
     events.add(total_steps)
     event_list = sorted(events)
 
-    avg = init_avg(shape, case.thermal_output, device) if avg_window else None
+    avg = None       # under a mesh: one AvgState per shard, ghosts included
+    if avg_window:
+        avg = (tuple(init_avg(tuple(sh.rho.shape), case.thermal_output,
+                              sh.rho.device) for sh in state.shards)
+               if mesh is not None
+               else init_avg(shape, case.thermal_output, device))
     avg_samples = 0
     dyn_dev = dyn_row(case.dyn, device)
     # the fused averaging pass is non-thermal: a thermal run refreshes the
-    # fields at every sample
-    avg_fused = not case.config.thermal
-    probe_yx = None
+    # fields at every sample, and so does a sharded one (no K-AVG under a
+    # mesh, as in the JAX package's run_case)
+    avg_fused = not case.config.thermal and mesh is None
+    read_columns = None                              # state -> (3, Z, P)
     if case.probes:
-        probe_yx = (torch.tensor([p.y for p in case.probes], device=device),
-                    torch.tensor([p.x for p in case.probes], device=device))
+        ys, xs = [p.y for p in case.probes], [p.x for p in case.probes]
+        if mesh is not None:
+            read_columns = column_reader(mesh, ys, xs)
+        else:
+            yx = (torch.tensor(ys, device=device), torch.tensor(xs, device=device))
+            read_columns = lambda st: st.u[:, :, yx[0], yx[1]].cpu().numpy()
 
     u_factor = case.units.si_u(1.0)
     dt_si = case.units.si_t(1)
@@ -254,15 +322,18 @@ def run_case(case: SolverCase, *, quiet: bool = False) -> RunResult:
             if avg_fused and not wants_fields:
                 avg = avg_update(state.fi, state.flags, dyn_dev,
                                  1.0 / float(avg_samples + 1), avg, case.config)
+            elif mesh is not None:
+                avg = tuple(welford_update(a, sh)
+                            for a, sh in zip(avg, state.shards))
             else:
                 avg = welford_update(avg, state)
             avg_samples += 1
         if fires_probe:
-            cols = state.u[:, :, probe_yx[0], probe_yx[1]].cpu().numpy()  # (3, Z, P)
+            cols = read_columns(state)
             for pi, p in enumerate(case.probes):
                 p.sample_column(cols[:, :, pi], t * dt_si, u_factor)
         if unsteady and t % unsteady == 0 and t > 0 and t != last_unsteady_t:
-            write_raw("u", state.u.cpu().numpy() * u_factor, t)
+            write_raw("u", host_u(state).numpy() * u_factor, t)
             last_unsteady_t = t
 
     _sync(state)
@@ -273,6 +344,10 @@ def run_case(case: SolverCase, *, quiet: bool = False) -> RunResult:
     timing["solver_seconds"] = solver_seconds
     timing["mlups"] = info.mlups()
 
+    if mesh is not None:
+        state = gather_state(state)
+        if avg is not None:
+            avg = _gather_avg(avg, mesh)
     write_final_outputs(case, state, avg, avg_samples, t, files,
                         skip_raw_u=(last_unsteady_t == t))
 

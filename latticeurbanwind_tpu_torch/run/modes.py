@@ -15,10 +15,15 @@ Counterpart of `latticeurbanwind_tpu/run/modes.py::run_profile_mode`,
     buffer nudging, no sponge, no inlet), with `DG_<u>_<a>_` VTK prefixes.
 
 Both run on the CUDA device unless the caller names another (`device`);
-without one they raise.  `case_parallel = true` runs the cases one after
-another on the one device the run has, as the JAX package does on one
-device; the case-parallel batch runner is ROADMAP module item 10.  The
-wall models follow the deck's `ground_z0` / `building_z0`.
+without one they raise.  A deck's `n_gpu = [Dx, Dy, Dz]` beyond [1, 1, 1]
+splits each case over a mesh under the device rule of
+`parallel/mesh.py::domain_mesh`: `device="cuda"` puts shard i on card i
+(with fewer cards than Dx*Dy*Dz the case runs on one card, with the JAX
+package's "single-device run" line), `device="cuda:k"` puts every shard on
+card k, `device="cpu"` every shard on the CPU.  `case_parallel = true` runs
+the cases one after another on the devices the run has, as the JAX package
+does on one device; the case-parallel batch runner is ROADMAP module item
+10.  The wall models follow the deck's `ground_z0` / `building_z0`.
 """
 
 from __future__ import annotations
@@ -50,7 +55,7 @@ from .case import (
     storage_from_deck,
 )
 from .driver import RunResult, SolverCase, run_case
-from .sizing import plan_grid
+from .sizing import plan_grid, setup_device
 
 
 def _format_tag(v: float) -> str:
@@ -172,7 +177,8 @@ def _announce_serial_cases(deck, quiet: bool) -> None:
 def run_profile_mode(deck_path: Path | str, *,
                      device: torch.device | str = "cuda",
                      quiet: bool = False, max_cases: int = 0) -> List[RunResult]:
-    """Execute the .luwpf profile-research batch on `device`."""
+    """Execute the .luwpf profile-research batch on `device` (the device
+    rule of the module docstring for an `n_gpu` deck)."""
     dev = run_device(device)
     deck_path = Path(deck_path)
     deck = load_deck(deck_path)
@@ -241,6 +247,7 @@ def run_profile_mode(deck_path: Path | str, *,
     omega_cor = coriolis_lbmu(deck, plan.cell_m, si_ref_u)
 
     shape = (plan.nz, plan.ny, plan.nx)
+    state_dev = setup_device(ngpu, dev)
     single = len(angles) == 1
     results: List[RunResult] = []
     for idx, angle in enumerate(angles):
@@ -281,11 +288,10 @@ def run_profile_mode(deck_path: Path | str, *,
                                      grid=shape, downstream_bc=downstream)
         sponge = sponge_spec_from_deck(deck, cell_m=plan.cell_m, si_ref_u=si_ref_u,
                                        nz=plan.nz, extended=plan.sponge_extended)
-        forcing = build_forcing(shape, nudge=nudge, sponge=sponge, device=dev)
+        forcing = build_forcing(shape, nudge=nudge, sponge=sponge,
+                                device=state_dev)
         config = apply_wall_model(
             _specialize_force(config, forcing, omega_cor), deck, plan.cell_m)
-        state = make_initial_state(shape, config=config, u=u, flags=flags,
-                                   device=dev)
         pre_step = None
         vk_cfg = vk_config_from_deck(deck, units=units, downstream_bc=downstream)
         vk_rt = build_vk_runtime(vk_cfg, flags, u)
@@ -298,10 +304,13 @@ def run_profile_mode(deck_path: Path | str, *,
                         omega_coriolis=torch.as_tensor(omega_cor, dtype=torch.float32))
         prefix = "" if single else f"ANG_{_format_tag(angle)}_"
         case = SolverCase(
-            config=config, forcing=forcing, state=state, dyn=dyn, units=units,
+            config=config, forcing=forcing,
+            state=make_initial_state(shape, config=config, u=u, flags=flags,
+                                     device=state_dev),
+            dyn=dyn, units=units,
             cell_m=plan.cell_m, parent=parent, datetime=datetime_tag,
             vtk_prefix=prefix, nz_out=plan.nz_core if plan.sponge_extended else 0,
-            settings=settings, ngpu=ngpu, pre_step=pre_step,
+            settings=settings, ngpu=ngpu, pre_step=pre_step, device=dev,
         )
         if not quiet:
             print(f"| Profile case    | {idx + 1}/{len(angles)} angle={angle} deg "
@@ -316,7 +325,8 @@ def run_datagen_mode(deck_path: Path | str, *,
                      device: torch.device | str = "cuda",
                      quiet: bool = False, max_cases: int = 0) -> List[RunResult]:
     """Execute the .luwdg dataset-generation batch (inflow x angle product)
-    on `device`."""
+    on `device` (the device rule of the module docstring for an `n_gpu`
+    deck)."""
     dev = run_device(device)
     deck_path = Path(deck_path)
     deck = load_deck(deck_path)
@@ -359,6 +369,7 @@ def run_datagen_mode(deck_path: Path | str, *,
     settings = run_settings_from_deck(deck)
     omega_cor = coriolis_lbmu(deck, plan.cell_m, si_ref_u)
     shape = (plan.nz, plan.ny, plan.nx)
+    state_dev = setup_device(ngpu, dev)
 
     cases = [(inflow, angle) for inflow in inflows for angle in angles]
     if max_cases:
@@ -385,19 +396,20 @@ def run_datagen_mode(deck_path: Path | str, *,
 
         nudge = nudge_spec_from_deck(deck, cell_m=plan.cell_m, si_ref_u=si_ref_u,
                                      grid=shape, downstream_bc=downstream)
-        forcing = build_forcing(shape, nudge=nudge, sponge=None, device=dev)
+        forcing = build_forcing(shape, nudge=nudge, sponge=None,
+                                device=state_dev)
         case_config = apply_wall_model(
             _specialize_force(config, forcing, omega_cor), deck, plan.cell_m)
-        state = make_initial_state(shape, config=case_config, u=u, flags=flags,
-                                   device=dev)
         dyn = DynParams(force=torch.zeros(3),
                         omega_coriolis=torch.as_tensor(omega_cor, dtype=torch.float32))
         prefix = f"DG_{_format_tag(inflow)}_{_format_tag(angle)}_"
         case = SolverCase(
-            config=case_config, forcing=forcing, state=state, dyn=dyn,
-            units=units, cell_m=plan.cell_m, parent=parent,
+            config=case_config, forcing=forcing,
+            state=make_initial_state(shape, config=case_config, u=u,
+                                     flags=flags, device=state_dev),
+            dyn=dyn, units=units, cell_m=plan.cell_m, parent=parent,
             datetime=datetime_tag, vtk_prefix=prefix, settings=settings,
-            ngpu=ngpu,
+            ngpu=ngpu, device=dev,
         )
         if not quiet:
             print(f"| DG case         | inflow={inflow} angle={angle} "
@@ -411,7 +423,9 @@ def run_datagen_mode(deck_path: Path | str, *,
 def run_deck(deck_path: Path | str, **kw) -> List[RunResult]:
     """Run a deck by its kind: `.luwpf` profile research, `.luwdg` dataset
     generation, `.luw` the standard NWP-coupled mode; `device` defaults to
-    "cuda"."""
+    "cuda".  A deck whose `n_gpu` asks for several devices is split over a
+    mesh: "cuda" puts shard i on card i (one card when fewer are visible),
+    "cuda:k" every shard on card k, "cpu" every shard on the CPU."""
     mode = deck_mode_from_path(deck_path)
     if mode == "luwpf":
         return run_profile_mode(deck_path, **kw)

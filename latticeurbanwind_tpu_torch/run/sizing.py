@@ -13,8 +13,11 @@ framework's actual allocations instead of the OpenCL buffer set:
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Optional, Tuple
+
+import torch
 
 
 def bytes_per_cell(storage: str = "f16", thermal: bool = False) -> float:
@@ -105,3 +108,29 @@ def plan_grid(
         bytes_per_device=device_bytes(cell_m),
         n_devices=n_devices,
     )
+
+
+def effective_ngpu(ngpu, device: torch.device | str = "cuda") -> Tuple[int, int, int]:
+    """The (Dx, Dy, Dz) split a run uses under the device rule of
+    `parallel/mesh.py::domain_mesh`: the deck's n_gpu, except that "cuda"
+    (no card index) with fewer visible cards than Dx*Dy*Dz is a single-
+    device run, (1, 1, 1), as the JAX package's `run_case` does.  "cuda:k" and "cpu" put
+    every shard on one device and keep the split."""
+    dx, dy, dz = (int(v) for v in (list(ngpu) + [1, 1, 1])[:3])
+    dev = torch.device(device)
+    if (dx * dy * dz > 1 and dev.type == "cuda" and dev.index is None
+            and torch.cuda.device_count() < dx * dy * dz):
+        return (1, 1, 1)
+    return (dx, dy, dz)
+
+
+def setup_device(ngpu, device: torch.device | str = "cuda") -> torch.device:
+    """Where a run builds its whole-domain state and forcing: the host when
+    the device rule spreads its shards over several cards ("cuda" with
+    enough of them visible; the grid is sized for all of them together, so
+    it may not fit on one), else `device` itself."""
+    dev = torch.device(device)
+    if (math.prod(effective_ngpu(ngpu, dev)) > 1 and dev.type == "cuda"
+            and dev.index is None):
+        return torch.device("cpu")
+    return dev

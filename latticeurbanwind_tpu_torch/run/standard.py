@@ -3,9 +3,11 @@
 Counterpart of `latticeurbanwind_tpu/run/standard.py::run_standard_mode`:
 the same host set-up in numpy (the results are identical arrays), then the
 state, the forcing and the VK inlet built on the run's device and the
-common run driver.  Without the TPU-only Y padding (`apply_fast_tier`) and
-without a device mesh (`n_gpu` beyond [1, 1, 1] raises in the driver).  The
-set-up's stages are timed into the result's `timing` (`setup_*_seconds`).
+common `run_case`.  Without the TPU-only Y padding (`apply_fast_tier`).  A
+deck's `n_gpu` beyond [1, 1, 1] splits the case over a mesh under the device
+rule of `run.modes` ("cuda": shard i on card i, or one card when fewer are
+visible; "cuda:k": every shard on card k; "cpu").  The set-up's stages are
+timed into the result's `timing` (`setup_*_seconds`).
 
 Reproduces the reference standard-mode pipeline (setup.cpp:4931-5641):
   * SurfData_<datetime>.csv -> SI samples; si_ref_u = max |u|; adaptive
@@ -61,7 +63,7 @@ from .case import (
 from .driver import RunResult, SolverCase, run_case
 from .modes import _find_case_stl, _specialize_force, _voxelize_case, run_device
 from .probe_parse import resolve_probes
-from .sizing import plan_grid
+from .sizing import plan_grid, setup_device
 
 
 def _boundary_queries(shape, side_ref_z_cap: int):
@@ -86,7 +88,8 @@ def run_standard_mode(deck_path: Path | str, *,
                       device: torch.device | str = "cuda",
                       quiet: bool = False, max_cases: int = 0) -> List[RunResult]:
     """Execute the .luw standard case on `device` (one case: `max_cases` is
-    taken for the other modes' signature)."""
+    taken for the other modes' signature; an `n_gpu` deck under the device
+    rule of the module docstring)."""
     dev = run_device(device)
     t_start = time.perf_counter()
     deck_path = Path(deck_path)
@@ -233,13 +236,11 @@ def run_standard_mode(deck_path: Path | str, *,
     sponge = sponge_spec_from_deck(deck, cell_m=plan.cell_m, si_ref_u=si_ref_u,
                                    nz=plan.nz, extended=plan.sponge_extended)
     t_state = time.perf_counter()
-    forcing = build_forcing(shape, nudge=nudge, sponge=sponge, device=dev)
+    state_dev = setup_device(ngpu, dev)
+    forcing = build_forcing(shape, nudge=nudge, sponge=sponge, device=state_dev)
     omega_cor = coriolis_lbmu(deck, plan.cell_m, si_ref_u)
     config = apply_wall_model(
         _specialize_force(config, forcing, omega_cor), deck, plan.cell_m)
-    state = make_initial_state(shape, config=config, u=u, flags=flags,
-                               T=T_field if use_temperature else None,
-                               device=dev)
     pre_step = None
     vk_cfg = vk_config_from_deck(deck, units=units, downstream_bc=downstream_bc)
     vk_rt = build_vk_runtime(vk_cfg, flags, u)
@@ -273,12 +274,16 @@ def run_standard_mode(deck_path: Path | str, *,
     dyn = DynParams(force=torch.zeros(3),
                     omega_coriolis=torch.as_tensor(omega_cor, dtype=torch.float32))
     case = SolverCase(
-        config=config, forcing=forcing, state=state, dyn=dyn, units=units,
+        config=config, forcing=forcing,
+        state=make_initial_state(shape, config=config, u=u, flags=flags,
+                                 T=T_field if use_temperature else None,
+                                 device=state_dev),
+        dyn=dyn, units=units,
         cell_m=plan.cell_m, parent=parent, datetime=datetime_tag,
         vtk_prefix="", nz_out=plan.nz_core if plan.sponge_extended else 0,
         settings=run_settings_from_deck(deck),
         thermal_output=use_temperature, pre_step=pre_step, probes=probes,
-        ngpu=tuple(int(v) for v in (list(ngpu) + [1, 1, 1])[:3]),
+        ngpu=tuple(int(v) for v in (list(ngpu) + [1, 1, 1])[:3]), device=dev,
     )
     if not quiet:
         bc_kind = "patch-2d" if samples.has_patch else ("high-order" if high_order else "nearest")

@@ -50,9 +50,11 @@ SIGNATURES = {
     # sponge_z, mask_uw, mask_ue, mask_us, mask_un, mask_ut, mask_ub, ga, gb,
     # tt, Z, Y, X, storage, volume_force, has_nudge, has_sponge,
     # nudge_vertical, subgrid, omega, tau0, tau0_sq, wall, trt, wall_cd,
-    # wall_cd_sides, thermal, omega_t, beta, t_avg, stream
+    # wall_cd_sides, thermal, omega_t, beta, t_avg, fp_halo, fm_halo,
+    # fp_stride, fm_stride, flb, fla, gp_halo, gm_halo, gy, gx, stream
     "luw_stream_collide": [_P] * 22 + [_I] * 9 + [_F] * 3 + [_I] * 2
-                          + [_F] * 2 + [_I] + [_F] * 3 + [_P],
+                          + [_F] * 2 + [_I] + [_F] * 3 + [_P, _P, _L, _L]
+                          + [_P] * 4 + [_I, _I, _P],
     # fi, flags, dyn, inv_n, mean_u, m2_u, mean_rho, Z, Y, X, storage, wall,
     # wall_cd, wall_cd_sides, stream
     "luw_avg_update": [_P, _P, _P, _F, _P, _P, _P, _I, _I, _I, _I, _I, _F,

@@ -137,7 +137,8 @@ def test_port_never_imports_jax():
         "assert not bad, bad\n"
         "new = ['run.standard', 'bc.nearest', 'bc.patch2d', 'bc.samples',\n"
         "       'bc.high_order', 'run.probes', 'run.probe_parse',\n"
-        "       'post.transform', 'pre.utm']\n"
+        "       'post.transform', 'pre.utm', 'parallel.mesh',\n"
+        "       'parallel.halo']\n"
         "missing = [m for m in new if p.__name__ + '.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
         "print('ok', len(sys.modules))\n")

@@ -304,6 +304,7 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     assert len(cuda_build.source_digest()) == 64
     assert [p.name for p in cuda_build.sources()] == [
         "avg_update.cu", "codec.cu", "stream_collide.cu",
+        "stream_collide_halo.cu", "stream_collide_halo_thermal.cu",
         "stream_collide_thermal.cu", "stream_collide_wall.cu"]
     assert [p.name for p in cuda_build.headers()] == [
         "codec.cuh", "lattice.cuh", "stream_collide.cuh", "thermal.cuh"]

@@ -7,11 +7,16 @@ kernel instance's ptxas register count and SASS instruction count (by
 `cuobjdump -sass`) side by side, with the instances named by their
 template arguments so that checkouts whose templates took fewer arguments
 line up (a missing wall, TRT, thermal or halo argument reads as 0), and
+then steps the same two cases in each checkout (bf16, nudge + sponge, VK
+hook sites, 5 steps at CODES_SHAPE: `wall_sides`, and thermal) and counts
+the stored codes of the final f (and g) that differ between the two, and
 then times, in turns (other, this, this, other, ...), the configurations
-both take: K-SC at 256^3 in bf16, f32 and fp16c (flagship) and bf16 with
-nudge + sponge, and K-AVG at 256^3 in bf16 and fp16c, by CUDA events, each
-turn in a fresh process of its checkout.  The last line is one JSON object with the
-registers and the times.  It exits non-zero without a card.
+both take: K-SC at 256^3 in bf16, f32 and fp16c (flagship), bf16 with
+nudge + sponge, bf16 thermal and bf16 `wall_sides` (both with nudge +
+sponge), K-SC thermal at the NWP deck's grid with VK sites, and K-AVG at
+256^3 in bf16 and fp16c, by CUDA events, each turn in a fresh process of its
+checkout.  The last line is one JSON object with the registers, the code
+comparison and the times.  It exits non-zero without a card.
 """
 
 from __future__ import annotations
@@ -22,9 +27,11 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
+CODES_SHAPE = (40, 120, 200)      # the code comparison's grid
 
 # run in each checkout: its own chip_smoke's cases and timers
 _TURN = r"""
@@ -35,6 +42,27 @@ lib, log = cuda_build.build()
 out = {"log": log, "lib": str(lib), "times": {}}
 def ms(t):
     return t["ms"] if isinstance(t, dict) else t[0]
+if CODES:
+    from latticeurbanwind_tpu_torch.ops.stream_collide import (
+        build_face_bc, stream_collide,
+    )
+    for tag, variant, thermal in (("wall_sides", "wall+sides", False),
+                                  ("thermal", "", True)):
+        cfg, st, frc, row = c.make_case(SHAPE, "bf16", inflow=0.05,
+                                        variant=variant, thermal=thermal)
+        pre, _ = c.vk_hook(st)
+        spec = pre.ddf.kernel_spec
+        fbc, aux = build_face_bc(st.u, st.T), pre.ddf.init_aux(0)
+        f, g = st.fi, ([st.gi, torch.empty_like(st.gi)] if thermal
+                       else [None, None])
+        for t in range(5):
+            fbc, aux = pre.ddf(fbc, t, aux)
+            f = stream_collide(f, st.flags, row, cfg, frc, fbc, vk=spec,
+                               gi=g[0], gi_out=g[1])
+            g.reverse()
+        torch.save({"f": f.cpu(), "g": None if g[0] is None else g[0].cpu()},
+                   f"{CODES}/{tag}.pt")
+        torch.cuda.empty_cache()
 if TIMES:
     for name, storage, forcing in (("K-SC 256^3 bf16 flagship", "bf16", False),
                                    ("K-SC 256^3 bf16 nudge+sponge", "bf16", True),
@@ -43,6 +71,17 @@ if TIMES:
         out["times"][name] = ms(c.time_step_kernel(c.CUBE, storage, forcing,
                                                     plain_reps=1))
         torch.cuda.empty_cache()
+    for name, kw in (("K-SC 256^3 bf16 thermal nudge+sponge",
+                      dict(thermal=True)),
+                     ("K-SC 256^3 bf16 wall_sides nudge+sponge",
+                      dict(variant="wall+sides"))):
+        out["times"][name] = ms(c.time_step_kernel(c.CUBE, "bf16", True,
+                                                    plain_reps=1, **kw))
+        torch.cuda.empty_cache()
+    out["times"]["K-SC NWP grid bf16 thermal nudge+sponge VK sites"] = ms(
+        c.time_step_kernel(c.NWP_SHAPE, "bf16", True, vk=True, thermal=True,
+                           plain_reps=1))
+    torch.cuda.empty_cache()
     for storage in ("bf16", "fp16c"):
         out["times"][f"K-AVG 256^3 {storage}"] = ms(c.time_avg_kernel(c.CUBE,
                                                                       storage))
@@ -51,10 +90,15 @@ print("RESULT " + json.dumps(out))
 """
 
 
-def turn(checkout: Path, times: bool) -> dict:
+def turn(checkout: Path, times: bool, codes: str = "") -> dict:
+    """One fresh process in `checkout`: its build log and library, with
+    `times` its timed configurations, with `codes` (a directory) the code
+    comparison's final DDFs saved there."""
+    head = (f"TIMES = {times}\nCODES = {codes!r}\n"
+            f"SHAPE = {CODES_SHAPE!r}\n")
     proc = subprocess.run(
-        [sys.executable, "-c", f"TIMES = {times}\n" + _TURN], cwd=checkout,
-        capture_output=True, text=True, timeout=900)
+        [sys.executable, "-c", head + _TURN], cwd=checkout,
+        capture_output=True, text=True, timeout=1200)
     if proc.returncode != 0:
         raise RuntimeError(f"{checkout}: exit {proc.returncode}\n"
                            f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
@@ -118,10 +162,29 @@ def main(argv) -> int:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(f"nvidia-smi: {smi}", flush=True)
     regs, sizes = {}, {}
+    tmp = Path(tempfile.mkdtemp(prefix="chip_compare_"))
     for tag, path in (("other", other), ("this", HERE)):
-        built = turn(path, False)
+        (tmp / tag).mkdir()
+        built = turn(path, False, str(tmp / tag))
         regs[tag] = padded(kernel_registers(built["log"])[0])
         sizes[tag] = padded(sass_sizes(built["lib"]))
+    codes = {}
+    for case in ("wall_sides", "thermal"):
+        a, b = (torch.load(tmp / tag / f"{case}.pt") for tag in ("other", "this"))
+        for k in ("f", "g"):
+            if a[k] is None:
+                continue
+            x, y = a[k].view(torch.int16), b[k].view(torch.int16)
+            diff = x != y
+            err = float((a[k].float() - b[k].float()).abs().max())
+            codes[f"{case} {k}"] = {"differing": int(diff.sum()),
+                                    "share": float(diff.float().mean()),
+                                    "max_abs": err}
+            print(f"bf16 {case} {CODES_SHAPE} 5 steps, final {k}: "
+                  f"{int(diff.sum())} of {x.numel()} stored codes differ "
+                  f"between the checkouts (share {float(diff.float().mean()):.2e}"
+                  f", max decoded difference {err:.3e})", flush=True)
+    shutil.rmtree(tmp, ignore_errors=True)
     same = sorted(set(regs["other"]) & set(regs["this"]))
     for name in same:
         a, b = regs["other"][name], regs["this"][name]
@@ -146,7 +209,7 @@ def main(argv) -> int:
         print(f"{k}: other {a:.4f} ms, this {b:.4f} ms ({100 * (b / a - 1):+.2f}%)")
     print(smi)
     print(json.dumps({"smi": smi, "registers": regs, "sass_instructions": sizes,
-                      "times": times, "means": means}))
+                      "codes": codes, "times": times, "means": means}))
     return 0
 
 

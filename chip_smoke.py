@@ -7,7 +7,9 @@ nvcc per source, in parallel), then:
 
   1. prints the card (nvidia-smi name and power limit), torch/CUDA versions,
      the build time (each nvcc and the whole build + load) and every kernel
-     instance's register count, and checks that float32 matrix products run
+     instance's register count and spill bytes (the tiled body's thermal,
+     wall-model and TRT instances summed up apart), and checks that float32
+     matrix products run
      in full float32 (no TF32: the VK inlet's mode sum is one);
   2. runs each kernel against its plain PyTorch version on the card: K-SC
      (stream-collide) for 5 steps at an odd shape with the LUW shell,
@@ -30,6 +32,12 @@ nvcc per source, in parallel), then:
      deck's grid, both its f and g outputs, the 2-byte storages by their
      stored codes (at most one storage step apart wherever the decoded
      values are further apart than the tolerance, and few such elements);
+     the tiled body (thermal, wall models, TRT) again at a ragged shape,
+     (13, 37, 141), a multiple of no tile edge above 1, without the TYPE_E
+     shell and with solid cells on all six boundary planes, so that its flag
+     ring wraps on every axis, with random VK sites, 3 steps in every storage:
+     `wall_model`, `wall_sides`, TRT, TRT with `wall_sides`, and thermal
+     plain, with `wall_sides` and with TRT;
      K8, the halo mode of K-SC, against its plain version on one z slab
      (no ground, no TYPE_E top) with random halo planes and ghost widths
      (1, 1), 3 steps, in all four storages: without a wall model with and
@@ -38,8 +46,9 @@ nvcc per source, in parallel), then:
      `wall_sides` and with TRT, each without and with random VK sites (a
      step that wraps inside the slab instead lands 4.8e-2 away); the sharded
      runner with every shard on card 0 against the single-device runner,
-     6 steps with a VK hook over the splits (1,1,2), (1,2,2), (2,1,1) and
-     (2,2,2), f32 and bf16, bf16 `wall_sides`, thermal bf16 and fp16c: the
+     6 steps with a VK hook over the splits (1,1,2), (1,2,2), (2,1,1),
+     (2,2,2) and the uneven (3,5,1) and (1,2,5) (shards one cell apart in
+     size), f32 and bf16, bf16 `wall_sides`, thermal bf16 and fp16c: the
      stored DDFs (and g) and the fields pass's rho, u (and T) EQUAL;
      the device codecs bit for bit against the torch codecs (all 65,536
      fp16c and f16 codes, a dense sweep of every float32 exponent band with
@@ -52,7 +61,8 @@ nvcc per source, in parallel), then:
      models) and K-AVG (without and with `wall_sides`) at the main grid and
      at 256^3; K-SC thermal at 256^3 in bf16 and f32 and, with VK sites, at
      the NWP deck's grid, and the thermal `update_fields` (which a thermal
-     run takes at every averaging sample) alone at that grid; K8 at the
+     run takes at every averaging sample) alone at that grid (the tiled
+     body's shapes are swept by chip_sweep.py); K8 at the
      split deck's shard (59x214x424 with its ghost rows, bf16, VK sites)
      against the non-halo instance on the same shard, and the whole split
      step of the main grid on one card (n_gpu [1, 2, 2]) against the
@@ -165,15 +175,19 @@ FLOPS_PER_CELL = {"stream_collide": 600, "stream_collide_thermal": 660,
 MAIN_CELL_M = 1.5                           # the example deck's main-path cells
 MAIN_SHAPE = (118, 424, 424)                # its grid at that cell size
 CUBE = (256, 256, 256)                      # the flagship timing shape
+RAGGED = (13, 37, 141)                      # a multiple of no tile edge > 1
 DG_CELL_M = 2.0                             # the .luwdg path's cells (~5M)
 NWP_CELL_M = 3.0                            # the .luw path's cells
 NWP_SHAPE = (79, 887, 1017)                 # its grid there, sponge rows included
 NWP_MIN_GIB = 2.0                           # a state below this is no real size
 DEVICE = "cuda"
 DATETIME = "20260101120000"                 # both example decks' datetime
-# the splits of the sharded runner's comparison (tests/test_sharded_pallas.py)
-# and the sharded deck's n_gpu [Dx, Dy, Dz]: 4 shards of 59x212x424 cells
-SPLITS = ((1, 1, 2), (1, 2, 2), (2, 1, 1), (2, 2, 2))
+# the splits of the sharded runner's comparison (tests/test_sharded_pallas.py),
+# then two that do not divide its grid (24, 72, 136): x in 46 / 45 / 45 and y
+# in 15 / 15 / 14 / 14 / 14 cells; z in 5 / 5 / 5 / 5 / 4 planes (uneven
+# shards, numpy.array_split's cuts); and the sharded deck's n_gpu [Dx, Dy,
+# Dz]: 4 shards of 59x212x424 cells
+SPLITS = ((1, 1, 2), (1, 2, 2), (2, 1, 1), (2, 2, 2), (3, 5, 1), (1, 2, 5))
 SHARD_SPLIT = (1, 2, 2)
 SHARD_DEVICE = "cuda:0"                     # every shard on one card
 
@@ -204,7 +218,7 @@ def tolerance(storage: str, variant: str = "") -> float:
 
 
 def make_case(shape, storage, *, forcing=True, seed=0, inflow=0.0,
-              device=None, variant="", thermal=False, slab=False):
+              device=None, variant="", thermal=False, slab=False, wrap=False):
     """LUW-shell case (TYPE_E outer faces, solid ground, solid blocks) from a
     numpy seed, with an optional uniform inflow along x added to the random
     velocities and one of the wall/TRT `VARIANTS`: (config, state, forcing,
@@ -213,7 +227,10 @@ def make_case(shape, storage, *, forcing=True, seed=0, inflow=0.0,
     west face, the top plane, every solid cell (as the patch route marks
     them) and a block of fluid cells.  `slab`: a z slab from inside a split
     domain, without the solid ground plane and the TYPE_E top plane, so its
-    first and last planes read the halo planes."""
+    first and last planes read the halo planes.  `wrap`: no TYPE_E shell
+    and no solid ground, but 20% solid cells on each of the six boundary
+    planes, so pulls, the wall models' partners and the tiled body's flag
+    ring cross the periodic wrap on every axis."""
     from latticeurbanwind_tpu_torch.lbm.forcing import (
         NudgeSpec, SpongeSpec, build_forcing,
     )
@@ -234,13 +251,20 @@ def make_case(shape, storage, *, forcing=True, seed=0, inflow=0.0,
     u[0] += np.float32(inflow)
     rho = (1.0 + 0.001 * rng.standard_normal(shape)).astype(np.float32)
     flags = np.zeros(shape, np.uint8)
-    if not slab:
+    if wrap:
+        edge = np.zeros(shape, bool)
+        for ax in range(3):
+            for end in (0, -1):
+                np.moveaxis(edge, ax, 0)[end] = True
+        flags[edge & (rng.random(shape) < 0.2)] = TYPE_S
+    if not (slab or wrap):
         flags[-1] = TYPE_E
-    flags[:, 0, :] |= TYPE_E
-    flags[:, -1, :] |= TYPE_E
-    flags[:, :, 0] |= TYPE_E
-    flags[:, :, -1] |= TYPE_E
-    if not slab:
+    if not wrap:
+        flags[:, 0, :] |= TYPE_E
+        flags[:, -1, :] |= TYPE_E
+        flags[:, :, 0] |= TYPE_E
+        flags[:, :, -1] |= TYPE_E
+    if not (slab or wrap):
         flags[0] = TYPE_S
     flags[(rng.random(shape) < 0.03) & (flags == 0)] = TYPE_S
     flags[2:Z // 3, Y // 4:Y // 2, X // 3:X // 2] = TYPE_S
@@ -364,26 +388,35 @@ def phase_card() -> dict:
             re.findall(r"# nvcc (\S+): ([\d.]+) s", build_log)}
     log(f"kernel build + load ({len(cuda_build.sources())} sources in "
         f"parallel): {build_s:.1f} s; nvcc seconds per unit: {nvcc}")
-    regs, spilled = kernel_registers(build_log)
+    regs, spills = kernel_registers(build_log)
+    spilled = sorted(k for k, v in spills.items() if any(v))
     log(f"  ptxas: {len(regs)} kernels, registers {min(regs.values(), default=0)}"
         f"-{max(regs.values(), default=0)}, {len(spilled)} with spills")
     for name in sorted(regs):
-        log(f"  {name}: {regs[name]} registers"
-            + (" (spills)" if name in spilled else ""))
-    return {"smi": smi, "build_s": build_s, "nvcc_s": nvcc, "registers": regs}
+        st, ld = spills.get(name, (0, 0))
+        log(f"  {name}: {regs[name]} registers, spill bytes {st} stores / "
+            f"{ld} loads")
+    tiled = sorted(k for k in regs if k.startswith("stream_collide_tiled"))
+    log(f"  the tiled body (thermal, wall models, TRT): {len(tiled)} instances, "
+        f"registers {min((regs[k] for k in tiled), default=0)}-"
+        f"{max((regs[k] for k in tiled), default=0)}, "
+        f"{sum(1 for k in tiled if any(spills.get(k, (0, 0))))} with spills")
+    return {"smi": smi, "build_s": build_s, "nvcc_s": nvcc, "registers": regs,
+            "spill_bytes": {k: spills.get(k, (0, 0)) for k in tiled}}
 
 
 def kernel_registers(build_log: str):
-    """({instance: registers}, {instances with spills}) from ptxas's -v
-    output.  An instance is named by its kernel, its codec and its other
-    template arguments, e.g. stream_collide_kernel<BF16,1,1,1,0,0,0> (force,
-    nudge, sponge, wall, trt, thermal)."""
-    regs, spilled, name = {}, set(), None
+    """({instance: registers}, {instance: (spill store bytes, spill load
+    bytes)}) from ptxas's -v output.  An instance is named by its kernel,
+    its codec and its other template arguments, e.g.
+    stream_collide_kernel<BF16,1,1,1,0,0,0> (force, nudge, sponge, wall,
+    trt, thermal) or stream_collide_tiled_kernel<BF16,1,2,2,2,0,1>."""
+    regs, spills, name = {}, {}, None
     for line in build_log.splitlines():
         if "Compiling entry function" in line:
             mangled = line.split("'")[1] if "'" in line else line
-            m = re.search(r"(stream_collide|avg_update|vk_site|encode|decode)"
-                          r"_kernelI(.*)", mangled)
+            m = re.search(r"(stream_collide_tiled|stream_collide|avg_update|"
+                          r"vk_site|encode|decode)_kernelI(.*)", mangled)
             if m is None:
                 name = mangled
                 continue
@@ -393,14 +426,14 @@ def kernel_registers(build_log: str):
             name = f"{m.group(1)}_kernel<{','.join(args)}>"
         elif "Used" in line and "registers" in line and name:
             regs[name] = int(line.split("Used")[1].split("registers")[0])
-        elif "spill" in line and name and (" 0 bytes spill stores" not in line
-                                           or " 0 bytes spill loads" not in line):
-            spilled.add(name)
-    return regs, spilled
+        elif "spill stores" in line and name:
+            b = re.findall(r"(\d+) bytes spill (stores|loads)", line)
+            spills[name] = tuple(int(v) for v, _ in b)
+    return regs, spills
 
 
 def compare_steps(shape, storage, forcing, steps, *, vk=None, hook=False,
-                  inflow=0.0, variant="", thermal=False):
+                  inflow=0.0, variant="", thermal=False, wrap=False):
     """K-SC against its plain version over `steps` steps; returns the max
     decoded difference of f, whether the kernel's DDFs are finite, the case
     with the kernel's DDFs, and of a thermal run the `thermal_diff` of f and
@@ -411,7 +444,7 @@ def compare_steps(shape, storage, forcing, steps, *, vk=None, hook=False,
     )
 
     cfg, st, frc, row = make_case(shape, storage, forcing=forcing, inflow=inflow,
-                                  variant=variant, thermal=thermal)
+                                  variant=variant, thermal=thermal, wrap=wrap)
     pre = None
     if hook:
         pre, _ = vk_hook(st)
@@ -518,6 +551,48 @@ def compare_thermal(small) -> tuple:
                         for k, d in diffs.items()}
         torch.cuda.empty_cache()
     return errs, shares
+
+
+def compare_ragged() -> tuple:
+    """The tiled body (thermal, wall-model and TRT instances) against its
+    plain version at RAGGED, a shape that is a multiple of no tile edge
+    above 1, with no TYPE_E shell and solid cells on all six boundary planes (the
+    flag ring's periodic wrap on every axis) and random VK sites, 3 steps in
+    every storage: `wall`, `wall_sides`, TRT, TRT with `wall_sides`; thermal
+    plain, with `wall_sides` and with TRT (by stored codes).  ({config: max
+    decoded difference} of the wall / TRT and of the thermal runs, {config:
+    thermal code shares})."""
+    wall, therm, shares = {}, {}, {}
+    for storage in STORAGES:
+        for variant, thermal in (("wall", False), ("wall+sides", False),
+                                 ("trt", False), ("trt+wall+sides", False),
+                                 ("", True), ("wall+sides", True),
+                                 ("trt", True)):
+            e, finite, _, diffs = compare_steps(
+                RAGGED, storage, True, 3, vk=random_sites(RAGGED), inflow=0.05,
+                variant=variant, thermal=thermal, wrap=True)
+            name = (f"{storage} nudge+sponge{' thermal' if thermal else ''}"
+                    f"{' ' + variant if variant else ''} VK random sites, "
+                    f"solids on the boundary planes {RAGGED}")
+            tol = tolerance(storage, variant)
+            if thermal:
+                ok = finite and all(
+                    d["bad"] == 0 and d["over"] <= THERMAL_STEP_SHARE
+                    and d["differing"] <= THERMAL_DIFFERING_SHARE
+                    for d in diffs.values())
+                e = max(d["max_abs"] for d in diffs.values())
+                shares[name] = {k: {"over": d["over"], "differing": d["differing"]}
+                                for k, d in diffs.items()}
+            else:
+                ok = finite and e <= tol
+            log(f"K-SC {name} 3 steps: max|kernel-plain| = {e:.3e} (tol {tol:.0e}"
+                f"{', thermal by stored codes' if thermal else ''}) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"the tiled body disagrees with its plain "
+                                     f"version: {name}: {diffs or e}")
+            (therm if thermal else wall)[name] = e
+    return wall, therm, shares
 
 
 def random_halo(shape, storage, thermal, seed=11, gy=1, gx=1):
@@ -777,6 +852,10 @@ def phase_compare() -> dict:
 
     errs["stream_collide_thermal"], errs["thermal_code_shares"] = \
         compare_thermal(small)
+    wall, therm, shares = compare_ragged()
+    errs["stream_collide_wall"].update(wall)
+    errs["stream_collide_thermal"].update(therm)
+    errs["thermal_code_shares"].update(shares)
     errs["stream_collide_halo"], errs["halo_code_shares"] = compare_halo(small)
     errs["sharded"] = compare_sharded()
     phase_codecs()
@@ -1256,7 +1335,7 @@ def phase_timing() -> dict:
     # on y), then the whole sharded step on one card
     from latticeurbanwind_tpu_torch.parallel import domain_mesh
 
-    local = domain_mesh(SHARD_SPLIT, MAIN_SHAPE, "cpu").local_shape
+    local = domain_mesh(SHARD_SPLIT, MAIN_SHAPE, "cpu").local_shape(0)
     t = time_halo_kernel(local)
     t["name"] = f"bf16 nudge+sponge VK hook sites {local}"
     name = f"K8 {local} bf16 nudge+sponge VK sites"
@@ -1909,7 +1988,11 @@ def main() -> int:
                                if "step_loop" in v
                                and not k.startswith(("wall", "nwp-t"))}},
         {"name": "stream_collide_wall", "route": "cuda",
-         "source": "latticeurbanwind_tpu_torch/csrc/stream_collide_wall.cu",
+         "source": "latticeurbanwind_tpu_torch/csrc/stream_collide_tiled.cuh",
+         "unit": "latticeurbanwind_tpu_torch/csrc/stream_collide_wall.cu",
+         "registers": {k: v for k, v in card["registers"].items()
+                       if k.startswith("stream_collide_tiled")
+                       and k.endswith(",0>")},
          "replaces": "latticeurbanwind_tpu/ops/stream_collide.py:618",
          "launches": main_wall["stream_collide_wall"],
          "launches_with_vk_sites": main_wall["stream_collide_vk"],
@@ -1923,7 +2006,12 @@ def main() -> int:
                                if "step_loop" in v and k.startswith("wall")},
          "near_ground_du_m_per_s": paths["wall-vk-bf16-400"]["near_ground_du"]},
         {"name": "stream_collide_thermal", "route": "cuda",
-         "source": "latticeurbanwind_tpu_torch/csrc/stream_collide_thermal.cu",
+         "source": "latticeurbanwind_tpu_torch/csrc/stream_collide_tiled.cuh",
+         "unit": "latticeurbanwind_tpu_torch/csrc/stream_collide_thermal.cu",
+         "registers": {k: v for k, v in card["registers"].items()
+                       if k.startswith("stream_collide_tiled")
+                       and k.endswith(",1>")},
+         "spill_bytes": card["spill_bytes"],
          "replaces": "latticeurbanwind_tpu/ops/stream_collide.py:732",
          "launches": main_th["stream_collide_thermal"],
          "launches_with_vk_sites": main_th["stream_collide_vk"],

@@ -11,12 +11,19 @@
 //
 // Directions are the cz-grouped D3Q19 order of lbm/lattice.py.  The tables
 // are local arrays in each function: the callers' loops over d are
-// unrolled, so every lookup folds to a constant.
+// unrolled, so every lookup folds to a constant.  The wall models' choices
+// come in two forms: solid_source_index and wall_stress read the flags from
+// device memory (the old body, K-AVG), solid_source_pick and wall_stress_at
+// take an accessor (the tiled body, which tests its neighbourhood mask).
+// tests/test_torch_stream_collide.py holds every copy of a table to
+// lbm/lattice.py and each pair of forms to the same conditions, priority and
+// stress arithmetic; the device-memory forms go when the old body does and
+// K-AVG takes the accessors (ROADMAP).
 //
-// Bound: none of these is; the mirrors add up to three flag reads per
-// solid-adjacent direction (and read a mirror DDF in place of the bounce-back
-// one), served mostly by L1/L2 next to the neighbour reads the pull already
-// makes.
+// Bound: none of these is; in the old body the mirrors add up to three flag
+// reads per solid-adjacent direction (and read a mirror DDF in place of the
+// bounce-back one), served mostly by L1/L2 next to the neighbour reads the
+// pull already makes; the tiled body reads none of them from device memory.
 
 #pragma once
 
@@ -36,6 +43,43 @@ __device__ __forceinline__ float clamp_cs(float v) {
 
 __device__ __forceinline__ int wrap(int i, int n) {
   return i < 0 ? i + n : (i >= n ? i - n : i);
+}
+
+// solid_source_index's choice (below) with the partners' flags read through
+// an accessor, for the tiled body (stream_collide_tiled.cuh): the same
+// priority of mirrors, each partner reached from src by the offset
+// to_ground, to_xface or to_yface; `solid(p, dz, dy, dx)` says whether the
+// partner at cell offset p, which lies (dz, dy, dx) from the cell, is solid
+// (the tiled body tests a bit of its neighbourhood mask).  I is the cell
+// offsets' type, N the channel stride.  The old body and K-AVG keep
+// solid_source_index with its own device-memory reads: the same logic
+// behind a global-read accessor changed two K-AVG instances' SASS
+// (chip_compare.py, PERF.md).
+template <int kWall, class I, class Solid>
+__device__ __forceinline__ long long solid_source_pick(
+    const Solid& solid, int d, I n, I src, I to_ground, I to_xface,
+    I to_yface, long long N) {
+  const int CX[19] = {0, 1, -1, 0, 0, 1, -1, 1, -1, 0, 1, -1, 0, 0, 0, -1, 1, 0, 0};
+  const int CY[19] = {0, 0, 0, 1, -1, 1, -1, -1, 1, 0, 0, 0, 1, -1, 0, 0, 0, -1, 1};
+  const int CZ[19] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1, 1, 1, -1, -1, -1, -1, -1};
+  const int OPP[19] = {0, 2, 1, 4, 3, 6, 5, 8, 7, 14, 15, 16, 17, 18, 9, 10, 11, 12, 13};
+  // mirrors about the ground (cz = +1 only), an x face and a y face
+  const int MZ[19] = {-1, -1, -1, -1, -1, -1, -1, -1, -1, 14, 16, 15, 18, 17, -1, -1, -1, -1, -1};
+  const int MX[19] = {-1, 2, 1, -1, -1, 8, 7, 6, 5, -1, 11, 10, -1, -1, -1, 16, 15, -1, -1};
+  const int MY[19] = {-1, -1, -1, 4, 3, 7, 8, 5, 6, -1, -1, -1, 13, 12, -1, -1, -1, 18, 17};
+  if (kWall >= 1 && CZ[d] == 1) {
+    const I p = src + to_ground;
+    if (!solid(p, 0, -CY[d], -CX[d])) return MZ[d] * N + p;
+  }
+  if (kWall == 2 && CX[d] != 0) {
+    const I p = src + to_xface;
+    if (!solid(p, -CZ[d], -CY[d], 0)) return MX[d] * N + p;
+  }
+  if (kWall == 2 && CY[d] != 0) {
+    const I p = src + to_yface;
+    if (!solid(p, -CZ[d], 0, -CX[d])) return MY[d] * N + p;
+  }
+  return OPP[d] * N + n;
 }
 
 // The element of the previous step's DDFs that direction d takes at cell
@@ -165,6 +209,32 @@ __device__ __forceinline__ const T* halo_source(
     return halo_elem(fa, h, MY[d], zs, y, xs, Z, Y, X, N, idx);
   idx = OPP[d] * N + n;
   return fa;
+}
+
+// wall_stress (below) with the neighbours' flags read through an accessor,
+// for the tiled body: `flag_at(dz, dy, dx)` gives the flags (at least their
+// kTypeS bit) of the cell (dz, dy, dx) away, which the tiled body takes from
+// its neighbourhood mask.  The old body and K-AVG keep wall_stress with its
+// own device-memory reads, for the reason given at solid_source_pick.
+template <int kWall, class FlagAt>
+__device__ __forceinline__ void wall_stress_at(
+    float& Fx, float& Fy, float& Fz, float ux, float uy, float uz, float rho,
+    const FlagAt& flag_at, float cd, float cd_sides) {
+  if (kWall == 0) return;
+  if (flag_at(-1, 0, 0) & kTypeS) {
+    const float cw = cd * rho * sqrtf(ux * ux + uy * uy);
+    Fx -= cw * ux;
+    Fy -= cw * uy;
+  }
+  if (kWall == 2 && cd_sides > 0.0f) {
+    const bool gx = (flag_at(0, 0, -1) | flag_at(0, 0, 1)) & kTypeS;
+    const bool gy = (flag_at(0, -1, 0) | flag_at(0, 1, 0)) & kTypeS;
+    const float cwx = gx ? cd_sides * rho * sqrtf(uy * uy + uz * uz) : 0.0f;
+    const float cwy = gy ? cd_sides * rho * sqrtf(ux * ux + uz * uz) : 0.0f;
+    Fx -= cwy * ux;
+    Fy -= cwx * uy;
+    Fz -= (cwx + cwy) * uz;
+  }
 }
 
 // The wall models' Schumann stress on the force at a fluid cell, from its

@@ -3,13 +3,14 @@
 //
 // Replaces: latticeurbanwind_tpu/ops/stream_collide.py::make_pallas_step,
 // the Pallas TPU kernel that advances the lattice by one time step.  The
-// step kernel itself is the template of stream_collide.cuh (its stages,
+// step kernel itself is the old body of stream_collide.cuh (its stages,
 // bound and design are described there); this unit instantiates it for the
 // configurations without a wall model under SRT -- every storage codec,
 // with and without the volume force, nudging and the sponge -- and hands
-// the wall-model and TRT configurations to stream_collide_wall.cu, the
-// thermal ones to stream_collide_thermal.cu and the halo-mode steps of a
-// split domain (K8) to stream_collide_halo.cu.
+// the wall-model and TRT configurations to stream_collide_wall.cu and the
+// thermal ones to stream_collide_thermal.cu (both the tiled body of
+// stream_collide_tiled.cuh, each family with its compile-time shape) and
+// the halo-mode steps of a split domain (K8) to stream_collide_halo.cu.
 //
 // VK inlet sites (the Pallas kernel's `vk` spec, make_pallas_step
 // :915-978): at the boundary faces that carry a site mask, the cell's

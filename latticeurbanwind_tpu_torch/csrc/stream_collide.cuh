@@ -1,10 +1,10 @@
-// The fused D3Q19 stream-collide step kernel (K-SC), a template over the
-// storage codec and the configuration, shared by the five translation units
-// that instantiate it: stream_collide.cu (SRT without a wall model, and the
-// C entry point), stream_collide_wall.cu (the wall models and TRT),
-// stream_collide_thermal.cu (the thermal D3Q7 sub-lattice) and
+// The fused D3Q19 stream-collide step kernel (K-SC): its old body, a
+// template over the storage codec and the configuration, instantiated by
+// stream_collide.cu (SRT without a wall model, and the C entry point) and by
 // stream_collide_halo.cu with stream_collide_halo_thermal.cu (the halo mode
-// of a domain split over devices).
+// of a domain split over devices).  The thermal, wall-model and TRT
+// configurations run the tiled body of stream_collide_tiled.cuh instead;
+// both bodies call collide_cell below for the work after the pull.
 //
 // Replaces: latticeurbanwind_tpu/ops/stream_collide.py::make_pallas_step,
 // the Pallas TPU kernel that advances the lattice by one time step.  Stages,
@@ -39,14 +39,17 @@
 // existed, register for register and instruction for instruction
 // (chip_compare.py against that checkout); the wall instances take
 // 72-80 registers and cost +6% (ground) to +38% (wall_sides) per step at
-// 256^3 bf16 on the H100, most of it the side mirrors.  The thermal
-// sub-lattice (thermal.cuh) is a template argument too, its arguments one
-// trailing struct that the other instances never read.  So is the halo mode
+// 256^3 bf16 on the H100, most of it the side mirrors (those instances now
+// run the tiled body).  The thermal sub-lattice (thermal.cuh) is a template
+// argument too, its arguments one trailing struct that the other instances
+// never read.  So is the halo mode
 // (kHalo, K8): one z slab of a split domain whose z pulls that leave the
 // slab read the neighbouring slabs' planes (HaloArgs, lattice.cuh) instead
 // of wrapping, while y and x still wrap inside the slab's ghost-extended
-// plane; its arguments are one more trailing struct.  Shared-memory tiling
-// and TMA are later work.
+// plane; its arguments are one more trailing struct.  The tiled body
+// (stream_collide_tiled.cuh) removes this body's 64-bit index arithmetic and
+// its loads that wait for flag loads; moving these instances onto it is
+// later work.
 
 #pragma once
 
@@ -122,6 +125,173 @@ struct ScArgs {
   HaloArgs halo;  // fp null: not a halo-mode step
 };
 
+// The per-cell work of a step after the pull, shared by the old body below
+// and the tiled body (stream_collide_tiled.cuh): moments, global force +
+// Coriolis, the wall stress, nudging, the sponge, the thermal sub-lattice,
+// the Guo half-step, equilibrium + Guo source, the Smagorinsky rate, SRT or
+// TRT collision and the encoded stores, in the Pallas evaluation order.
+// f holds the pulled populations (decoded); n is the cell's offset in a
+// channel (type I), (z, y, x) its coordinates.  The callers supply what
+// reads flags or stores: stress(Fx, Fy, Fz, ux, uy, uz, rho) adds the wall
+// models' stress, therm(ux, uy, uz) relaxes the cell's g and returns T (read
+// only with kThermal), store(d, v) encodes and writes the post-collision
+// f_d.
+template <class C, bool kForce, int kNudge, int kSponge, bool kTrt,
+          bool kThermal, class I, class Stress, class Therm, class Store>
+__device__ __forceinline__ void collide_cell(
+    const float (&f)[19], I n, int z, int y, int x, int Y, int X,
+    const float* __restrict__ dyn, const float* __restrict__ nudge_sigma,
+    const uint8_t* __restrict__ nudge_face, const float* __restrict__ uw,
+    const float* __restrict__ ue, const float* __restrict__ us,
+    const float* __restrict__ un, const float* __restrict__ ut,
+    const float* __restrict__ ub, const float* __restrict__ sponge_z,
+    int nudge_vertical, int subgrid, float omega, float tau0, float tau0_sq,
+    const ThermArgs& th, const Stress& stress, const Therm& therm,
+    const Store& store) {
+  const int CX[19] = {0, 1, -1, 0, 0, 1, -1, 1, -1, 0, 1, -1, 0, 0, 0, -1, 1, 0, 0};
+  const int CY[19] = {0, 0, 0, 1, -1, 1, -1, -1, 1, 0, 0, 0, 1, -1, 0, 0, 0, -1, 1};
+  const int CZ[19] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1, 1, 1, -1, -1, -1, -1, -1};
+  const int OPP[19] = {0, 2, 1, 4, 3, 6, 5, 8, 7, 14, 15, 16, 17, 18, 9, 10, 11, 12, 13};
+  const float W[19] = {1.f / 3.f, 1.f / 18.f, 1.f / 18.f, 1.f / 18.f, 1.f / 18.f,
+                       1.f / 36.f, 1.f / 36.f, 1.f / 36.f, 1.f / 36.f, 1.f / 18.f,
+                       1.f / 36.f, 1.f / 36.f, 1.f / 36.f, 1.f / 36.f, 1.f / 18.f,
+                       1.f / 36.f, 1.f / 36.f, 1.f / 36.f, 1.f / 36.f};
+
+  // ---- moments ----
+  float rho = f[0];
+#pragma unroll
+  for (int d = 1; d < 19; ++d) rho += f[d];
+  rho += 1.0f;
+  float mx = 0.0f, my = 0.0f, mz = 0.0f;
+#pragma unroll
+  for (int d = 1; d < 19; ++d) {
+    if (CX[d] == 1) mx += f[d]; else if (CX[d] == -1) mx -= f[d];
+    if (CY[d] == 1) my += f[d]; else if (CY[d] == -1) my -= f[d];
+    if (CZ[d] == 1) mz += f[d]; else if (CZ[d] == -1) mz -= f[d];
+  }
+  const float inv_rho = 1.0f / rho;
+  const float ux = mx * inv_rho, uy = my * inv_rho, uz = mz * inv_rho;
+
+  // ---- forces: global + Coriolis, wall stress, nudging, sponge ----
+  float Fx = 0.0f, Fy = 0.0f, Fz = 0.0f;
+  if (kForce) {
+    const float ox = dyn[3], oy = dyn[4], oz = dyn[5];
+    Fx = dyn[0] - 2.0f * rho * (oy * uz - oz * uy);
+    Fy = dyn[1] - 2.0f * rho * (oz * ux - ox * uz);
+    Fz = dyn[2] - 2.0f * rho * (ox * uy - oy * ux);
+    stress(Fx, Fy, Fz, ux, uy, uz, rho);
+  }
+  if (kNudge == 1 || (kNudge == 2 && nudge_sigma != nullptr)) {
+    const int face = nudge_face[n];
+    const float rs = rho * nudge_sigma[n];
+    Fx += rs * (face_target(face, 0, z, y, x, Y, X, uw, ue, us, un, ut, ub) - ux);
+    Fy += rs * (face_target(face, 1, z, y, x, Y, X, uw, ue, us, un, ut, ub) - uy);
+    if (nudge_vertical)
+      Fz += rs * (face_target(face, 2, z, y, x, Y, X, uw, ue, us, un, ut, ub) - uz);
+  }
+  if (kSponge == 1 || (kSponge == 2 && sponge_z != nullptr)) {
+    const float rs = rho * sponge_z[z];
+    const long long yx = (long long)y * X + x;
+    const long long plane = (long long)Y * X;
+    Fx += rs * (ut[yx] - ux);
+    Fy += rs * (ut[plane + yx] - uy);
+    Fz += rs * (ut[2 * plane + yx] - uz);
+  }
+
+  if (kThermal) {
+    // ---- thermal D3Q7 with the streamed, unforced velocity; the Boussinesq
+    // ---- term rides on the global force vector
+    const float T = therm(ux, uy, uz);
+    const float bterm = th.beta * (T - th.t_avg);
+    Fx -= dyn[0] * bterm;
+    Fy -= dyn[1] * bterm;
+    Fz -= dyn[2] * bterm;
+  }
+
+  // ---- Guo half-step + clamp ----
+  float vx, vy, vz;
+  if (kForce) {
+    const float half = 0.5f / rho;
+    vx = clamp_cs(ux + Fx * half);
+    vy = clamp_cs(uy + Fy * half);
+    vz = clamp_cs(uz + Fz * half);
+  } else {
+    vx = clamp_cs(ux);
+    vy = clamp_cs(uy);
+    vz = clamp_cs(uz);
+  }
+
+  // ---- equilibrium + Guo source (opposite pairs share c.u) ----
+  const float c3 = -3.0f * (vx * vx + vy * vy + vz * vz);
+  const float rhom1 = rho - 1.0f;
+  const float uF = kForce ? -(1.0f / 3.0f) * (vx * Fx + vy * Fy + vz * Fz) : 0.0f;
+  float feq[19], fin[19];
+  feq[0] = (1.0f / 3.0f) * (rhom1 + rho * (0.5f * c3));
+  fin[0] = 3.0f * uF;
+#pragma unroll
+  for (int d = 1; d < 19; d += 2) {
+    const int od = OPP[d];
+    const float cu = 3.0f * cdot(CX[d], CY[d], CZ[d], vx, vy, vz);
+    const float base = W[d] * (rhom1 + rho * (0.5f * (cu * cu + c3)));
+    const float wcu = W[d] * rho * cu;
+    feq[d] = base + wcu;
+    feq[od] = base - wcu;
+    if (kForce) {
+      const float cF = cdot(CX[d], CY[d], CZ[d], Fx, Fy, Fz);
+      const float w9 = 9.0f * W[d];
+      const float cu3 = cu * (1.0f / 3.0f);
+      fin[d] = w9 * (cF * (cu3 + 1.0f / 3.0f) + uF);
+      fin[od] = w9 * (cF * (cu3 - 1.0f / 3.0f) + uF);
+    }
+  }
+
+  // ---- Smagorinsky-Lilly effective relaxation rate ----
+  float w_eff = omega;
+  if (subgrid) {
+    float hxx = 0.f, hyy = 0.f, hzz = 0.f, hxy = 0.f, hxz = 0.f, hyz = 0.f;
+#pragma unroll
+    for (int d = 1; d < 19; ++d) {
+      const float q = f[d] - feq[d];
+      if (CX[d] != 0) hxx += q;
+      if (CY[d] != 0) hyy += q;
+      if (CZ[d] != 0) hzz += q;
+      if (CX[d] * CY[d] == 1) hxy += q; else if (CX[d] * CY[d] == -1) hxy -= q;
+      if (CX[d] * CZ[d] == 1) hxz += q; else if (CX[d] * CZ[d] == -1) hxz -= q;
+      if (CY[d] * CZ[d] == 1) hyz += q; else if (CY[d] * CZ[d] == -1) hyz -= q;
+    }
+    const float Q = hxx * hxx + hyy * hyy + hzz * hzz +
+                    2.0f * (hxy * hxy + hxz * hxz + hyz * hyz);
+    w_eff = 2.0f / (tau0 + sqrtf(tau0_sq + kSmagorinsky * sqrtf(Q) / rho));
+  }
+
+  if (kTrt) {
+    // ---- TRT collision + storage encode: omega+ = w_eff on the even part
+    // ---- of each opposite pair, omega- (magic parameter 3/16) on the odd
+    const float wm = 1.0f / (0.1875f / (1.0f / w_eff - 0.5f) + 0.5f);
+    const float hp = 0.5f * w_eff, hm = 0.5f * wm;
+    const float ctp = 0.5f - 0.25f * w_eff, ctm = 0.5f - 0.25f * wm;
+#pragma unroll
+    for (int d = 0; d < 19; ++d) {
+      const int od = OPP[d];
+      float coll = f[d] + hp * (feq[d] - f[d] + feq[od] - f[od]) +
+                   hm * (feq[d] - feq[od] - f[d] + f[od]);
+      if (kForce) coll += ctp * (fin[d] + fin[od]) + ctm * (fin[d] - fin[od]);
+      store(d, coll);
+    }
+    return;
+  }
+
+  // ---- SRT collision + storage encode ----
+  const float one_m_w = 1.0f - w_eff;
+  const float cfin = 1.0f - 0.5f * w_eff;
+#pragma unroll
+  for (int d = 0; d < 19; ++d) {
+    float coll = one_m_w * f[d] + w_eff * feq[d];
+    if (kForce) coll += cfin * fin[d];
+    store(d, coll);
+  }
+}
+
 // kNudge / kSponge: 0 off, 1 on, 2 on where the pointer is not null (the
 // wall, TRT, thermal and halo instances take them at run time to keep their
 // count down).  kThermal steps the g populations of `th` with the cell
@@ -147,10 +317,6 @@ stream_collide_kernel(const typename C::T* __restrict__ fa,
   const int CY[19] = {0, 0, 0, 1, -1, 1, -1, -1, 1, 0, 0, 0, 1, -1, 0, 0, 0, -1, 1};
   const int CZ[19] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1, 1, 1, -1, -1, -1, -1, -1};
   const int OPP[19] = {0, 2, 1, 4, 3, 6, 5, 8, 7, 14, 15, 16, 17, 18, 9, 10, 11, 12, 13};
-  const float W[19] = {1.f / 3.f, 1.f / 18.f, 1.f / 18.f, 1.f / 18.f, 1.f / 18.f,
-                       1.f / 36.f, 1.f / 36.f, 1.f / 36.f, 1.f / 36.f, 1.f / 18.f,
-                       1.f / 36.f, 1.f / 36.f, 1.f / 36.f, 1.f / 36.f, 1.f / 18.f,
-                       1.f / 36.f, 1.f / 36.f, 1.f / 36.f, 1.f / 36.f};
 
   const long long N = (long long)Z * Y * X;
   const long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -232,142 +398,20 @@ stream_collide_kernel(const typename C::T* __restrict__ fa,
     }
   }
 
-  // ---- moments ----
-  float rho = f[0];
-#pragma unroll
-  for (int d = 1; d < 19; ++d) rho += f[d];
-  rho += 1.0f;
-  float mx = 0.0f, my = 0.0f, mz = 0.0f;
-#pragma unroll
-  for (int d = 1; d < 19; ++d) {
-    if (CX[d] == 1) mx += f[d]; else if (CX[d] == -1) mx -= f[d];
-    if (CY[d] == 1) my += f[d]; else if (CY[d] == -1) my -= f[d];
-    if (CZ[d] == 1) mz += f[d]; else if (CZ[d] == -1) mz -= f[d];
-  }
-  const float inv_rho = 1.0f / rho;
-  const float ux = mx * inv_rho, uy = my * inv_rho, uz = mz * inv_rho;
-
-  // ---- forces: global + Coriolis, wall stress, nudging, sponge ----
-  float Fx = 0.0f, Fy = 0.0f, Fz = 0.0f;
-  if (kForce) {
-    const float ox = dyn[3], oy = dyn[4], oz = dyn[5];
-    Fx = dyn[0] - 2.0f * rho * (oy * uz - oz * uy);
-    Fy = dyn[1] - 2.0f * rho * (oz * ux - ox * uz);
-    Fz = dyn[2] - 2.0f * rho * (ox * uy - oy * ux);
-    wall_stress<kWall, kHalo>(Fx, Fy, Fz, ux, uy, uz, rho, flags, z, y, x, Z,
-                              Y, X, wall_cd, wall_cd_sides, ha.flb);
-  }
-  if (kNudge == 1 || (kNudge == 2 && nudge_sigma != nullptr)) {
-    const int face = nudge_face[n];
-    const float rs = rho * nudge_sigma[n];
-    Fx += rs * (face_target(face, 0, z, y, x, Y, X, uw, ue, us, un, ut, ub) - ux);
-    Fy += rs * (face_target(face, 1, z, y, x, Y, X, uw, ue, us, un, ut, ub) - uy);
-    if (nudge_vertical)
-      Fz += rs * (face_target(face, 2, z, y, x, Y, X, uw, ue, us, un, ut, ub) - uz);
-  }
-  if (kSponge == 1 || (kSponge == 2 && sponge_z != nullptr)) {
-    const float rs = rho * sponge_z[z];
-    const long long yx = (long long)y * X + x;
-    const long long plane = (long long)Y * X;
-    Fx += rs * (ut[yx] - ux);
-    Fy += rs * (ut[plane + yx] - uy);
-    Fz += rs * (ut[2 * plane + yx] - uz);
-  }
-
-  if (kThermal) {
-    // ---- thermal D3Q7 with the streamed, unforced velocity; the Boussinesq
-    // ---- term rides on the global force vector
-    const float T = thermal_cell<C, kHalo>(
-        ga, gb, flags, fl, n, z, y, x, Z, Y, X, N, ux, uy, uz,
-        sponge_z != nullptr ? sponge_z[z] : 0.0f, th.tt, th.omega_t, ha);
-    const float bterm = th.beta * (T - th.t_avg);
-    Fx -= dyn[0] * bterm;
-    Fy -= dyn[1] * bterm;
-    Fz -= dyn[2] * bterm;
-  }
-
-  // ---- Guo half-step + clamp ----
-  float vx, vy, vz;
-  if (kForce) {
-    const float half = 0.5f / rho;
-    vx = clamp_cs(ux + Fx * half);
-    vy = clamp_cs(uy + Fy * half);
-    vz = clamp_cs(uz + Fz * half);
-  } else {
-    vx = clamp_cs(ux);
-    vy = clamp_cs(uy);
-    vz = clamp_cs(uz);
-  }
-
-  // ---- equilibrium + Guo source (opposite pairs share c.u) ----
-  const float c3 = -3.0f * (vx * vx + vy * vy + vz * vz);
-  const float rhom1 = rho - 1.0f;
-  const float uF = kForce ? -(1.0f / 3.0f) * (vx * Fx + vy * Fy + vz * Fz) : 0.0f;
-  float feq[19], fin[19];
-  feq[0] = (1.0f / 3.0f) * (rhom1 + rho * (0.5f * c3));
-  fin[0] = 3.0f * uF;
-#pragma unroll
-  for (int d = 1; d < 19; d += 2) {
-    const int od = OPP[d];
-    const float cu = 3.0f * cdot(CX[d], CY[d], CZ[d], vx, vy, vz);
-    const float base = W[d] * (rhom1 + rho * (0.5f * (cu * cu + c3)));
-    const float wcu = W[d] * rho * cu;
-    feq[d] = base + wcu;
-    feq[od] = base - wcu;
-    if (kForce) {
-      const float cF = cdot(CX[d], CY[d], CZ[d], Fx, Fy, Fz);
-      const float w9 = 9.0f * W[d];
-      const float cu3 = cu * (1.0f / 3.0f);
-      fin[d] = w9 * (cF * (cu3 + 1.0f / 3.0f) + uF);
-      fin[od] = w9 * (cF * (cu3 - 1.0f / 3.0f) + uF);
-    }
-  }
-
-  // ---- Smagorinsky-Lilly effective relaxation rate ----
-  float w_eff = omega;
-  if (subgrid) {
-    float hxx = 0.f, hyy = 0.f, hzz = 0.f, hxy = 0.f, hxz = 0.f, hyz = 0.f;
-#pragma unroll
-    for (int d = 1; d < 19; ++d) {
-      const float q = f[d] - feq[d];
-      if (CX[d] != 0) hxx += q;
-      if (CY[d] != 0) hyy += q;
-      if (CZ[d] != 0) hzz += q;
-      if (CX[d] * CY[d] == 1) hxy += q; else if (CX[d] * CY[d] == -1) hxy -= q;
-      if (CX[d] * CZ[d] == 1) hxz += q; else if (CX[d] * CZ[d] == -1) hxz -= q;
-      if (CY[d] * CZ[d] == 1) hyz += q; else if (CY[d] * CZ[d] == -1) hyz -= q;
-    }
-    const float Q = hxx * hxx + hyy * hyy + hzz * hzz +
-                    2.0f * (hxy * hxy + hxz * hxz + hyz * hyz);
-    w_eff = 2.0f / (tau0 + sqrtf(tau0_sq + kSmagorinsky * sqrtf(Q) / rho));
-  }
-
-  if (kTrt) {
-    // ---- TRT collision + storage encode: omega+ = w_eff on the even part
-    // ---- of each opposite pair, omega- (magic parameter 3/16) on the odd
-    const float wm = 1.0f / (0.1875f / (1.0f / w_eff - 0.5f) + 0.5f);
-    const float hp = 0.5f * w_eff, hm = 0.5f * wm;
-    const float ctp = 0.5f - 0.25f * w_eff, ctm = 0.5f - 0.25f * wm;
-#pragma unroll
-    for (int d = 0; d < 19; ++d) {
-      const int od = OPP[d];
-      float coll = f[d] + hp * (feq[d] - f[d] + feq[od] - f[od]) +
-                   hm * (feq[d] - feq[od] - f[d] + f[od]);
-      if (kForce) coll += ctp * (fin[d] + fin[od]) + ctm * (fin[d] - fin[od]);
-      fb[d * N + n] = C::enc(coll);
-    }
-    return;
-  }
-
-  // ---- SRT collision + storage encode ----
-  const float one_m_w = 1.0f - w_eff;
-  const float cfin = 1.0f - 0.5f * w_eff;
-#pragma unroll
-  for (int d = 0; d < 19; ++d) {
-    float coll = one_m_w * f[d] + w_eff * feq[d];
-    if (kForce) coll += cfin * fin[d];
-    fb[d * N + n] = C::enc(coll);
-  }
+  collide_cell<C, kForce, kNudge, kSponge, kTrt, kThermal>(
+      f, n, z, y, x, Y, X, dyn, nudge_sigma, nudge_face, uw, ue, us, un, ut,
+      ub, sponge_z, nudge_vertical, subgrid, omega, tau0, tau0_sq, th,
+      [&](float& Fx, float& Fy, float& Fz, float ux, float uy, float uz,
+          float rho) {
+        wall_stress<kWall, kHalo>(Fx, Fy, Fz, ux, uy, uz, rho, flags, z, y,
+                                  x, Z, Y, X, wall_cd, wall_cd_sides, ha.flb);
+      },
+      [&](float ux, float uy, float uz) {
+        return thermal_cell<C, kHalo>(
+            ga, gb, flags, fl, n, z, y, x, Z, Y, X, N, ux, uy, uz,
+            sponge_z != nullptr ? sponge_z[z] : 0.0f, th.tt, th.omega_t, ha);
+      },
+      [&](int d, float v) { fb[d * N + n] = C::enc(v); });
 }
 
 template <class C, bool kForce, int kNudge, int kSponge, int kWall, bool kTrt,

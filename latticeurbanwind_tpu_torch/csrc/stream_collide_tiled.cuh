@@ -1,0 +1,459 @@
+// The tiled body of the fused D3Q19 stream-collide step (K-SC) for Hopper
+// (sm_90a): the thermal (K7) and wall-model / TRT (K4, K2) configurations.
+// stream_collide_thermal.cu and stream_collide_wall.cu instantiate it; the
+// configurations without a wall model under SRT and the halo mode (K8) still
+// run the old body of stream_collide.cuh.
+//
+// Replaces: the thermal and wall branches of
+// latticeurbanwind_tpu/ops/stream_collide.py::make_pallas_step -- the D3Q7
+// sub-lattice (:732-807, outputs :909-913), the specular mirrors and
+// Schumann stress of the wall models (:618-650, :678-703) and TRT
+// (:890-902) -- with everything the step does around them.  The per-cell
+// arithmetic after the pull is collide_cell of stream_collide.cuh, which the
+// old body calls too, so both bodies evaluate in the Pallas order.
+//
+// Bound on the H100: device memory.  A cell update reads 19 DDFs and writes
+// 19, plus its flag byte: 77 B in the 2-byte storages (153 B f32); thermal
+// adds 2 * 7 values, 105 B (209 B); nudging 5 B.  ~600-660 flops per cell
+// are far below the compute roof at that traffic.  A pull reads every DDF
+// element once (it is a permutation), so staging the DDFs in shared memory
+// would save no bytes: what the old body loses to the bound is instructions
+// and latency.  This body removes the costs below; on the card that gains
+// 5-15% per step (PERF.md), and what still holds it at a third of its bound
+// is the DRAM round trip each warp waits once per plane, with 16-20 warps
+// resident per SM:
+//
+//   * Index arithmetic.  The old body recovers (z, y, x) from a flat 64-bit
+//     index with 64-bit division, which the card emulates, and forms every
+//     source with 64-bit multiplies.  Here a 2-D block of TX x TY threads
+//     covers a tile of a plane and marches over KZ planes: coordinates
+//     come from the block and thread indices, every source is the cell's
+//     32-bit offset plus one of six wrapped neighbour offsets, and only the
+//     channel stride d * N is 64-bit (19 N exceeds 2^31; Z Y X < 2^31 is
+//     checked at launch).  No 64-bit division is left.
+//   * Loads that wait for loads.  The old body reads each source's flag byte
+//     before it can choose the DDF element to load, and the wall models chain
+//     up to three more flag reads per solid-adjacent direction and five for
+//     the stress.  Here a block keeps the flags of three planes of its tile
+//     with a one-cell rim, (TY + 2) x (TX + 2) bytes each, in a ring in
+//     shared memory; every flag the cell's logic reads lies in that 3x3x3
+//     neighbourhood (the 18 sources, the mirrors' partners, the stress's five
+//     neighbours), so a cell first folds it into a 27-bit mask of solid
+//     cells and its own flag byte, then picks all 18 f elements (and its 7
+//     g elements) from the mask and issues every load before any arithmetic.
+//   * The thermal second memory phase.  The g loads go out with the f loads
+//     (thermal_pull_index); the relax (thermal_finish) runs after the
+//     forces, where the Pallas kernel and the old body evaluate it.
+//   * Flag re-reads.  A flag byte is read from device memory once per block
+//     (plus its rim) instead of 19-25 times per cell through L1/L2.  The next
+//     plane's bytes are fetched while the current plane computes: the
+//     4-byte-aligned words of each rim row by cp.async (each ring row is
+//     shifted so that its words land aligned), the unaligned head and tail
+//     bytes and the two wrapped edge columns by plain loads that a thread
+//     issues before its cell's work and stores after it.
+//   * DRAM latency.  Every warp waits once per plane for its pulls; the
+//     wall-model and TRT instances also ask L2 for the next plane's sources
+//     (prefetch.global.L2) before a plane's work, which the thermal ones,
+//     with twice the lines per cell, lose to (PERF.md).
+//
+// The wrap is periodic on all three axes, applied when the ring is filled
+// (rows and edge columns) and by the neighbour offsets; the ragged edges of
+// x, y and z are masked.  Registers: __launch_bounds__ with the family's
+// min_blocks blocks per SM (tile_shape).  Measured times, the sweep and the
+// registers are in PERF.md.
+
+#pragma once
+
+#include <cuda_pipeline_primitives.h>
+#include <cuda_runtime.h>
+#include <limits.h>
+#include <stdint.h>
+
+#include "codec.cuh"
+#include "lattice.cuh"
+#include "stream_collide.cuh"
+#include "thermal.cuh"
+
+namespace luw {
+
+// The tiled body's compile-time shape per family (the thermal instances in
+// the 2-byte storages, the thermal ones in f32, and the wall-model and TRT
+// ones): a block of tx x ty threads along (x, y) marching over kz planes,
+// at least min_blocks blocks resident per SM (__launch_bounds__, which caps
+// the registers), and how many planes ahead each thread asks L2 for its
+// cell's sources (0: none).  Chosen per family on the card (chip_sweep.py,
+// chip_smoke.py's 256^3 rows; PERF.md): the 2-byte thermal instances as
+// 256 x 1 x 8 with 2 blocks (128 registers) and no prefetch; in f32,
+// where that shape cost +35% at 256^3, as 64 x 2 x 8 with 4 blocks
+// (128 registers); the wall-model and TRT ones as 64 x 2 x 8 with 5 blocks
+// (96 registers; 6 would spill) and one plane prefetched.  A build may set
+// a family's five numbers, `tx, ty, kz, min_blocks, prefetch`, as
+// LUW_TILE_THERMAL, LUW_TILE_THERMAL_F32 or LUW_TILE_OTHER in a header it
+// pre-includes; that is how the sweep builds its variants (nvcc's -D would
+// split the list at its commas).
+struct TileShape {
+  int tx, ty, kz, min_blocks, prefetch;
+};
+#ifndef LUW_TILE_THERMAL
+#define LUW_TILE_THERMAL 256, 1, 8, 2, 0
+#endif
+#ifndef LUW_TILE_THERMAL_F32
+#define LUW_TILE_THERMAL_F32 64, 2, 8, 4, 0
+#endif
+#ifndef LUW_TILE_OTHER
+#define LUW_TILE_OTHER 64, 2, 8, 5, 1
+#endif
+// f32: the storage takes 4 bytes per value.
+__host__ __device__ constexpr TileShape tile_shape(bool thermal, bool f32) {
+  return !thermal ? TileShape{LUW_TILE_OTHER}
+         : f32    ? TileShape{LUW_TILE_THERMAL_F32}
+                  : TileShape{LUW_TILE_THERMAL};
+}
+// The bytes of a ring plane: ty + 2 rows of tx + 8 (the rim, and the shift
+// that aligns each row's words).
+__host__ __device__ constexpr int ring_plane_bytes(TileShape t) {
+  return (t.ty + 2) * (t.tx + 8);
+}
+// A shape the ring takes: tx a multiple of 4 (the rows' words), one thread
+// per word of a rim row's copy and 8 threads per rim row's plain bytes.
+__host__ __device__ constexpr bool tile_ok(TileShape t) {
+  return t.tx >= 4 && t.tx % 4 == 0 && t.ty >= 1 && t.kz >= 1 &&
+         t.min_blocks >= 1 && t.prefetch >= 0 &&
+         (t.ty + 2) * (t.tx / 4) <= t.tx * t.ty &&
+         (t.ty + 2) * 8 <= t.tx * t.ty;
+}
+static_assert(tile_ok(tile_shape(true, false)) &&
+                  tile_ok(tile_shape(true, true)) &&
+                  tile_ok(tile_shape(false, false)),
+              "a tiled body shape the flag ring does not take");
+// The neighbourhood mask takes each flag's kTypeS bit by masking and shifting.
+static_assert(kTypeS == 1, "the neighbourhood mask needs kTypeS in bit 0");
+
+// The bit of the neighbourhood mask for the cell (dz, dy, dx) away.
+__device__ __forceinline__ constexpr int nb_bit(int dz, int dy, int dx) {
+  return (dz + 1) * 9 + (dy + 1) * 3 + dx + 1;
+}
+
+// Issue the fetch of flag plane zz into a ring plane and its row shifts.  Row
+// r holds the flags of y0 - 1 + r (wrapped) at columns c = 0 .. txn + 1 for
+// x0 - 1 + c (wrapped), byte c at r * (TX + 8) + shift[r] + c, with shift[r]
+// chosen so that the row's aligned words land on aligned shared addresses.
+// This thread copies at most one word by cp.async (committed by the caller)
+// and loads at most one plain byte, which it returns in v with its position
+// (-1: none) for the caller to store once the copy is due.
+__device__ __forceinline__ int ring_fetch(
+    uint8_t* ring, uint8_t* shift, const uint8_t* __restrict__ flags, int zz,
+    int tid, int x0, int y0, int txn, int tyn, int TX, int X, int Y,
+    uint8_t& v) {
+  const int R = TX + 8;
+  const int rows = tyn + 2;
+  {
+    const int wpr = TX >> 2;  // words a row can hold
+    const int r = tid / wpr, w = tid - r * wpr;
+    if (r < rows) {
+      const uint8_t* pa = flags + (zz * Y + wrap(y0 - 1 + r, Y)) * X + x0;
+      const int mis = (int)((uintptr_t)pa & 3);
+      const int head = min((4 - mis) & 3, txn);
+      if (w < ((txn - head) >> 2)) {
+        const int sh = (mis + 3) & 3;
+        __pipeline_memcpy_async(ring + r * R + sh + 1 + head + 4 * w,
+                                pa + head + 4 * w, 4);
+      }
+    }
+  }
+  const int r = tid >> 3, k = tid & 7;
+  if (r >= rows) return -1;
+  const int row = (zz * Y + wrap(y0 - 1 + r, Y)) * X;
+  const int mis = (int)((uintptr_t)(flags + row + x0) & 3);
+  const int sh = (mis + 3) & 3;
+  const int head = min((4 - mis) & 3, txn);
+  const int nw = (txn - head) >> 2;
+  int col, xx;
+  if (k == 0) {  // the left edge column, wrapped
+    shift[r] = (uint8_t)sh;
+    col = 0;
+    xx = wrap(x0 - 1, X);
+  } else if (k == 1) {  // the right edge column, wrapped
+    col = txn + 1;
+    xx = wrap(x0 + txn, X);
+  } else if (k < 5) {  // the unaligned head
+    if (k - 2 >= head) return -1;
+    col = k - 1;
+    xx = x0 + col - 1;
+  } else {  // the tail after the words
+    col = 1 + head + 4 * nw + (k - 5);
+    if (col > txn) return -1;
+    xx = x0 + col - 1;
+  }
+  v = flags[row + xx];
+  return r * R + sh + col;
+}
+
+// Ask the L2 cache for the line holding p (no register waits for it).
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+#ifdef __CUDA_ARCH__
+  asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
+#endif
+}
+
+// Prefetch into L2 what the cell (z, y, x) = n will pull: the source of
+// every f direction, whatever the flags choose.
+template <class C>
+__device__ __forceinline__ void prefetch_cell(
+    const typename C::T* __restrict__ fa, int n, long long N, int ozm,
+    int ozp, int oym, int oyp, int oxm, int oxp) {
+  const int CX[19] = {0, 1, -1, 0, 0, 1, -1, 1, -1, 0, 1, -1, 0, 0, 0, -1, 1, 0, 0};
+  const int CY[19] = {0, 0, 0, 1, -1, 1, -1, -1, 1, 0, 0, 0, 1, -1, 0, 0, 0, -1, 1};
+  const int CZ[19] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1, 1, 1, -1, -1, -1, -1, -1};
+#pragma unroll
+  for (int d = 0; d < 19; ++d)
+    prefetch_l2(fa + (d * N + (n + (CZ[d] > 0 ? ozm : CZ[d] < 0 ? ozp : 0) +
+                               (CY[d] > 0 ? oym : CY[d] < 0 ? oyp : 0) +
+                               (CX[d] > 0 ? oxm : CX[d] < 0 ? oxp : 0))));
+}
+
+// One cell of the tiled body: fl its flags, nb the solid bits of its 3x3x3
+// neighbourhood (nb_bit), n its offset in a channel, the o* the offsets of
+// its wrapped neighbours along each axis.
+template <class C, bool kForce, int kNudge, int kSponge, int kWall, bool kTrt,
+          bool kThermal>
+__device__ __forceinline__ void tiled_cell(
+    const typename C::T* __restrict__ fa, typename C::T* __restrict__ fb,
+    uint8_t fl, uint32_t nb, int n, long long N, int z, int y, int x, int Y,
+    int X, int ozm, int ozp, int oym, int oyp, int oxm, int oxp,
+    const float* __restrict__ dyn, const float* __restrict__ nudge_sigma,
+    const uint8_t* __restrict__ nudge_face, const float* __restrict__ uw,
+    const float* __restrict__ ue, const float* __restrict__ us,
+    const float* __restrict__ un, const float* __restrict__ ut,
+    const float* __restrict__ ub, const float* __restrict__ sponge_z,
+    int nudge_vertical, int subgrid, float omega, float tau0, float tau0_sq,
+    float wall_cd, float wall_cd_sides, const ThermArgs& th) {
+  using T = typename C::T;
+  const int CX[19] = {0, 1, -1, 0, 0, 1, -1, 1, -1, 0, 1, -1, 0, 0, 0, -1, 1, 0, 0};
+  const int CY[19] = {0, 0, 0, 1, -1, 1, -1, -1, 1, 0, 0, 0, 1, -1, 0, 0, 0, -1, 1};
+  const int CZ[19] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1, 1, 1, -1, -1, -1, -1, -1};
+  const int OPP[19] = {0, 2, 1, 4, 3, 6, 5, 8, 7, 14, 15, 16, 17, 18, 9, 10, 11, 12, 13};
+  const int CX7[7] = {0, 1, -1, 0, 0, 0, 0};
+  const int CY7[7] = {0, 0, 0, 1, -1, 0, 0};
+  const int CZ7[7] = {0, 0, 0, 0, 0, 1, -1};
+  // the offset from the cell to the cell (dz, dy, dx) away, and whether
+  // that one is solid
+  auto off = [&](int dz, int dy, int dx) {
+    return (dz < 0 ? ozm : dz > 0 ? ozp : 0) + (dy < 0 ? oym : dy > 0 ? oyp : 0) +
+           (dx < 0 ? oxm : dx > 0 ? oxp : 0);
+  };
+  auto solid = [&](int dz, int dy, int dx) -> bool {
+    return (nb >> nb_bit(dz, dy, dx)) & 1u;
+  };
+  const T* __restrict__ ga = static_cast<const T*>(th.ga);
+  T* __restrict__ gb = static_cast<T*>(th.gb);
+
+  if (fl & kTypeS) {
+#pragma unroll
+    for (int d = 0; d < 19; ++d) fb[d * N + n] = C::enc(0.0f);
+    if (kThermal) thermal_zero<C>(gb, n, N);
+    return;
+  }
+  T graw[7];
+  if (kThermal) {
+#pragma unroll
+    for (int d = 0; d < 7; ++d)
+      graw[d] = ga[thermal_pull_index(
+          d, fl, solid(-CZ7[d], -CY7[d], -CX7[d]), n,
+          off(-CZ7[d], -CY7[d], -CX7[d]), N)];
+  }
+  if (kThermal && (fl & kTypeE)) {
+    // frozen f; g collides with the velocity of the cell's own stored
+    // equilibria; no sponge on T here (as the old body)
+    float rho = 0.0f, mx = 0.0f, my = 0.0f, mz = 0.0f;
+#pragma unroll
+    for (int d = 0; d < 19; ++d) {
+      const T v = fa[d * N + n];
+      fb[d * N + n] = v;
+      const float q = C::dec(v);
+      rho = d == 0 ? q : rho + q;
+      if (CX[d] == 1) mx += q; else if (CX[d] == -1) mx -= q;
+      if (CY[d] == 1) my += q; else if (CY[d] == -1) my -= q;
+      if (CZ[d] == 1) mz += q; else if (CZ[d] == -1) mz -= q;
+    }
+    const float inv = 1.0f / (rho + 1.0f);
+    thermal_finish<C>(graw, fl, gb, n, N, y, x, X, mx * inv, my * inv,
+                      mz * inv, 0.0f, th.tt, th.omega_t);
+    return;
+  }
+  if (fl & kTypeE) {  // frozen equilibrium: the stored bits go back unchanged
+#pragma unroll
+    for (int d = 0; d < 19; ++d) fb[d * N + n] = fa[d * N + n];
+    return;
+  }
+
+  // ---- the pull: every element chosen from the mask, every load issued
+  // ---- before any arithmetic
+  float f[19];
+  f[0] = C::load(fa, n);
+#pragma unroll
+  for (int d = 1; d < 19; ++d) {
+    const int src = n + off(-CZ[d], -CY[d], -CX[d]);
+    long long idx = d * N + src;
+    if (solid(-CZ[d], -CY[d], -CX[d])) {
+      if (kWall == 0) {
+        idx = OPP[d] * N + n;
+      } else {
+        idx = solid_source_pick<kWall>(
+            [&](int, int dz, int dy, int dx) { return solid(dz, dy, dx); }, d,
+            n, src, -off(-CZ[d], 0, 0), -off(0, 0, -CX[d]),
+            -off(0, -CY[d], 0), N);
+      }
+    }
+    f[d] = C::load(fa, idx);
+  }
+
+  collide_cell<C, kForce, kNudge, kSponge, kTrt, kThermal>(
+      f, n, z, y, x, Y, X, dyn, nudge_sigma, nudge_face, uw, ue, us, un, ut,
+      ub, sponge_z, nudge_vertical, subgrid, omega, tau0, tau0_sq, th,
+      [&](float& Fx, float& Fy, float& Fz, float ux, float uy, float uz,
+          float rho) {
+        wall_stress_at<kWall>(
+            Fx, Fy, Fz, ux, uy, uz, rho,
+            [&](int dz, int dy, int dx) -> uint8_t {
+              return solid(dz, dy, dx) ? kTypeS : 0;
+            },
+            wall_cd, wall_cd_sides);
+      },
+      [&](float ux, float uy, float uz) {
+        return thermal_finish<C>(graw, fl, gb, n, N, y, x, X, ux, uy, uz,
+                                 sponge_z != nullptr ? sponge_z[z] : 0.0f,
+                                 th.tt, th.omega_t);
+      },
+      [&](int d, float v) { fb[d * N + n] = C::enc(v); });
+}
+
+// The shape of a codec's thermal or other instances.
+template <class C>
+__host__ __device__ constexpr TileShape tile_shape_of(bool thermal) {
+  return tile_shape(thermal, sizeof(typename C::T) == 4);
+}
+
+// kNudge / kSponge as in stream_collide_kernel (the instances take 2: on
+// where the pointer is set).  Block (TX, TY) and KZ planes per block from
+// tile_shape_of, grid (x tiles, y tiles, z chunks of KZ planes).
+template <class C, bool kForce, int kNudge, int kSponge, int kWall, bool kTrt,
+          bool kThermal>
+__global__ void __launch_bounds__(tile_shape_of<C>(kThermal).tx *
+                                      tile_shape_of<C>(kThermal).ty,
+                                  tile_shape_of<C>(kThermal).min_blocks)
+stream_collide_tiled_kernel(
+    const typename C::T* __restrict__ fa, typename C::T* __restrict__ fb,
+    const uint8_t* __restrict__ flags, const float* __restrict__ dyn,
+    const float* __restrict__ nudge_sigma,
+    const uint8_t* __restrict__ nudge_face, const float* __restrict__ uw,
+    const float* __restrict__ ue, const float* __restrict__ us,
+    const float* __restrict__ un, const float* __restrict__ ut,
+    const float* __restrict__ ub, const float* __restrict__ sponge_z, int Z,
+    int Y, int X, int nudge_vertical, int subgrid, float omega, float tau0,
+    float tau0_sq, float wall_cd, float wall_cd_sides, ThermArgs th) {
+  constexpr TileShape kShape = tile_shape_of<C>(kThermal);
+  constexpr int TX = kShape.tx, TY = kShape.ty, KZ = kShape.kz;
+  __shared__ __align__(16) uint8_t ring[3][ring_plane_bytes(kShape)];
+  __shared__ uint8_t shift[3][TY + 2];
+
+  const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * TX + tx;
+  const int x0 = blockIdx.x * TX, y0 = blockIdx.y * TY;
+  const int z0 = blockIdx.z * KZ, z1 = min(z0 + KZ, Z);
+  const int txn = min(TX, X - x0), tyn = min(TY, Y - y0);
+  const int R = TX + 8;
+  const bool live = tx < txn && ty < tyn;
+  const int x = x0 + tx, y = y0 + ty;
+  const int plane = Y * X;
+  const long long N = (long long)Z * plane;
+  const int oxm = x == 0 ? X - 1 : -1, oxp = x == X - 1 ? 1 - X : 1;
+  const int oym = y == 0 ? (Y - 1) * X : -X, oyp = y == Y - 1 ? (1 - Y) * X : X;
+
+  // the ring's first three planes: z0 - 1, z0, z0 + 1 (wrapped)
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    uint8_t v;
+    const int pos = ring_fetch(ring[j], shift[j], flags, wrap(z0 - 1 + j, Z),
+                               tid, x0, y0, txn, tyn, TX, X, Y, v);
+    if (pos >= 0) ring[j][pos] = v;
+  }
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncthreads();
+
+  int sm = 0, s0 = 1, sp = 2;  // ring planes of z - 1, z, z + 1
+  for (int z = z0; z < z1; ++z) {
+    uint8_t fl = 0;
+    uint32_t nb = 0;
+    if (live) {
+      const int sl[3] = {sm, s0, sp};
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+#pragma unroll
+        for (int b = 0; b < 3; ++b) {
+          const int row = ty + b;
+          const uint8_t* p = ring[sl[a]] + row * R + shift[sl[a]][row] + tx;
+          const int bit = a * 9 + b * 3;
+          nb |= ((uint32_t)(p[0] & kTypeS) << bit) |
+                ((uint32_t)(p[1] & kTypeS) << (bit + 1)) |
+                ((uint32_t)(p[2] & kTypeS) << (bit + 2));
+          if (a == 1 && b == 1) fl = p[1];
+        }
+      }
+    }
+    __syncthreads();  // the plane of z - 1 is free: fetch z + 2 into it
+    const bool more = z + 1 < z1;
+    int pos = -1;
+    uint8_t v = 0;
+    if (more) {
+      pos = ring_fetch(ring[sm], shift[sm], flags, wrap(z + 2, Z), tid, x0, y0,
+                       txn, tyn, TX, X, Y, v);
+      __pipeline_commit();
+    }
+    constexpr int kAhead = kShape.prefetch;
+    if (live && kAhead > 0 && z + kAhead < z1) {
+      const int zq = z + kAhead;
+      prefetch_cell<C>(fa, (zq * Y + y) * X + x, N,
+                       zq == 0 ? (Z - 1) * plane : -plane,
+                       zq == Z - 1 ? (1 - Z) * plane : plane, oym, oyp, oxm,
+                       oxp);
+    }
+    if (live) {
+      tiled_cell<C, kForce, kNudge, kSponge, kWall, kTrt, kThermal>(
+          fa, fb, fl, nb, (z * Y + y) * X + x, N, z, y, x, Y, X,
+          z == 0 ? (Z - 1) * plane : -plane,
+          z == Z - 1 ? (1 - Z) * plane : plane, oym, oyp, oxm, oxp, dyn,
+          nudge_sigma, nudge_face, uw, ue, us, un, ut, ub, sponge_z,
+          nudge_vertical, subgrid, omega, tau0, tau0_sq, wall_cd,
+          wall_cd_sides, th);
+    }
+    if (more) {
+      if (pos >= 0) ring[sm][pos] = v;
+      __pipeline_wait_prior(0);
+    }
+    __syncthreads();
+    const int t = sm;
+    sm = s0;
+    s0 = sp;
+    sp = t;
+  }
+}
+
+template <class C, bool kForce, int kNudge, int kSponge, int kWall, bool kTrt,
+          bool kThermal>
+cudaError_t sc_launch_tiled(const ScArgs& a, cudaStream_t stream) {
+  using T = typename C::T;
+  constexpr TileShape t = tile_shape_of<C>(kThermal);
+  if ((long long)a.Z * a.Y * a.X > INT_MAX) return cudaErrorInvalidValue;
+  const dim3 grid((a.X + t.tx - 1) / t.tx, (a.Y + t.ty - 1) / t.ty,
+                  (a.Z + t.kz - 1) / t.kz);
+  stream_collide_tiled_kernel<C, kForce, kNudge, kSponge, kWall, kTrt,
+                              kThermal><<<grid, dim3(t.tx, t.ty), 0, stream>>>(
+      static_cast<const T*>(a.fa), static_cast<T*>(a.fb), a.flags, a.dyn,
+      a.nudge_sigma, a.nudge_face, a.uw, a.ue, a.us, a.un, a.ut, a.ub,
+      a.sponge_z, a.Z, a.Y, a.X, a.nudge_vertical, a.subgrid, a.omega,
+      a.tau0, a.tau0_sq, a.wall_cd, a.wall_cd_sides, a.th);
+  return cudaGetLastError();
+}
+
+}  // namespace luw

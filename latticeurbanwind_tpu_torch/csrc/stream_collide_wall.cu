@@ -6,8 +6,8 @@
 // specular reflection (:636-650) and Schumann stress (:678-686), the
 // vertical faces' mirrors (wall_sides, :618-635) and side stress
 // (:687-703), and the two-relaxation-time collision (:890-902).  The kernel
-// is the template of stream_collide.cuh; this unit instantiates it for
-// those configurations, each in the four storage codecs, and
+// is the tiled body of stream_collide_tiled.cuh; this unit instantiates it
+// for those configurations, each in the four storage codecs, and
 // stream_collide.cu's entry point dispatches here (the VK site pass then
 // runs after these instances as after the others).
 //
@@ -19,13 +19,12 @@
 // is the side stress (on where wall_cd_sides > 0), which keeps the count at
 // 6 per codec instead of 29 with those switches as template arguments.
 //
-// Bound on the H100: device memory, as the plain step: the mirrors read the
-// previous step's DDFs and flags of cells next to the ones the pull already
-// reads (L1/L2), and TRT adds ~60 flops per cell to the ~300 of SRT + LES.
-// Measured: +6% (wall_model), +38% (wall_sides), +13% (TRT) per step over
-// the no-wall instance at 256^3 bf16 with nudge + sponge (PERF.md).
+// Bound on the H100: device memory, as the plain step: a mirror reads a DDF
+// element in place of the bounce-back one, the partners' flags come from the
+// tiled body's shared-memory ring, and TRT adds ~60 flops per cell to the
+// ~300 of SRT + LES.  Measured times are in PERF.md.
 
-#include "stream_collide.cuh"
+#include "stream_collide_tiled.cuh"
 
 namespace luw {
 
@@ -34,14 +33,14 @@ cudaError_t sc_dispatch_wall(const ScArgs& a, cudaStream_t stream) {
   if (!a.volume_force) {
     if (a.has_nudge || a.has_sponge || a.wall || !a.trt)
       return cudaErrorInvalidValue;
-    return sc_launch<C, false, 0, 0, 0, true>(a, stream);
+    return sc_launch_tiled<C, false, 0, 0, 0, true, false>(a, stream);
   }
   switch (a.wall * 2 + (a.trt ? 1 : 0)) {
-    case 1: return sc_launch<C, true, 2, 2, 0, true>(a, stream);
-    case 2: return sc_launch<C, true, 2, 2, 1, false>(a, stream);
-    case 3: return sc_launch<C, true, 2, 2, 1, true>(a, stream);
-    case 4: return sc_launch<C, true, 2, 2, 2, false>(a, stream);
-    case 5: return sc_launch<C, true, 2, 2, 2, true>(a, stream);
+    case 1: return sc_launch_tiled<C, true, 2, 2, 0, true, false>(a, stream);
+    case 2: return sc_launch_tiled<C, true, 2, 2, 1, false, false>(a, stream);
+    case 3: return sc_launch_tiled<C, true, 2, 2, 1, true, false>(a, stream);
+    case 4: return sc_launch_tiled<C, true, 2, 2, 2, false, false>(a, stream);
+    case 5: return sc_launch_tiled<C, true, 2, 2, 2, true, false>(a, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -23,10 +23,13 @@
 //
 // In a halo-mode slab (kHalo) the z pulls that leave the slab read the
 // neighbouring slabs' planes (HaloArgs of lattice.cuh) instead of wrapping.
+// thermal_cell serves the old body (halo mode); the tiled body takes the
+// same work in two halves, thermal_pull_index with its f pulls and
+// thermal_finish after the forces, and both end in thermal_relax.
 //
 // Bound: device memory, with the step: 2 * 7 * sizeof(storage) bytes per
 // cell on top of the step's 2 * 19 * sizeof(storage) + 1; ~40 flops.  The g
-// block runs between the step's forces and its Guo half-step and writes g
+// relax runs between the step's forces and its Guo half-step and writes g
 // before the f collision starts, so beyond its own few values only T
 // outlives it.
 
@@ -55,6 +58,35 @@ __device__ __forceinline__ void thermal_zero(typename C::T* __restrict__ gb,
                                              long long n, long long N) {
 #pragma unroll
   for (int d = 0; d < 7; ++d) gb[d * N + n] = C::enc(0.0f);
+}
+
+// The relax half of a cell's D3Q7 update, from its pulled populations g
+// (decoded): T = 1 + sum g, the sponge toward tt(y, x) at rate sig_t (tt
+// null: none), g_post = (1 - omega_t) g + omega_t g_eq written to gb at
+// cell n (channel stride N); returns T.  I is the cell offset's type.
+template <class C, class I>
+__device__ __forceinline__ float thermal_relax(
+    const float (&g)[7], typename C::T* __restrict__ gb, I n, long long N,
+    int y, int x, int X, float ux, float uy, float uz, float sig_t,
+    const float* __restrict__ tt, float omega_t) {
+  float T = g[0];
+#pragma unroll
+  for (int d = 1; d < 7; ++d) T += g[d];
+  T += 1.0f;
+  if (tt != nullptr) T += sig_t * (tt[(long long)y * X + x] - T);
+
+  const float tm1 = T - 1.0f;
+  const float tq = 0.125f * tm1;
+  const float one_m_w = 1.0f - omega_t;
+  const float cu[3] = {0.5f * T * ux, 0.5f * T * uy, 0.5f * T * uz};
+  gb[n] = C::enc(one_m_w * g[0] + omega_t * (0.25f * tm1));
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const int d = 1 + 2 * a;
+    gb[d * N + n] = C::enc(one_m_w * g[d] + omega_t * (tq + cu[a]));
+    gb[(d + 1) * N + n] = C::enc(one_m_w * g[d + 1] + omega_t * (tq - cu[a]));
+  }
+  return T;
 }
 
 // kHalo: a halo-mode slab (lattice.cuh HaloArgs): the +z pull at z = 0
@@ -105,24 +137,47 @@ __device__ __forceinline__ float thermal_cell(
     g[d] = (flags[src] & kTypeS) ? C::load(ga, (long long)OPP[d] * N + n)
                                  : C::load(ga, (long long)d * N + src);
   }
-  float T = g[0];
-#pragma unroll
-  for (int d = 1; d < 7; ++d) T += g[d];
-  T += 1.0f;
-  if (tt != nullptr) T += sig_t * (tt[(long long)y * X + x] - T);
+  return thermal_relax<C>(g, gb, n, N, y, x, X, ux, uy, uz, sig_t, tt,
+                          omega_t);
+}
 
-  const float tm1 = T - 1.0f;
-  const float tq = 0.125f * tm1;
-  const float one_m_w = 1.0f - omega_t;
-  const float cu[3] = {0.5f * T * ux, 0.5f * T * uy, 0.5f * T * uz};
-  gb[n] = C::enc(one_m_w * g[0] + omega_t * (0.25f * tm1));
+
+// The tiled body's two halves of thermal_cell (stream_collide_tiled.cuh),
+// so that the g loads go out with the f loads and the relax runs where
+// thermal_cell's does, after the forces.  thermal_pull_index: the element
+// of ga that D3Q7 direction d takes at cell n -- its own g_d at a TYPE_T
+// cell (kept bit for bit), else g_d of the source n + src_off or, where
+// that source is solid, its own g_opp(d).
+template <class I>
+__device__ __forceinline__ long long thermal_pull_index(
+    int d, uint8_t fl, bool src_solid, I n, I src_off, long long N) {
+  const int OPP[7] = {0, 2, 1, 4, 3, 6, 5};
+  if (d == 0 || (fl & kTypeT)) return d * N + n;
+  return src_solid ? OPP[d] * N + n : d * N + (n + src_off);
+}
+
+// thermal_finish: from the pulled stored values graw, a TYPE_T cell writes
+// them back unchanged and reports T = 1 + the sum of its populations; any
+// other cell decodes them and relaxes (thermal_relax).  Returns T.
+template <class C, class I>
+__device__ __forceinline__ float thermal_finish(
+    const typename C::T (&graw)[7], uint8_t fl, typename C::T* __restrict__ gb,
+    I n, long long N, int y, int x, int X, float ux, float uy, float uz,
+    float sig_t, const float* __restrict__ tt, float omega_t) {
+  if (fl & kTypeT) {
+    float t_own = 0.0f;
 #pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    const int d = 1 + 2 * a;
-    gb[d * N + n] = C::enc(one_m_w * g[d] + omega_t * (tq + cu[a]));
-    gb[(d + 1) * N + n] = C::enc(one_m_w * g[d + 1] + omega_t * (tq - cu[a]));
+    for (int d = 0; d < 7; ++d) {
+      gb[d * N + n] = graw[d];
+      t_own = d == 0 ? C::dec(graw[d]) : t_own + C::dec(graw[d]);
+    }
+    return t_own + 1.0f;
   }
-  return T;
+  float g[7];
+#pragma unroll
+  for (int d = 0; d < 7; ++d) g[d] = C::dec(graw[d]);
+  return thermal_relax<C>(g, gb, n, N, y, x, X, ux, uy, uz, sig_t, tt,
+                          omega_t);
 }
 
 }  // namespace luw

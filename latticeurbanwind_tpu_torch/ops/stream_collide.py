@@ -519,7 +519,8 @@ def stream_collide(fi: torch.Tensor, flags: torch.Tensor, dyn: torch.Tensor,
     `stream_collide.launches_wall`; thermal, an instance of
     `csrc/stream_collide_thermal.cu`, in `stream_collide.launches_thermal`;
     halo mode, an instance of `csrc/stream_collide_halo.cu`, in
-    `stream_collide.launches_halo`)."""
+    `stream_collide.launches_halo`).  The thermal, wall-model and TRT
+    instances are the tiled body (`csrc/stream_collide_tiled.cuh`)."""
     check_config(config, forcing, vk)
     if fi.device.type not in ("cpu", "cuda"):
         raise NotImplementedError(f"no stream-collide kernel for {fi.device}")

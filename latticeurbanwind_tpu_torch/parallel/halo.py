@@ -58,28 +58,31 @@ def exchange_ghosts(bufs: List[torch.Tensor], mesh: DomainMesh) -> None:
     """Refresh the ghost lanes and rows of every shard's (..., Z, Y, X)
     buffer from its neighbours' boundary cells, in place: x first, then y
     over the whole (x-ghost-extended) width, so corners come from the
-    diagonal neighbour."""
-    (_, yl, xl), (gy, gx) = mesh.box, mesh.ghosts
+    diagonal neighbour.  Each shard's last own row or lane sits one before
+    its upper ghost, whatever its box."""
+    gy, gx = mesh.ghosts
     b = [_bits(t) for t in bufs]
     if gx:
         for i in range(mesh.n):
-            b[i][..., 0].copy_(b[mesh.neighbour(i, 2, -1)][..., xl])
-            b[i][..., xl + 1].copy_(b[mesh.neighbour(i, 2, 1)][..., 1])
+            b[i][..., 0].copy_(b[mesh.neighbour(i, 2, -1)][..., -2])
+            b[i][..., -1].copy_(b[mesh.neighbour(i, 2, 1)][..., 1])
     if gy:
         for i in range(mesh.n):
-            b[i][..., 0, :].copy_(b[mesh.neighbour(i, 1, -1)][..., yl, :])
-            b[i][..., yl + 1, :].copy_(b[mesh.neighbour(i, 1, 1)][..., 1, :])
+            b[i][..., 0, :].copy_(b[mesh.neighbour(i, 1, -1)][..., -2, :])
+            b[i][..., -1, :].copy_(b[mesh.neighbour(i, 1, 1)][..., 1, :])
 
 
 class _Halos:
     """The z halos of every shard: views into the neighbours' buffers on
-    one device, copies into buffers kept per shard across devices."""
+    one device, copies into buffers kept per shard across devices.  The
+    halo below is the lower neighbour's own last plane, the one above the
+    upper neighbour's first (z carries no ghosts, whatever the slabs'
+    depths)."""
 
     def __init__(self, mesh: DomainMesh, flags: List[torch.Tensor]):
         self.mesh = mesh
         self.scratch = {}
-        zl = mesh.box[0]
-        self.flb = [self._take(i, "flb", flags[mesh.neighbour(i, 0, -1)][zl - 1])
+        self.flb = [self._take(i, "flb", flags[mesh.neighbour(i, 0, -1)][-1])
                     for i in range(mesh.n)]
         self.fla = [self._take(i, "fla", flags[mesh.neighbour(i, 0, 1)][0])
                     for i in range(mesh.n)]
@@ -97,16 +100,15 @@ class _Halos:
 
     def __call__(self, cur, gcur) -> List[ZHalo]:
         mesh = self.mesh
-        zl = mesh.box[0]
         gy, gx = mesh.ghosts
         out = []
         for i in range(mesh.n):
             below, above = mesh.neighbour(i, 0, -1), mesh.neighbour(i, 0, 1)
             gp = gm = None
             if gcur is not None:
-                gp = self._take(i, "gp", gcur[below][5, zl - 1])
+                gp = self._take(i, "gp", gcur[below][5, -1])
                 gm = self._take(i, "gm", gcur[above][6, 0])
-            out.append(ZHalo(fp=self._take(i, "fp", cur[below][9:14, zl - 1]),
+            out.append(ZHalo(fp=self._take(i, "fp", cur[below][9:14, -1]),
                              fm=self._take(i, "fm", cur[above][14:19, 0]),
                              flb=self.flb[i], fla=self.fla[i], gp=gp, gm=gm,
                              gy=gy, gx=gx))
@@ -117,7 +119,7 @@ def _box(a: torch.Tensor, mesh: DomainMesh, i: int, dims) -> torch.Tensor:
     """Shard i's part of a global tensor whose axis k runs along mesh axis
     dims[k] (0 z, 1 y, 2 x; None: kept whole), zero over the ghosts, on the
     shard's device."""
-    box, origin, ghosts = mesh.box, mesh.origin(i), (0, *mesh.ghosts)
+    box, origin, ghosts = mesh.box(i), mesh.origin(i), (0, *mesh.ghosts)
     shape, src, dst = list(a.shape), [], []
     for k, ax in enumerate(dims):
         if ax is None:
@@ -169,16 +171,17 @@ def _shard_sites(spec, mesh: DomainMesh, i: int):
 
 class _FaceSlicer:
     """Every shard's FaceBC from the domain's: per face field one gather of
-    all shards' parts at once (flat indices kept from the build), each part
-    its box edge-padded over the ghosts, as JAX `halo.py:395-417`."""
+    all shards' parts at once (the flat indices of every shard's part, kept
+    from the build, concatenated), each part its box edge-padded over the
+    ghosts, as JAX `halo.py:395-417`."""
 
     def __init__(self, mesh: DomainMesh, home: torch.device):
         Z, Y, X = mesh.shape
-        zl = mesh.box[0]
         self.mesh = mesh
 
         def zrows(i, size, axis):          # (Z, 3, R) face layouts
-            z = torch.arange(mesh.origin(i)[0], mesh.origin(i)[0] + zl)
+            z0, zl = mesh.origin(i)[0], mesh.box(i)[0]
+            z = torch.arange(z0, z0 + zl)
             r = mesh.ghost_index(i, axis, edge=True)
             return (z[:, None, None] * 3 + torch.arange(3)[None, :, None]) \
                 * size + r[None, None, :]
@@ -191,14 +194,16 @@ class _FaceSlicer:
                 return yx
             return torch.arange(3)[:, None, None] * (Y * X) + yx[None]
 
-        def stacked(fn):
-            return torch.stack([fn(i) for i in range(mesh.n)]).to(home)
+        def flat(fn):
+            parts = [fn(i) for i in range(mesh.n)]
+            return (torch.cat([p.reshape(-1) for p in parts]).to(home),
+                    [p.numel() for p in parts], [tuple(p.shape) for p in parts])
 
         self.index = {
-            "y": stacked(lambda i: zrows(i, Y, 1)),
-            "x": stacked(lambda i: zrows(i, X, 2)),
-            "p": stacked(lambda i: plane(i, True)),
-            "t": stacked(lambda i: plane(i, False)),
+            "y": flat(lambda i: zrows(i, Y, 1)),
+            "x": flat(lambda i: zrows(i, X, 2)),
+            "p": flat(lambda i: plane(i, True)),
+            "t": flat(lambda i: plane(i, False)),
         }
 
     def __call__(self, fbc: Optional[FaceBC]) -> List[Optional[FaceBC]]:
@@ -206,9 +211,15 @@ class _FaceSlicer:
             return [None] * self.mesh.n
         which = {"uw": "y", "ue": "y", "us": "x", "un": "x", "ut": "p",
                  "ub": "p", "tt": "t"}
-        parts = {k: None if getattr(fbc, k) is None
-                 else torch.take(getattr(fbc, k), self.index[which[k]])
-                 for k in FaceBC._fields}
+        parts = {}
+        for k in FaceBC._fields:
+            v = getattr(fbc, k)
+            if v is None:
+                parts[k] = None
+                continue
+            idx, sizes, shapes = self.index[which[k]]
+            parts[k] = [p.view(s) for p, s in
+                        zip(torch.take(v, idx).split(sizes), shapes)]
         out = []
         for i, dev in enumerate(self.mesh.devices):
             out.append(FaceBC(**{k: None if v is None else v[i].to(dev)

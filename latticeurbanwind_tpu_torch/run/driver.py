@@ -27,8 +27,9 @@ the CPU.  Each step is then one K8 launch per shard (`parallel/halo.py`);
 the fields pass and the Welford accumulators run per shard and the fused
 averaging pass is not taken (JAX `run_case` :346); probes read their columns
 from the shards that own them; outputs gather the fields to the host.
-MLUPs count the grid's cells, not the ghosts.  A grid that the split does
-not divide raises.
+MLUPs count the grid's cells, not the ghosts.  A split that does not divide
+the grid gives shards whose sizes differ by one cell (`DomainMesh.edges`,
+numpy.array_split's cuts).
 
 Not ported: checkpoints and video frames each raise when a case asks for
 them; PNG snapshots are left out with one printed line.
@@ -182,9 +183,10 @@ def run_case(case: SolverCase, *, quiet: bool = False) -> RunResult:
         advance, impl_name = make_sharded_runner(
             case.config, case.forcing, mesh, pre_step=case.pre_step)
         if not quiet:
+            shapes = dict.fromkeys(mesh.local_shape(i) for i in range(mesh.n))
             print(f"| Device mesh     | n_gpu={list(case.ngpu)} -> {mesh.n} "
-                  f"shards of {mesh.local_shape} (Z, Y, X with ghosts) on "
-                  f"{sorted({str(d) for d in mesh.devices})}")
+                  f"shards of {' / '.join(map(str, shapes))} (Z, Y, X with "
+                  f"ghosts) on {sorted({str(d) for d in mesh.devices})}")
     else:
         if int(np.prod(case.ngpu)) > 1 and not quiet:
             print(f"| Device mesh     | n_gpu={list(case.ngpu)} requested, "

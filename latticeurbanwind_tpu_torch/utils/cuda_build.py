@@ -11,7 +11,11 @@ together; the shared headers (`.cuh`) are only included:
          -o _build/libluwtorch_<digest>.so _build/<digest>/*.o
 
 The digest is the SHA-256 of every `.cu` and `.cuh`, so an edited kernel or
-header rebuilds and an unchanged tree loads the existing library.  The
+header rebuilds and an unchanged tree loads the existing library.  Extra
+compile flags come from $LUW_NVCC_FLAGS (split on whitespace; each flag and
+the content of each flag that names a file enter the digest): a variant of a
+compile-time choice is built that way without editing the sources, e.g.
+`-include variant.h` that sets the tiled body's shapes (chip_sweep.py).  The
 build log (nvcc's output, `-Xptxas -v` included) ends each command's part
 with a line `# nvcc <source name or link>: <seconds> s`.  A missing
 nvcc or a failed build raises with nvcc's output; nothing falls back.
@@ -75,11 +79,20 @@ def headers() -> list[Path]:
     return sorted(CSRC_DIR.glob("*.cuh"))
 
 
+def extra_flags() -> list[str]:
+    """The compile flags of $LUW_NVCC_FLAGS, split on whitespace."""
+    return os.environ.get("LUW_NVCC_FLAGS", "").split()
+
+
 def source_digest() -> str:
     h = hashlib.sha256()
     for p in sources() + headers():
         h.update(p.name.encode())
         h.update(p.read_bytes())
+    for flag in extra_flags():
+        h.update(flag.encode())
+        if Path(flag).is_file():
+            h.update(Path(flag).read_bytes())
     return h.hexdigest()
 
 
@@ -118,8 +131,8 @@ def build() -> tuple[Path, str]:
     obj_dir.mkdir(parents=True, exist_ok=True)
     srcs = sources()
     objs = [obj_dir / f"{p.stem}.o" for p in srcs]
-    cmds = [[nvcc, *COMPILE_FLAGS, "-I", str(CSRC_DIR), "-c", "-o", str(o),
-             str(p)] for p, o in zip(srcs, objs)]
+    cmds = [[nvcc, *COMPILE_FLAGS, *extra_flags(), "-I", str(CSRC_DIR), "-c",
+             "-o", str(o), str(p)] for p, o in zip(srcs, objs)]
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
     try:
         with ThreadPoolExecutor(max_workers=max(1, len(cmds))) as pool:

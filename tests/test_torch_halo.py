@@ -15,8 +15,12 @@ split over several devices (`parallel/mesh.py`, `parallel/halo.py`).
     `run_deck(device="cpu")` against its unsplit run and the JAX package's
     `run_deck` (the tier of tests/test_torch_vk_deck.py) at the 2e-4 m/s of
     tests/test_run_layer.py:193;
-  * the device rule, a split that does not divide the grid, the shard /
-    gather round trip and the probe columns read from their shards;
+  * splits that do not divide the grid (uneven shards, numpy.array_split's
+    cuts): the example deck split [1, 1, 3] against its unsplit run and the
+    JAX package's, the sharded runner on uneven splits of every axis, and
+    the shard / gather round trip with each shard's box;
+  * the device rule, the shard / gather round trip and the probe columns
+    read from their shards;
   * shards on devices other than their tensors' own (the copy branch of
     the cross-device halos), the runner's stages against its step, and the
     whole-domain state built on the host for a run over several cards.
@@ -211,7 +215,8 @@ CONFIGS = {
 }
 
 
-def _single_and_split(name, split, storage="f32", steps=4, device="cpu"):
+def _single_and_split(name, split, storage="f32", steps=4, device="cpu",
+                      shape=None):
     from latticeurbanwind_tpu_torch.lbm.fields import update_fields
     from latticeurbanwind_tpu_torch.lbm.stepper import make_runner
     from latticeurbanwind_tpu_torch.parallel import (
@@ -222,7 +227,7 @@ def _single_and_split(name, split, storage="f32", steps=4, device="cpu"):
     )
 
     c = CONFIGS[name]
-    cfg, st, frc, dyn = _case(c.get("shape", (8, 32, 128)), storage,
+    cfg, st, frc, dyn = _case(shape or c.get("shape", (8, 32, 128)), storage,
                               seed=c.get("seed", 0),
                               forcing=c.get("forcing", True), **c.get("kw", {}))
     pre = _hook(st) if c.get("hook") else None
@@ -394,24 +399,22 @@ def _deck_copy(dst: Path, n_gpu) -> Path:
     return dst / "conf.luwpf"
 
 
-def test_split_profile_deck_matches_unsplit_run_and_jax(tmp_path, capsys):
-    """The example profile deck at 24 m cells (27x27x8: 60 m would leave 2
-    planes, one per slab, which the JAX package's Pallas tier refuses), VK
-    inlet on, n_gpu = [1, 1, 2] through the port on the CPU: the unsplit
-    run's final DDFs and raw VTKs exactly and its averages at fluid cells
-    within the fused pass's 1e-5; the JAX package's raw VTKs within 1e-4
-    and its averages within 2e-4."""
+def _split_deck_matches(tmp_path, capsys, n_gpu, line, jax_n_gpu):
+    """The example deck at 24 m cells split `n_gpu` through the port on the
+    CPU, against its unsplit run (final DDFs and raw VTKs exactly, averages
+    at fluid cells within the fused pass's 1e-5) and the JAX package's run
+    split `jax_n_gpu` (raw VTKs within 1e-4, averages within 2e-4)."""
     from latticeurbanwind_tpu.io import read_structured_points
     from latticeurbanwind_tpu.run import run_deck as jax_run_deck
     from latticeurbanwind_tpu_torch.run.modes import run_deck
 
-    split = run_deck(_deck_copy(tmp_path / "split", "[1, 1, 2]"), device="cpu")
+    split = run_deck(_deck_copy(tmp_path / "split", n_gpu), device="cpu")
     out = capsys.readouterr().out
-    assert "| Device mesh     | n_gpu=[1, 1, 2] -> 2 shards of (4, 27, 27)" in out
+    assert line in out
     assert "impl=plain-sharded" in out and "faces=[0, 1, 2, 3]" in out
     whole = run_deck(_deck_copy(tmp_path / "whole", "[1, 1, 1]"), device="cpu",
                      quiet=True)
-    ref = jax_run_deck(_deck_copy(tmp_path / "jax", "[1, 1, 2]"), impl="pallas",
+    ref = jax_run_deck(_deck_copy(tmp_path / "jax", jax_n_gpu), impl="pallas",
                        quiet=True)
     got = {f.name: f for r in split for f in r.files if f.suffix == ".vtk"}
     same = {f.name: f for r in whole for f in r.files if f.suffix == ".vtk"}
@@ -442,17 +445,81 @@ def test_split_profile_deck_matches_unsplit_run_and_jax(tmp_path, capsys):
                                        err_msg=f"{name}:{key}")
 
 
-def test_split_that_does_not_divide_the_grid_raises(tmp_path):
-    from latticeurbanwind_tpu_torch.parallel import domain_mesh
-    from latticeurbanwind_tpu_torch.run.modes import run_deck
+def test_split_profile_deck_matches_unsplit_run_and_jax(tmp_path, capsys):
+    """The example profile deck at 24 m cells (27x27x8: 60 m would leave 2
+    planes, one per slab, which the JAX package's Pallas tier refuses), VK
+    inlet on, n_gpu = [1, 1, 2]: equal to the unsplit run, close to the JAX
+    package's run split the same way."""
+    _split_deck_matches(tmp_path, capsys, "[1, 1, 2]",
+                        "| Device mesh     | n_gpu=[1, 1, 2] -> 2 shards of "
+                        "(4, 27, 27)", "[1, 1, 2]")
 
-    with pytest.raises(NotImplementedError,
-                       match=r"grid 27x27x8 .*n_gpu=\[1, 1, 3\]"):
-        run_deck(_deck_copy(tmp_path / "odd", "[1, 1, 3]"), device="cpu",
-                 quiet=True)
-    assert not (tmp_path / "odd" / "RESULTS").exists()
-    with pytest.raises(NotImplementedError, match=r"grid 27x27x8 .*\[2, 1, 1\]"):
-        domain_mesh((2, 1, 1), (8, 27, 27), "cpu")
+
+def test_split_that_does_not_divide_the_grid_raises(tmp_path, capsys):
+    """A split that does not divide the grid runs (the name dates from when
+    it raised; only a split that leaves a shard empty still does): the deck
+    of the test above split n_gpu = [1, 1, 3] (8 planes: slabs of 3, 3 and
+    2) runs on uneven shards and equals the unsplit run.  The JAX package
+    cannot place that split itself (its `shard_state` puts an axis of 8
+    over 3 devices, which `jax.device_put` refuses), so the port is held to
+    the JAX package's unsplit run of the same deck; `domain_mesh` cuts an
+    axis as numpy.array_split does."""
+    from latticeurbanwind_tpu_torch.parallel import domain_mesh
+
+    _split_deck_matches(tmp_path, capsys, "[1, 1, 3]",
+                        "| Device mesh     | n_gpu=[1, 1, 3] -> 3 shards of "
+                        "(3, 27, 27) / (2, 27, 27)", "[1, 1, 1]")
+    m = domain_mesh((2, 1, 1), (8, 27, 27), "cpu")
+    assert [m.box(i) for i in range(2)] == [(8, 27, 14), (8, 27, 13)]
+    with pytest.raises(ValueError, match=r"grid 27x27x8 .*\[1, 1, 9\]"):
+        domain_mesh((1, 1, 9), (8, 27, 27), "cpu")
+
+
+# splits that divide no axis they cut: the y / x ghosts and z halos between
+# shards of different sizes (numpy.array_split's cuts)
+UNEVEN = [((2, 3, 1), (8, 23, 29)), ((3, 1, 2), (9, 22, 31)),
+          ((1, 2, 3), (7, 21, 45))]
+
+
+@pytest.mark.parametrize("split,shape", UNEVEN,
+                         ids=lambda v: "x".join(map(str, v)))
+@pytest.mark.parametrize("name", ["forcing+vk", "wall_sides", "thermal"])
+def test_sharded_runner_on_an_uneven_split_equals_single_device_step(
+        name, split, shape):
+    cfg, single, split_state = _single_and_split(name, split, shape=shape)
+    assert _equal(split_state.fi, single.fi)
+    for k in ("rho", "u") + (("gi", "T") if cfg.thermal else ()):
+        assert _equal(getattr(split_state, k), getattr(single, k)), k
+
+
+@pytest.mark.parametrize("split,shape", UNEVEN,
+                         ids=lambda v: "x".join(map(str, v)))
+def test_uneven_shard_and_gather_round_trip(split, shape):
+    """Each shard's box is numpy.array_split's piece of every axis; its
+    tensors are that box with one ghost row / lane on each side of a split
+    y / x axis; gathering the shards gives back the state."""
+    from latticeurbanwind_tpu_torch.parallel import (
+        domain_mesh, gather_state, shard_state,
+    )
+
+    cfg, st, _, _ = _case(shape, "bf16", **THERMAL)
+    mesh = domain_mesh(split, shape, "cpu")
+    dx, dy, dz = split
+    pieces = [np.array_split(np.arange(n), c)
+              for n, c in zip(shape, (dz, dy, dx))]
+    ss = shard_state(st, mesh)
+    gy, gx = mesh.ghosts
+    for i, sh in enumerate(ss.shards):
+        zi, yi, xi = mesh.coords(i)
+        want = tuple(len(pieces[a][c]) for a, c in enumerate((zi, yi, xi)))
+        assert mesh.box(i) == want
+        assert mesh.origin(i) == tuple(int(pieces[a][c][0])
+                                       for a, c in enumerate((zi, yi, xi)))
+        assert tuple(sh.fi.shape) == (19, want[0], want[1] + 2 * gy,
+                                      want[2] + 2 * gx) == (19, *mesh.local_shape(i))
+    back = gather_state(ss)
+    for k in st._fields:
+        assert _equal(getattr(back, k), getattr(st, k)), k
 
 
 # ----------------------------------------- the device rule, the mesh
@@ -480,7 +547,7 @@ def test_device_rule(monkeypatch):
     # shards in (z, y, x) order, their boxes and ghost-extended shapes
     assert [m.origin(i) for i in range(4)] == [(0, 0, 0), (0, 4, 0),
                                                (2, 0, 0), (2, 4, 0)]
-    assert m.local_shape == (2, 6, 8) and m.ghosts == (1, 0)
+    assert m.local_shape(0) == (2, 6, 8) and m.ghosts == (1, 0)
 
 
 def test_whole_domain_is_built_on_the_host_for_several_cards(monkeypatch):
@@ -515,14 +582,20 @@ def test_shard_and_gather_round_trip(storage):
     assert _equal(ss.shards[0].flags[:, 1:-1, 0], st.flags[:2, :3, 9])
 
 
-def test_probe_columns_come_from_their_shards():
+@pytest.mark.parametrize("split,shape", [((2, 2, 3), (6, 8, 12)),
+                                         ((3, 2, 2), (7, 9, 13))],
+                         ids=["even", "uneven"])
+def test_probe_columns_come_from_their_shards(split, shape):
+    """Every column from the shards that own it, at the edges of their
+    boxes too; the uneven split's boxes differ in size along every axis."""
     from latticeurbanwind_tpu_torch.parallel import domain_mesh, shard_state
     from latticeurbanwind_tpu_torch.parallel.mesh import column_reader
 
-    _, st, _, _ = _case((6, 8, 12))
+    _, st, _, _ = _case(shape)
     st = st._replace(u=torch.randn(st.u.shape))
-    ys, xs = (0, 7, 3, 4), (0, 11, 6, 5)
+    Y, X = shape[1:]
+    ys, xs = (0, Y - 1, 3, 4, 5), (0, X - 1, 6, 5, 4)
     want = st.u[:, :, list(ys), list(xs)].numpy()
-    mesh = domain_mesh((2, 2, 3), (6, 8, 12), "cpu")
+    mesh = domain_mesh(split, shape, "cpu")
     ss = shard_state(st, mesh)
     np.testing.assert_array_equal(column_reader(mesh, ys, xs)(ss), want)

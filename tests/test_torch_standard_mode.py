@@ -304,33 +304,33 @@ def test_standard_mode_needs_the_card_unless_asked_for_the_cpu(tmp_path,
 
 
 def test_standard_mode_refuses_a_device_mesh(tmp_path):
-    """A split that does not divide the grid raises, naming both; one that
-    does runs the `.luw` case sharded (T on, probe, averages) and writes the
-    unsplit run's raw VTKs, probe CSV and averages at fluid cells."""
+    """A device mesh is no longer refused (the name dates from when it
+    was): a split runs the `.luw` case sharded (T on, probe, averages) and
+    writes the unsplit run's raw VTKs, probe CSV and averages at fluid
+    cells: one that divides the 48x42x4 grid, [2, 1, 2], and one that does
+    not, [1, 1, 3] (slabs of 2, 1 and 1 planes)."""
     from latticeurbanwind_tpu.io import read_structured_points
     from latticeurbanwind_tpu_torch.run.modes import run_deck
 
     small = dict(cell_size="64.0", run_nstep="8", purge_avg="4")
-    deck = _prepared_copy(tmp_path / "odd", n_gpu="[1, 1, 3]", **small)
-    with pytest.raises(NotImplementedError,
-                       match=r"grid 48x42x4 .*n_gpu=\[1, 1, 3\]"):
-        run_deck(deck, device="cpu", quiet=True)
-    (split,) = run_deck(_prepared_copy(tmp_path / "split", n_gpu="[2, 1, 2]",
-                                       **small), device="cpu", quiet=True)
     (whole,) = run_deck(_prepared_copy(tmp_path / "whole", **small),
                         device="cpu", quiet=True)
-    assert split.avg.count == whole.avg.count > 0
-    got = {f.name: f for f in split.files}
     want = {f.name: f for f in whole.files}
-    assert sorted(got) == sorted(want)
-    for name in sorted(want):
-        if name.endswith(".csv"):
-            assert got[name].read_text() == want[name].read_text()
-            continue
-        _, fg = read_structured_points(got[name])
-        _, fw = read_structured_points(want[name])
-        for key in fw:      # both runs sample update_fields (T on)
-            np.testing.assert_array_equal(fg[key], fw[key], err_msg=name + key)
+    for n_gpu in ("[2, 1, 2]", "[1, 1, 3]"):
+        (split,) = run_deck(_prepared_copy(tmp_path / n_gpu[1::3], n_gpu=n_gpu,
+                                           **small), device="cpu", quiet=True)
+        assert split.avg.count == whole.avg.count > 0
+        got = {f.name: f for f in split.files}
+        assert sorted(got) == sorted(want)
+        for name in sorted(want):
+            if name.endswith(".csv"):
+                assert got[name].read_text() == want[name].read_text()
+                continue
+            _, fg = read_structured_points(got[name])
+            _, fw = read_structured_points(want[name])
+            for key in fw:      # both runs sample update_fields (T on)
+                np.testing.assert_array_equal(fg[key], fw[key],
+                                              err_msg=n_gpu + name + key)
 
 
 def test_thermal_run_samples_fields_not_the_fused_pass(tmp_path, monkeypatch):

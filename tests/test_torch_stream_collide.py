@@ -307,7 +307,8 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
         "stream_collide_halo.cu", "stream_collide_halo_thermal.cu",
         "stream_collide_thermal.cu", "stream_collide_wall.cu"]
     assert [p.name for p in cuda_build.headers()] == [
-        "codec.cuh", "lattice.cuh", "stream_collide.cuh", "thermal.cuh"]
+        "codec.cuh", "lattice.cuh", "stream_collide.cuh",
+        "stream_collide_tiled.cuh", "thermal.cuh"]
 
 
 def test_kernel_build_compiles_translation_units_only(monkeypatch, tmp_path):
@@ -351,6 +352,146 @@ def test_kernel_build_compiles_translation_units_only(monkeypatch, tmp_path):
     calls.clear()
     lib2, _ = cuda_build.build()
     assert lib2 != lib and len(calls) == len(cuda_build.sources()) + 1
+
+
+def test_extra_nvcc_flags_reach_every_compile_and_the_digest(monkeypatch,
+                                                            tmp_path):
+    """$LUW_NVCC_FLAGS (how a variant of a compile-time choice is built)
+    reaches every compile and not the link, and the flags and the content of
+    a file they name enter the digest: another variant names another
+    library."""
+    import shutil
+
+    from latticeurbanwind_tpu_torch.utils import cuda_build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(cuda_build.CSRC_DIR, csrc)
+    monkeypatch.setattr(cuda_build, "CSRC_DIR", csrc)
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(cuda_build, "find_nvcc", lambda: "fake-nvcc")
+    calls = []
+
+    def fake_run(cmd, capture_output=True, text=True):
+        calls.append(list(cmd))
+        Path(cmd[cmd.index("-o") + 1]).write_bytes(b"")
+        return subprocess.CompletedProcess(cmd, 0, "ok\n", "")
+
+    monkeypatch.setattr(cuda_build.subprocess, "run", fake_run)
+    monkeypatch.delenv("LUW_NVCC_FLAGS", raising=False)
+    plain = cuda_build.source_digest()
+    variant = tmp_path / "variant.h"
+    variant.write_text("#define LUW_TILE_THERMAL 128, 1, 4, 4, 0\n")
+    monkeypatch.setenv("LUW_NVCC_FLAGS", f" -include  {variant} ")
+    assert cuda_build.extra_flags() == ["-include", str(variant)]
+    digest = cuda_build.source_digest()
+    assert digest != plain
+    lib, _ = cuda_build.build()
+    assert lib.name == f"libluwtorch_{digest}.so"
+    compiles = [c for c in calls if "-c" in c]
+    links = [c for c in calls if "-shared" in c]
+    assert len(compiles) == len(cuda_build.sources()) and len(links) == 1
+    for c in compiles:
+        i = c.index("-include")
+        assert c[i + 1] == str(variant) and i < c.index("-c")
+    assert "-include" not in links[0]
+    variant.write_text("#define LUW_TILE_THERMAL 64, 2, 8, 4, 0\n")
+    assert cuda_build.source_digest() not in (plain, digest)
+
+
+# Every direction table the kernels hold (local arrays in each function, so
+# that the unrolled loops fold each lookup), by name and length.
+_TABLES = ("CX[19]", "CY[19]", "CZ[19]", "OPP[19]", "MX[19]", "MY[19]",
+           "MZ[19]", "CX[7]", "CY[7]", "CZ[7]", "OPP[7]", "CX7[7]", "CY7[7]",
+           "CZ7[7]")
+
+
+def _csrc_tables() -> dict:
+    """{"NAME[n]": [(file, values), ...]}: every `const int NAME[n] = {...}`
+    with an upper-case name in the kernels' sources."""
+    import re
+
+    from latticeurbanwind_tpu_torch.utils import cuda_build
+
+    out = {}
+    for p in cuda_build.sources() + cuda_build.headers():
+        for m in re.finditer(r"const int ([A-Z]\w*)\[(\d+)\] = \{([^}]*)\}",
+                             p.read_text()):
+            out.setdefault(f"{m.group(1)}[{m.group(2)}]", []).append(
+                (p.name, [int(v) for v in m.group(3).split(",")]))
+    return out
+
+
+def _lattice_table(name: str) -> list:
+    """The table `name` from lbm/lattice.py (the mirrors' None as -1)."""
+    from latticeurbanwind_tpu_torch.lbm import lattice as L
+
+    base, n = name.rstrip("]").split("[")
+    c = L.C19 if n == "19" else L.C7
+    axis = {"X": 0, "Y": 1, "Z": 2}
+    if base.startswith("C"):
+        return [int(v) for v in c[:, axis[base[1]]]]
+    if base == "OPP":
+        return [int(v) for v in (L.OPP19 if n == "19" else L.OPP7)]
+    mirror = {"MX": L.MIR_X, "MY": L.MIR_Y, "MZ": L.MIR_Z}[base]
+    return [-1 if m is None else m for m in mirror]
+
+
+@pytest.mark.parametrize("table", _TABLES)
+def test_every_copy_of_a_direction_table_matches_the_lattice(table):
+    """Each copy of a direction table in csrc/ -- the velocities, the
+    opposites and the wall models' mirrors, which solid_source_index (the
+    old body, K-AVG), solid_source_pick (the tiled body) and halo_source
+    (K8) each hold -- equals lbm/lattice.py's, so the copies cannot drift
+    apart."""
+    copies = _csrc_tables()[table]
+    want = _lattice_table(table)
+    assert copies
+    for name, values in copies:
+        assert values == want, (table, name)
+
+
+def test_no_direction_table_in_the_kernels_goes_unchecked():
+    assert set(_csrc_tables()) == set(_TABLES)
+
+
+def _function_body(name: str) -> str:
+    """The body of the device function `name` in csrc/lattice.cuh."""
+    from latticeurbanwind_tpu_torch.utils import cuda_build
+
+    text = (cuda_build.CSRC_DIR / "lattice.cuh").read_text()
+    i = text.index("{", text.index(f" {name}(", text.index("__device__")))
+    depth = 0
+    for j in range(i, len(text)):
+        depth += {"{": 1, "}": -1}.get(text[j], 0)
+        if depth == 0:
+            return text[i:j + 1]
+    raise AssertionError(name)
+
+
+@pytest.mark.parametrize("pair", [
+    ("solid_source_index", "solid_source_pick"),
+    ("solid_source_index", "halo_source"),
+    ("wall_stress", "wall_stress_at")])
+def test_wall_model_helpers_take_the_same_choices(pair):
+    """The wall models' helpers come in a device-memory form (the old body,
+    K-AVG), an accessor form (the tiled body) and a halo form (K8): each
+    pair takes its mirrors under the same conditions in the same priority,
+    or applies the same stress arithmetic under the same conditions."""
+    import re
+
+    def choices(name):
+        body = _function_body(name)
+        if name.startswith("wall_stress"):
+            return ([" ".join(m.split()) for m in re.findall(
+                        r"(?:const float cw\w*|F[xyz]) -?= [^;]*;", body)],
+                    re.findall(r"kWall [=>]= \d(?: && cd_sides > 0.0f)?", body))
+        return (re.findall(r"\b(MZ|MX|MY|OPP)\[d\]", body),
+                re.findall(r"kWall [=>]= \d && C[XYZ]\[d\] [!=]= 1|"
+                           r"kWall [=>]= \d && C[XYZ]\[d\] != 0", body))
+
+    a, b = (choices(n) for n in pair)
+    assert a[0] and a[1]
+    assert a == b
 
 
 def test_wrappers_refuse_devices_without_a_kernel():

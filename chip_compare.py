@@ -6,17 +6,24 @@ Builds both checkouts' kernels (each in its own `_build/`), prints every
 kernel instance's ptxas register count and SASS instruction count (by
 `cuobjdump -sass`) side by side, with the instances named by their
 template arguments so that checkouts whose templates took fewer arguments
-line up (a missing wall, TRT, thermal or halo argument reads as 0), and
-then steps the same two cases in each checkout (bf16, nudge + sponge, VK
-hook sites, 5 steps at CODES_SHAPE: `wall_sides`, and thermal) and counts
-the stored codes of the final f (and g) that differ between the two, and
-then times, in turns (other, this, this, other, ...), the configurations
-both take: K-SC at 256^3 in bf16, f32 and fp16c (flagship), bf16 with
-nudge + sponge, bf16 thermal and bf16 `wall_sides` (both with nudge +
-sponge), K-SC thermal at the NWP deck's grid with VK sites, and K-AVG at
-256^3 in bf16 and fp16c, by CUDA events, each turn in a fresh process of its
-checkout.  The last line is one JSON object with the registers, the code
-comparison and the times.  It exits non-zero without a card.
+line up (a missing wall, TRT, thermal or halo argument reads as 0), and an
+instance of the old step body (`stream_collide_kernel<...>`) lines up with
+the tiled body's instance that runs its configuration (the same arguments,
+nudging and the sponge as run-time switches where those are); then steps the same cases
+in each checkout -- bf16, nudge + sponge, VK hook sites, 5 steps at
+CODES_SHAPE: `wall_sides`, thermal, and the plain configuration (no wall
+model, SRT: K1-K3) in every storage; and the split runner with every shard
+on card 0 (K8, SPLIT of SPLIT_SHAPE, bf16, 6 steps) -- and counts the stored
+codes of the final f (and g) that differ between the two; and then times,
+in turns (other, this, this, other, ...), the configurations both take:
+K-SC at 256^3 in bf16, f32 and fp16c (flagship), bf16 with nudge + sponge,
+bf16 thermal and bf16 `wall_sides` (both with nudge + sponge), K-SC thermal
+at the NWP deck's grid with VK sites, K-SC (K1-K3) with VK sites at the
+profile deck's grid in bf16 and fp16c (as `vk-bf16-400` and `vk-fp16c-200`
+run it) and at the NWP deck's grid, K8 at the split deck's shard, and
+K-AVG at 256^3 in bf16 and fp16c, by CUDA events, each turn in a fresh process of its checkout.  The last line
+is one JSON object with the registers, the code comparison and the times.
+It exits non-zero without a card.
 """
 
 from __future__ import annotations
@@ -32,11 +39,14 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 CODES_SHAPE = (40, 120, 200)      # the code comparison's grid
+SPLIT_SHAPE = (24, 72, 136)       # the split runner's grid and its
+SPLIT = (1, 2, 5)                 # [Dx, Dy, Dz]: uneven slabs of 4-5 planes
 
 # run in each checkout: its own chip_smoke's cases and timers
 _TURN = r"""
 import json, torch
 import chip_smoke as c
+from latticeurbanwind_tpu_torch.parallel import domain_mesh
 from latticeurbanwind_tpu_torch.utils import cuda_build
 lib, log = cuda_build.build()
 out = {"log": log, "lib": str(lib), "times": {}}
@@ -46,9 +56,11 @@ if CODES:
     from latticeurbanwind_tpu_torch.ops.stream_collide import (
         build_face_bc, stream_collide,
     )
-    for tag, variant, thermal in (("wall_sides", "wall+sides", False),
-                                  ("thermal", "", True)):
-        cfg, st, frc, row = c.make_case(SHAPE, "bf16", inflow=0.05,
+    cases = [("wall_sides", "bf16", "wall+sides", False),
+             ("thermal", "bf16", "", True)]
+    cases += [(f"plain {s}", s, "", False) for s in c.STORAGES]
+    for tag, storage, variant, thermal in cases:
+        cfg, st, frc, row = c.make_case(SHAPE, storage, inflow=0.05,
                                         variant=variant, thermal=thermal)
         pre, _ = c.vk_hook(st)
         spec = pre.ddf.kernel_spec
@@ -63,6 +75,19 @@ if CODES:
         torch.save({"f": f.cpu(), "g": None if g[0] is None else g[0].cpu()},
                    f"{CODES}/{tag}.pt")
         torch.cuda.empty_cache()
+    # K8: the split runner, every shard on card 0
+    from latticeurbanwind_tpu_torch.lbm.state import DynParams
+    from latticeurbanwind_tpu_torch.parallel import (
+        domain_mesh, gather_state, shard_state,
+    )
+    from latticeurbanwind_tpu_torch.parallel.halo import make_sharded_runner
+    cfg, st, frc, row = c.make_case(SPLIT_SHAPE, "bf16", inflow=0.05)
+    dyn = DynParams(force=row[:3].cpu(), omega_coriolis=row[3:6].cpu())
+    pre, _ = c.vk_hook(st)
+    mesh = domain_mesh(SPLIT, SPLIT_SHAPE, "cuda:0")
+    srun, _ = make_sharded_runner(cfg, frc, mesh, pre_step=pre)
+    got = gather_state(srun(shard_state(st, mesh), dyn, 0, 6), "cuda")
+    torch.save({"f": got.fi.cpu(), "g": None}, f"{CODES}/split.pt")
 if TIMES:
     for name, storage, forcing in (("K-SC 256^3 bf16 flagship", "bf16", False),
                                    ("K-SC 256^3 bf16 nudge+sponge", "bf16", True),
@@ -82,6 +107,17 @@ if TIMES:
         c.time_step_kernel(c.NWP_SHAPE, "bf16", True, vk=True, thermal=True,
                            plain_reps=1))
     torch.cuda.empty_cache()
+    for name, shape, storage in (
+            ("K-SC main grid bf16 nudge+sponge VK sites", c.MAIN_SHAPE, "bf16"),
+            ("K-SC main grid fp16c nudge+sponge VK sites", c.MAIN_SHAPE, "fp16c"),
+            ("K-SC NWP grid bf16 nudge+sponge VK sites", c.NWP_SHAPE, "bf16")):
+        out["times"][name] = ms(c.time_step_kernel(shape, storage, True,
+                                                   vk=True, plain_reps=1))
+        torch.cuda.empty_cache()
+    local = domain_mesh(c.SHARD_SPLIT, c.MAIN_SHAPE, "cpu").local_shape(0)
+    out["times"]["K8 shard bf16 nudge+sponge VK sites"] = c.time_halo_kernel(
+        local)["ms"]
+    torch.cuda.empty_cache()
     for storage in ("bf16", "fp16c"):
         out["times"][f"K-AVG 256^3 {storage}"] = ms(c.time_avg_kernel(c.CUBE,
                                                                       storage))
@@ -95,7 +131,8 @@ def turn(checkout: Path, times: bool, codes: str = "") -> dict:
     `times` its timed configurations, with `codes` (a directory) the code
     comparison's final DDFs saved there."""
     head = (f"TIMES = {times}\nCODES = {codes!r}\n"
-            f"SHAPE = {CODES_SHAPE!r}\n")
+            f"SHAPE = {CODES_SHAPE!r}\nSPLIT_SHAPE = {SPLIT_SHAPE!r}\n"
+            f"SPLIT = {SPLIT!r}\n")
     proc = subprocess.run(
         [sys.executable, "-c", head + _TURN], cwd=checkout,
         capture_output=True, text=True, timeout=1200)
@@ -134,13 +171,14 @@ def sass_sizes(lib: str) -> dict:
 
 def padded(regs: dict) -> dict:
     """Instance names with the template arguments an older checkout lacks
-    (stream_collide_kernel: wall, trt, thermal, halo; avg_update_kernel:
-    wall) as 0."""
+    (stream_collide_kernel: wall, trt, thermal, halo;
+    stream_collide_tiled_kernel: halo; avg_update_kernel: wall) as 0."""
     out = {}
     for name, n in regs.items():
         base, args = name.rstrip(">").split("<")
         args = args.split(",")
-        want = {"stream_collide_kernel": 8, "avg_update_kernel": 2}.get(base)
+        want = {"stream_collide_kernel": 8, "stream_collide_tiled_kernel": 8,
+                "avg_update_kernel": 2}.get(base)
         if want:
             args += ["0"] * (want - len(args))
         out[f"{base}<{','.join(args)}>"] = n
@@ -169,22 +207,49 @@ def main(argv) -> int:
         regs[tag] = padded(kernel_registers(built["log"])[0])
         sizes[tag] = padded(sass_sizes(built["lib"]))
     codes = {}
-    for case in ("wall_sides", "thermal"):
+    cases = ["wall_sides", "thermal"] + [f"plain {s}" for s in
+                                         ("f32", "bf16", "f16", "fp16c")]
+    for case in cases + ["split"]:
         a, b = (torch.load(tmp / tag / f"{case}.pt") for tag in ("other", "this"))
         for k in ("f", "g"):
             if a[k] is None:
                 continue
-            x, y = a[k].view(torch.int16), b[k].view(torch.int16)
+            bits = torch.int32 if a[k].element_size() == 4 else torch.int16
+            x, y = a[k].view(bits), b[k].view(bits)
             diff = x != y
             err = float((a[k].float() - b[k].float()).abs().max())
             codes[f"{case} {k}"] = {"differing": int(diff.sum()),
                                     "share": float(diff.float().mean()),
                                     "max_abs": err}
-            print(f"bf16 {case} {CODES_SHAPE} 5 steps, final {k}: "
+            where = (f"K8 bf16 split {list(SPLIT)} of {SPLIT_SHAPE} 6 steps"
+                     if case == "split" else
+                     f"{case if case.startswith('plain') else 'bf16 ' + case} "
+                     f"{CODES_SHAPE} 5 steps")
+            print(f"{where}, final {k}: "
                   f"{int(diff.sum())} of {x.numel()} stored codes differ "
                   f"between the checkouts (share {float(diff.float().mean()):.2e}"
                   f", max decoded difference {err:.3e})", flush=True)
     shutil.rmtree(tmp, ignore_errors=True)
+    # the other checkout's old-body instances against this one's tiled ones
+    for tag in ("other", "this"):
+        for d in (regs, sizes):
+            for name in list(d[tag]):
+                if name.startswith("stream_collide_kernel<"):
+                    d[tag]["stream_collide_tiled_kernel<" + name.split("<")[1]
+                           + " (old body)"] = d[tag].pop(name)
+    for name in sorted(regs["other"]):
+        if name.endswith(" (old body)"):
+            args = name[:-len(" (old body)")].rstrip(">").split("<")[1].split(",")
+            tiled = f"stream_collide_tiled_kernel<{','.join(args)}>"
+            if tiled not in regs["this"] and args[1] == "1":
+                # with the volume force, nudging and the sponge are run-time
+                # switches (2)
+                args[2:4] = ["2", "2"]
+                tiled = f"stream_collide_tiled_kernel<{','.join(args)}>"
+            print(f"{name}: registers {regs['other'][name]}, SASS instructions "
+                  f"{sizes['other'].get(name)}; runs as {tiled}: registers "
+                  f"{regs['this'].get(tiled)}, SASS instructions "
+                  f"{sizes['this'].get(tiled)}")
     same = sorted(set(regs["other"]) & set(regs["this"]))
     for name in same:
         a, b = regs["other"][name], regs["this"][name]

@@ -7,8 +7,9 @@ nvcc per source, in parallel), then:
 
   1. prints the card (nvidia-smi name and power limit), torch/CUDA versions,
      the build time (each nvcc and the whole build + load) and every kernel
-     instance's register count and spill bytes (the tiled body's thermal,
-     wall-model and TRT instances summed up apart), and checks that float32
+     instance's register count and spill bytes (the tiled body's families
+     -- plain, wall models and TRT, thermal, each single-device and halo
+     mode -- summed up apart), and checks that float32
      matrix products run
      in full float32 (no TF32: the VK inlet's mode sum is one);
   2. runs each kernel against its plain PyTorch version on the card: K-SC
@@ -32,19 +33,24 @@ nvcc per source, in parallel), then:
      deck's grid, both its f and g outputs, the 2-byte storages by their
      stored codes (at most one storage step apart wherever the decoded
      values are further apart than the tolerance, and few such elements);
-     the tiled body (thermal, wall models, TRT) again at a ragged shape,
-     (13, 37, 141), a multiple of no tile edge above 1, without the TYPE_E
-     shell and with solid cells on all six boundary planes, so that its flag
-     ring wraps on every axis, with random VK sites, 3 steps in every storage:
-     `wall_model`, `wall_sides`, TRT, TRT with `wall_sides`, and thermal
-     plain, with `wall_sides` and with TRT;
+     the tiled body again at a ragged shape, (13, 37, 141), a multiple of no
+     tile edge above 1, without the TYPE_E shell and with solid cells on all
+     six boundary planes, so that its flag ring wraps on every axis, 3 steps
+     in every storage: the plain family (no wall model, SRT) with and without
+     the volume force, each with and without random VK sites, and with
+     random VK sites `wall_model`, `wall_sides`, TRT, TRT with `wall_sides`,
+     and thermal plain, with `wall_sides` and with TRT;
      K8, the halo mode of K-SC, against its plain version on one z slab
      (no ground, no TYPE_E top) with random halo planes and ghost widths
      (1, 1), 3 steps, in all four storages: without a wall model with and
      without the volume force, with `wall_model`, `wall_sides`, TRT, and
      thermal (the strong-buoyancy case) without a wall model, with
      `wall_sides` and with TRT, each without and with random VK sites (a
-     step that wraps inside the slab instead lands 4.8e-2 away); the sharded
+     step that wraps inside the slab instead lands 4.8e-2 away); and slabs
+     of one plane, of two and of five (thinner than a block's 8 planes, y
+     and x ragged) in bf16 and f32, the plain family with and without the
+     volume force, `wall_sides`, thermal and thermal TRT with `wall_sides`;
+     the sharded
      runner with every shard on card 0 against the single-device runner,
      6 steps with a VK hook over the splits (1,1,2), (1,2,2), (2,1,1),
      (2,2,2) and the uneven (3,5,1) and (1,2,5) (shards one cell apart in
@@ -59,8 +65,9 @@ nvcc per source, in parallel), then:
      device-to-device copy bandwidth measured here, and the plain versions
      at the same shapes; K-SC with VK sites (without and with the wall
      models) and K-AVG (without and with `wall_sides`) at the main grid and
-     at 256^3; K-SC thermal at 256^3 in bf16 and f32 and, with VK sites, at
-     the NWP deck's grid, and the thermal `update_fields` (which a thermal
+     at 256^3; K-SC (K1-K3) with VK sites at the NWP deck's grid without T
+     (`nwp-bf16-300`'s step); K-SC thermal at 256^3 in bf16 and f32 and,
+     with VK sites, at the NWP deck's grid, and the thermal `update_fields` (which a thermal
      run takes at every averaging sample) alone at that grid (the tiled
      body's shapes are swept by chip_sweep.py); K8 at the
      split deck's shard (59x214x424 with its ghost rows, bf16, VK sites)
@@ -171,11 +178,13 @@ PEAK_F32_FLOPS = 67e12
 # arithmetic (moments, forces, Guo, equilibrium, LES, collision; K-AVG:
 # moments, forces, Welford): far below the bytes bound either way
 FLOPS_PER_CELL = {"stream_collide": 600, "stream_collide_thermal": 660,
-                  "avg_update": 150}
+                  "avg_update": 150, "vk_site": 120}   # vk_site: per site
 MAIN_CELL_M = 1.5                           # the example deck's main-path cells
 MAIN_SHAPE = (118, 424, 424)                # its grid at that cell size
 CUBE = (256, 256, 256)                      # the flagship timing shape
 RAGGED = (13, 37, 141)                      # a multiple of no tile edge > 1
+# K8 slabs of one plane, of two and thinner than a block's 8 planes
+THIN_SLABS = ((1, 37, 141), (2, 37, 141), (5, 37, 141))
 DG_CELL_M = 2.0                             # the .luwdg path's cells (~5M)
 NWP_CELL_M = 3.0                            # the .luw path's cells
 NWP_SHAPE = (79, 887, 1017)                 # its grid there, sponge rows included
@@ -397,20 +406,42 @@ def phase_card() -> dict:
         log(f"  {name}: {regs[name]} registers, spill bytes {st} stores / "
             f"{ld} loads")
     tiled = sorted(k for k in regs if k.startswith("stream_collide_tiled"))
-    log(f"  the tiled body (thermal, wall models, TRT): {len(tiled)} instances, "
-        f"registers {min((regs[k] for k in tiled), default=0)}-"
-        f"{max((regs[k] for k in tiled), default=0)}, "
-        f"{sum(1 for k in tiled if any(spills.get(k, (0, 0))))} with spills")
+    for family, members in tiled_families(tiled).items():
+        log(f"  the tiled body, {family}: {len(members)} instances, registers "
+            f"{min((regs[k] for k in members), default=0)}-"
+            f"{max((regs[k] for k in members), default=0)}, "
+            f"{sum(1 for k in members if any(spills.get(k, (0, 0))))} with "
+            f"spills")
     return {"smi": smi, "build_s": build_s, "nvcc_s": nvcc, "registers": regs,
             "spill_bytes": {k: spills.get(k, (0, 0)) for k in tiled}}
+
+
+def tiled_families(names) -> dict:
+    """{family: [instance]} of the tiled body's instances, by their template
+    arguments <codec, force, nudge, sponge, wall, trt, thermal, halo>: the
+    plain family (no wall model, SRT, not thermal), the
+    wall-model and TRT one and the thermal one, each single-device or halo
+    mode (K8)."""
+    out = {}
+    for k in names:
+        if not k.startswith("stream_collide_tiled_kernel<"):
+            continue
+        a = k.rstrip(">").split("<")[1].split(",")
+        fam = ("thermal" if a[6] == "1" else
+               "wall models and TRT" if a[4] != "0" or a[5] == "1" else
+               "plain (no wall model, SRT)")
+        if len(a) > 7 and a[7] == "1":
+            fam += ", halo mode (K8)"
+        out.setdefault(fam, []).append(k)
+    return out
 
 
 def kernel_registers(build_log: str):
     """({instance: registers}, {instance: (spill store bytes, spill load
     bytes)}) from ptxas's -v output.  An instance is named by its kernel,
     its codec and its other template arguments, e.g.
-    stream_collide_kernel<BF16,1,1,1,0,0,0> (force, nudge, sponge, wall,
-    trt, thermal) or stream_collide_tiled_kernel<BF16,1,2,2,2,0,1>."""
+    stream_collide_tiled_kernel<BF16,1,1,1,0,0,0,0> (force, nudge, sponge,
+    wall, trt, thermal, halo) or avg_update_kernel<BF16,2>."""
     regs, spills, name = {}, {}, None
     for line in build_log.splitlines():
         if "Compiling entry function" in line:
@@ -554,25 +585,34 @@ def compare_thermal(small) -> tuple:
 
 
 def compare_ragged() -> tuple:
-    """The tiled body (thermal, wall-model and TRT instances) against its
-    plain version at RAGGED, a shape that is a multiple of no tile edge
-    above 1, with no TYPE_E shell and solid cells on all six boundary planes (the
-    flag ring's periodic wrap on every axis) and random VK sites, 3 steps in
-    every storage: `wall`, `wall_sides`, TRT, TRT with `wall_sides`; thermal
-    plain, with `wall_sides` and with TRT (by stored codes).  ({config: max
-    decoded difference} of the wall / TRT and of the thermal runs, {config:
-    thermal code shares})."""
-    wall, therm, shares = {}, {}, {}
+    """The tiled body against its plain version at RAGGED, a shape that is a
+    multiple of no tile edge above 1, with no TYPE_E shell and solid cells
+    on all six boundary planes (the flag ring's and the pulls'
+    periodic wrap on every axis), 3 steps in every storage: the plain family
+    (no wall model, SRT) with and without the volume force
+    (nudge + sponge), each with and without random VK sites; and, with
+    random VK sites, `wall`, `wall_sides`, TRT, TRT with `wall_sides`;
+    thermal plain, with `wall_sides` and with TRT (by stored codes).
+    ({config: max decoded difference} of the plain, of the wall / TRT and of
+    the thermal runs, {config: thermal code shares})."""
+    plain, wall, therm, shares = {}, {}, {}, {}
     for storage in STORAGES:
-        for variant, thermal in (("wall", False), ("wall+sides", False),
-                                 ("trt", False), ("trt+wall+sides", False),
-                                 ("", True), ("wall+sides", True),
-                                 ("trt", True)):
+        for variant, thermal, forcing, sites in (
+                ("", False, True, False), ("", False, True, True),
+                ("", False, False, False), ("", False, False, True),
+                ("wall", False, True, True), ("wall+sides", False, True, True),
+                ("trt", False, True, True), ("trt+wall+sides", False, True, True),
+                ("", True, True, True), ("wall+sides", True, True, True),
+                ("trt", True, True, True)):
             e, finite, _, diffs = compare_steps(
-                RAGGED, storage, True, 3, vk=random_sites(RAGGED), inflow=0.05,
-                variant=variant, thermal=thermal, wrap=True)
-            name = (f"{storage} nudge+sponge{' thermal' if thermal else ''}"
-                    f"{' ' + variant if variant else ''} VK random sites, "
+                RAGGED, storage, forcing, 3,
+                vk=random_sites(RAGGED) if sites else None,
+                inflow=0.05 if sites else 0.0, variant=variant,
+                thermal=thermal, wrap=True)
+            name = (f"{storage} {'nudge+sponge' if forcing else 'flagship'}"
+                    f"{' thermal' if thermal else ''}"
+                    f"{' ' + variant if variant else ''}"
+                    f"{' VK random sites' if sites else ''}, "
                     f"solids on the boundary planes {RAGGED}")
             tol = tolerance(storage, variant)
             if thermal:
@@ -591,8 +631,8 @@ def compare_ragged() -> tuple:
             if not ok:
                 raise AssertionError(f"the tiled body disagrees with its plain "
                                      f"version: {name}: {diffs or e}")
-            (therm if thermal else wall)[name] = e
-    return wall, therm, shares
+            (therm if thermal else wall if variant else plain)[name] = e
+    return plain, wall, therm, shares
 
 
 def random_halo(shape, storage, thermal, seed=11, gy=1, gx=1):
@@ -627,8 +667,11 @@ def compare_halo(small) -> tuple:
     `wall_sides`, TRT, and thermal (the strong-buoyancy case) without a wall
     model, with `wall_sides` and with TRT; each with nudge + sponge without
     and with random VK sites (the sites then sit on the box inside the
-    ghosts).  ({config: max decoded difference}, {config: thermal code
-    shares})."""
+    ghosts); and slabs of one plane (both halos at once), of two and of five
+    (thinner than a block's planes, y and x ragged: THIN_SLABS) in bf16 and
+    f32: the plain family with and without the volume force, `wall_sides`,
+    thermal and thermal TRT with `wall_sides`.  ({config: max decoded
+    difference}, {config: thermal code shares})."""
     from latticeurbanwind_tpu_torch.lbm.state import decode_ddf
     from latticeurbanwind_tpu_torch.ops.stream_collide import (
         build_face_bc, stream_collide, stream_collide_plain,
@@ -638,56 +681,64 @@ def compare_halo(small) -> tuple:
     families = [("", True, False), ("", False, False), ("wall", True, False),
                 ("wall+sides", True, False), ("trt", True, False),
                 ("", True, True), ("wall+sides", True, True), ("trt", True, True)]
-    for storage in STORAGES:
-        for variant, forcing, thermal in families:
-            for sites in ((False, True) if forcing else (False,)):
-                cfg, st, frc, row = make_case(small, storage, forcing=forcing,
-                                              inflow=0.05 if sites else 0.0,
-                                              variant=variant, thermal=thermal,
-                                              slab=True)
-                vk = random_sites(small) if sites else None
-                fbc = build_face_bc(st.u, st.T) if (forcing or sites) else None
-                h = random_halo(small, storage, thermal)
-                fk, fp = st.fi, st.fi.clone()
-                gk = [st.gi, torch.empty_like(st.gi)] if thermal else [None, None]
-                gp = ([st.gi.clone(), torch.empty_like(st.gi)] if thermal
-                      else [None, None])
-                for _ in range(3):
-                    fk = stream_collide(fk, st.flags, row, cfg, frc, fbc, vk=vk,
-                                        gi=gk[0], gi_out=gk[1], halo=h)
-                    fp = stream_collide_plain(fp, st.flags, row, cfg, frc, fbc,
-                                              vk=vk, gi=gp[0], gi_out=gp[1],
-                                              halo=h)
-                    gk.reverse()
-                    gp.reverse()
-                torch.cuda.synchronize()
-                name = (f"{storage} {'nudge+sponge' if forcing else 'flagship'}"
-                        f"{' thermal' if thermal else ''}"
-                        f"{' ' + variant if variant else ''}"
-                        f"{' VK random sites' if sites else ''} {small}")
-                tol = tolerance(storage, variant)
-                finite = bool(torch.isfinite(decode_ddf(fk, storage)).all())
-                if thermal:
-                    diffs = {"f": thermal_diff(fk, fp, storage, tol),
-                             "g": thermal_diff(gk[0], gp[0], storage, tol)}
-                    ok = finite and all(
-                        d["bad"] == 0 and d["over"] <= THERMAL_STEP_SHARE
-                        and d["differing"] <= THERMAL_DIFFERING_SHARE
-                        for d in diffs.values())
-                    e = max(d["max_abs"] for d in diffs.values())
-                    shares[name] = {k: {"over": d["over"],
-                                        "differing": d["differing"]}
-                                    for k, d in diffs.items()}
-                else:
-                    e = max_err(fk, fp, storage)
-                    ok = finite and e <= tol
-                log(f"K8 {name} 3 steps: max|kernel-plain| = {e:.3e} (tol "
-                    f"{tol:.0e}{', thermal by stored codes' if thermal else ''})"
-                    f" {'ok' if ok else 'FAIL'}")
-                if not ok:
-                    raise AssertionError(f"K8 disagrees with its plain version: "
-                                         f"{name}: {e}")
-                errs[name] = e
+    runs = [(small, storage, variant, forcing, thermal, sites)
+            for storage in STORAGES for variant, forcing, thermal in families
+            for sites in ((False, True) if forcing else (False,))]
+    # slabs of one plane (both halos at once), of two, and one thinner than
+    # a block's planes with a ragged tail on y and x
+    runs += [(thin, storage, variant, forcing, thermal, forcing)
+             for thin in THIN_SLABS for storage in ("bf16", "f32")
+             for variant, forcing, thermal in (
+                 ("", True, False), ("", False, False), ("wall+sides", True, False),
+                 ("", True, True), ("trt+wall+sides", True, True))]
+    for shape, storage, variant, forcing, thermal, sites in runs:
+        cfg, st, frc, row = make_case(shape, storage, forcing=forcing,
+                                      inflow=0.05 if sites else 0.0,
+                                      variant=variant, thermal=thermal,
+                                      slab=True)
+        vk = random_sites(shape) if sites else None
+        fbc = build_face_bc(st.u, st.T) if (forcing or sites) else None
+        h = random_halo(shape, storage, thermal)
+        fk, fp = st.fi, st.fi.clone()
+        gk = [st.gi, torch.empty_like(st.gi)] if thermal else [None, None]
+        gp = ([st.gi.clone(), torch.empty_like(st.gi)] if thermal
+              else [None, None])
+        for _ in range(3):
+            fk = stream_collide(fk, st.flags, row, cfg, frc, fbc, vk=vk,
+                                gi=gk[0], gi_out=gk[1], halo=h)
+            fp = stream_collide_plain(fp, st.flags, row, cfg, frc, fbc,
+                                      vk=vk, gi=gp[0], gi_out=gp[1],
+                                      halo=h)
+            gk.reverse()
+            gp.reverse()
+        torch.cuda.synchronize()
+        name = (f"{storage} {'nudge+sponge' if forcing else 'flagship'}"
+                f"{' thermal' if thermal else ''}"
+                f"{' ' + variant if variant else ''}"
+                f"{' VK random sites' if sites else ''} {shape}")
+        tol = tolerance(storage, variant)
+        finite = bool(torch.isfinite(decode_ddf(fk, storage)).all())
+        if thermal:
+            diffs = {"f": thermal_diff(fk, fp, storage, tol),
+                     "g": thermal_diff(gk[0], gp[0], storage, tol)}
+            ok = finite and all(
+                d["bad"] == 0 and d["over"] <= THERMAL_STEP_SHARE
+                and d["differing"] <= THERMAL_DIFFERING_SHARE
+                for d in diffs.values())
+            e = max(d["max_abs"] for d in diffs.values())
+            shares[name] = {k: {"over": d["over"],
+                                "differing": d["differing"]}
+                            for k, d in diffs.items()}
+        else:
+            e = max_err(fk, fp, storage)
+            ok = finite and e <= tol
+        log(f"K8 {name} 3 steps: max|kernel-plain| = {e:.3e} (tol "
+            f"{tol:.0e}{', thermal by stored codes' if thermal else ''})"
+            f" {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"K8 disagrees with its plain version: "
+                                 f"{name}: {e}")
+        errs[name] = e
         torch.cuda.empty_cache()
     # the halo planes matter: the plain step of the same slab that wraps
     # inside it instead of reading them lands far outside the tolerance
@@ -852,7 +903,8 @@ def phase_compare() -> dict:
 
     errs["stream_collide_thermal"], errs["thermal_code_shares"] = \
         compare_thermal(small)
-    wall, therm, shares = compare_ragged()
+    plain, wall, therm, shares = compare_ragged()
+    errs["stream_collide"].update(plain)
     errs["stream_collide_wall"].update(wall)
     errs["stream_collide_thermal"].update(therm)
     errs["thermal_code_shares"].update(shares)
@@ -963,6 +1015,28 @@ def step_bound(st, frc, fbc, spec, halo=None) -> dict:
           (halo.fp, halo.fm, halo.flb, halo.fla, halo.gp, halo.gm))))
     return bound("stream_collide_thermal" if thermal else "stream_collide",
                  nbytes, live)
+
+
+def site_bound(shape, storage) -> dict:
+    """The VK site pass's bound at `shape` with the inlet hook's sites (the
+    faces the deck's inlet takes): the DDFs of every cell on a masked face
+    read and written once, and per site of a cell its mask value and the
+    FaceBC velocity (3 f32) read once; 120 operations per site."""
+    cfg, st, frc, row = make_case(shape, storage, inflow=0.05)
+    pre, _ = vk_hook(st)
+    face = {"planeL": (-1,), "plane0": (0,), "row0": (slice(None), 0),
+            "rowL": (slice(None), -1), "lane0": (Ellipsis, 0),
+            "laneL": (Ellipsis, -1)}
+    on = torch.zeros(shape, dtype=torch.bool)
+    sites = 0
+    for kind, _ in pre.ddf.kernel_spec["sites"]:
+        on[face[kind]] = True
+        sites += on[face[kind]].numel()
+    cells = int(on.sum())
+    nbytes = cells * 2 * 19 * st.fi.element_size() + sites * 4 * 4
+    del st, pre
+    torch.cuda.empty_cache()
+    return dict(bound("vk_site", nbytes, sites), cells=cells, sites=sites)
 
 
 def avg_bound(st) -> dict:
@@ -1299,6 +1373,11 @@ def phase_timing() -> dict:
             f"({t['bound_by']}), plain {t['plain_ms']:.2f}")
         out["configs"][name] = out[key] = t
         torch.cuda.empty_cache()
+    t = site_bound(MAIN_SHAPE, "bf16")
+    log(f"VK site pass {MAIN_SHAPE} bf16, the inlet hook's sites: {t['cells']} "
+        f"cells, {t['sites']} sites; bound {t['bound_ms']:.4f} ms "
+        f"({t['bound_by']})")
+    out["vk_site_bound"] = t
     for key, variant in (("av", ""), ("av_wall", "wall+sides")):
         t = time_avg_kernel(MAIN_SHAPE, "bf16", variant)
         name = f"K-AVG {MAIN_SHAPE} bf16{' ' + variant if variant else ''}"
@@ -1318,6 +1397,14 @@ def phase_timing() -> dict:
             f"({t['bound_by']}); plain version {t['plain_ms']:.2f} ms/step")
         out["configs"][name] = dict(t, roofline_pct=roof)
         torch.cuda.empty_cache()
+    # K1-K3 (the plain family) at the NWP deck's grid without T, as
+    # `nwp-bf16-300` runs it
+    t = time_step_kernel(NWP_SHAPE, "bf16", True, vk=True, plain_reps=1)
+    name = f"K-SC {NWP_SHAPE} bf16 nudge+sponge VK sites"
+    log(f"{name}: {t['ms']:.3f} ms/step, bound {t['bound_ms']:.3f} ms "
+        f"({t['bound_by']}), plain {t['plain_ms']:.2f}")
+    out["configs"][name] = out["sc_nwp"] = t
+    torch.cuda.empty_cache()
     t = time_step_kernel(NWP_SHAPE, "bf16", True, vk=True, thermal=True,
                          plain_reps=2)
     name = f"K-SC {NWP_SHAPE} bf16 thermal nudge+sponge VK sites"
@@ -1958,6 +2045,8 @@ def main() -> int:
     main_wall = paths["wall-vk-bf16-400"]["launches"]
     main_th = paths["nwp-t-bf16-300"]["launches"]
     main_halo = paths["vk-bf16-sharded"]["launches"]
+    plain_instances = tiled_families(card["registers"]).get(
+        "plain (no wall model, SRT)", ())
     errs["stream_collide_halo"][timing["halo"]["name"]] = timing["halo"]["max_abs_err"]
 
     def times(prefix, wall, thermal=False):
@@ -1972,7 +2061,10 @@ def main() -> int:
 
     record = {"kernels": [
         {"name": "stream_collide", "route": "cuda",
-         "source": "latticeurbanwind_tpu_torch/csrc/stream_collide.cu",
+         "source": "latticeurbanwind_tpu_torch/csrc/stream_collide_tiled.cuh",
+         "unit": "latticeurbanwind_tpu_torch/csrc/stream_collide.cu",
+         "registers": {k: v for k, v in card["registers"].items()
+                       if k in plain_instances},
          "replaces": "latticeurbanwind_tpu/ops/stream_collide.py:408",
          "launches": main_sc["stream_collide"] - main_sc["stream_collide_wall"],
          "launches_with_vk_sites": main_sc["stream_collide_vk"],
@@ -1984,6 +2076,12 @@ def main() -> int:
                               for k, v in by_path.items()},
          "max_abs_err_by_config": errs["stream_collide"],
          "times_by_config": times("K-SC", False),
+         "nwp_grid": timing["sc_nwp"],
+         # the site pass: K-SC with sites less without, on the decks' states
+         "vk_site_pass": dict(timing["vk_site_bound"], ms_by_path={
+             k: v["step_loop"]["sc_vk_ms"] - v["step_loop"]["sc_novk_ms"]
+             for k, v in paths.items() if "sc_vk_ms" in v.get("step_loop", {})
+             and not k.startswith(("wall", "nwp-t", "vk-bf16-sharded"))}),
          "step_loop_by_path": {k: v["step_loop"] for k, v in paths.items()
                                if "step_loop" in v
                                and not k.startswith(("wall", "nwp-t"))}},
@@ -1991,8 +2089,8 @@ def main() -> int:
          "source": "latticeurbanwind_tpu_torch/csrc/stream_collide_tiled.cuh",
          "unit": "latticeurbanwind_tpu_torch/csrc/stream_collide_wall.cu",
          "registers": {k: v for k, v in card["registers"].items()
-                       if k.startswith("stream_collide_tiled")
-                       and k.endswith(",0>")},
+                       if k in tiled_families([k]).get(
+                           "wall models and TRT", ())},
          "replaces": "latticeurbanwind_tpu/ops/stream_collide.py:618",
          "launches": main_wall["stream_collide_wall"],
          "launches_with_vk_sites": main_wall["stream_collide_vk"],
@@ -2009,8 +2107,7 @@ def main() -> int:
          "source": "latticeurbanwind_tpu_torch/csrc/stream_collide_tiled.cuh",
          "unit": "latticeurbanwind_tpu_torch/csrc/stream_collide_thermal.cu",
          "registers": {k: v for k, v in card["registers"].items()
-                       if k.startswith("stream_collide_tiled")
-                       and k.endswith(",1>")},
+                       if k in tiled_families([k]).get("thermal", ())},
          "spill_bytes": card["spill_bytes"],
          "replaces": "latticeurbanwind_tpu/ops/stream_collide.py:732",
          "launches": main_th["stream_collide_thermal"],
@@ -2028,7 +2125,12 @@ def main() -> int:
          "decks": {k: {kk: vv for kk, vv in paths[k].items() if kk != "step_loop"}
                    for k in ("nwp-t-bf16-300", "nwp-bf16-300")}},
         {"name": "stream_collide_halo", "route": "cuda",
-         "source": "latticeurbanwind_tpu_torch/csrc/stream_collide_halo.cu",
+         "source": "latticeurbanwind_tpu_torch/csrc/stream_collide_tiled.cuh",
+         "unit": ["latticeurbanwind_tpu_torch/csrc/stream_collide_halo.cu",
+                  "latticeurbanwind_tpu_torch/csrc/stream_collide_halo_thermal.cu"],
+         "registers": {k: v for k, v in card["registers"].items()
+                       if k.startswith("stream_collide_tiled")
+                       and k.endswith(",1>")},
          "replaces": "latticeurbanwind_tpu/ops/stream_collide.py:409",
          "launches": main_halo["stream_collide_halo"],
          "launches_with_vk_sites": main_halo["stream_collide_vk"],

@@ -1,29 +1,29 @@
 // D3Q19 helpers shared by the stream-collide and averaging kernels: cell
 // types, the periodic wrap, the wall models' streaming and stress, and the
-// z-halo reads of the step's halo mode.
+// z-halo planes of the step's halo mode.
 //
 // Replaces: the wall-model branches of
 // latticeurbanwind_tpu/ops/stream_collide.py::make_pallas_step (specular
 // mirrors :618-650, Schumann stress :678-703) and of
 // latticeurbanwind_tpu/ops/avg_kernel.py::make_avg_update (:179-192,
 // :218-234), which compute the same terms; and the halo mode's z-neighbour
-// reads of make_pallas_step (:1032-1042, :1222-1241).
+// planes of make_pallas_step (:1032-1042, :1222-1241).
 //
 // Directions are the cz-grouped D3Q19 order of lbm/lattice.py.  The tables
 // are local arrays in each function: the callers' loops over d are
 // unrolled, so every lookup folds to a constant.  The wall models' choices
 // come in two forms: solid_source_index and wall_stress read the flags from
-// device memory (the old body, K-AVG), solid_source_pick and wall_stress_at
-// take an accessor (the tiled body, which tests its neighbourhood mask).
+// device memory (K-AVG), solid_source_pick and wall_stress_at take
+// accessors (the tiled body of the step, stream_collide_tiled.cuh, which
+// tests its neighbourhood mask and, in a halo-mode slab, reads a partner in
+// a halo plane through the element accessor).
 // tests/test_torch_stream_collide.py holds every copy of a table to
-// lbm/lattice.py and each pair of forms to the same conditions, priority and
-// stress arithmetic; the device-memory forms go when the old body does and
-// K-AVG takes the accessors (ROADMAP).
+// lbm/lattice.py and each pair of forms to the same conditions, priority,
+// planes and stress arithmetic.
 //
-// Bound: none of these is; in the old body the mirrors add up to three flag
-// reads per solid-adjacent direction (and read a mirror DDF in place of the
-// bounce-back one), served mostly by L1/L2 next to the neighbour reads the
-// pull already makes; the tiled body reads none of them from device memory.
+// Bound: none of these is; the step reads none of the flags from device
+// memory (they come from its shared-memory ring), and a mirror reads a DDF
+// element in place of the bounce-back one.
 
 #pragma once
 
@@ -46,19 +46,24 @@ __device__ __forceinline__ int wrap(int i, int n) {
 }
 
 // solid_source_index's choice (below) with the partners' flags read through
-// an accessor, for the tiled body (stream_collide_tiled.cuh): the same
-// priority of mirrors, each partner reached from src by the offset
-// to_ground, to_xface or to_yface; `solid(p, dz, dy, dx)` says whether the
-// partner at cell offset p, which lies (dz, dy, dx) from the cell, is solid
-// (the tiled body tests a bit of its neighbourhood mask).  I is the cell
-// offsets' type, N the channel stride.  The old body and K-AVG keep
-// solid_source_index with its own device-memory reads: the same logic
-// behind a global-read accessor changed two K-AVG instances' SASS
-// (chip_compare.py, PERF.md).
-template <int kWall, class I, class Solid>
-__device__ __forceinline__ long long solid_source_pick(
-    const Solid& solid, int d, I n, I src, I to_ground, I to_xface,
-    I to_yface, long long N) {
+// an accessor and the element named by another, for the tiled body
+// (stream_collide_tiled.cuh): the same priority of mirrors, each partner
+// reached from src by the offset to_ground, to_xface or to_yface;
+// `solid(p, dz, dy, dx)` says whether the partner at cell offset p, which
+// lies (dz, dy, dx) from the cell, is solid (the tiled body tests a bit of
+// its neighbourhood mask); `at(ch, p, dz)` names channel ch of the cell at
+// offset p, which lies in the plane dz from the cell's: the ground partner
+// and the bounce-back element lie in the cell's own plane, the x- and
+// y-face partners in the source's, which in a halo-mode slab may be a halo
+// plane (a cz = +1 (-1) direction's face mirrors are cz = +1 (-1)
+// directions too, so the 5 channels of a halo plane hold them).  I is the
+// cell offsets' type.  K-AVG keeps solid_source_index with its own
+// device-memory reads: the same logic behind a global-read accessor changed
+// two K-AVG instances' SASS (chip_compare.py, PERF.md).
+template <int kWall, class I, class Solid, class At>
+__device__ __forceinline__ auto solid_source_pick(
+    const Solid& solid, const At& at, int d, I n, I src, I to_ground,
+    I to_xface, I to_yface) {
   const int CX[19] = {0, 1, -1, 0, 0, 1, -1, 1, -1, 0, 1, -1, 0, 0, 0, -1, 1, 0, 0};
   const int CY[19] = {0, 0, 0, 1, -1, 1, -1, -1, 1, 0, 0, 0, 1, -1, 0, 0, 0, -1, 1};
   const int CZ[19] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1, 1, 1, -1, -1, -1, -1, -1};
@@ -69,17 +74,17 @@ __device__ __forceinline__ long long solid_source_pick(
   const int MY[19] = {-1, -1, -1, 4, 3, 7, 8, 5, 6, -1, -1, -1, 13, 12, -1, -1, -1, 18, 17};
   if (kWall >= 1 && CZ[d] == 1) {
     const I p = src + to_ground;
-    if (!solid(p, 0, -CY[d], -CX[d])) return MZ[d] * N + p;
+    if (!solid(p, 0, -CY[d], -CX[d])) return at(MZ[d], p, 0);
   }
   if (kWall == 2 && CX[d] != 0) {
     const I p = src + to_xface;
-    if (!solid(p, -CZ[d], -CY[d], 0)) return MX[d] * N + p;
+    if (!solid(p, -CZ[d], -CY[d], 0)) return at(MX[d], p, -CZ[d]);
   }
   if (kWall == 2 && CY[d] != 0) {
     const I p = src + to_yface;
-    if (!solid(p, -CZ[d], 0, -CX[d])) return MY[d] * N + p;
+    if (!solid(p, -CZ[d], 0, -CX[d])) return at(MY[d], p, -CZ[d]);
   }
-  return OPP[d] * N + n;
+  return at(OPP[d], n, 0);
 }
 
 // The element of the previous step's DDFs that direction d takes at cell
@@ -145,77 +150,12 @@ struct HaloArgs {
   const void* gm;
 };
 
-// The flags of the cell (zz, yy, xx) of a halo-mode slab, zz in [-1, Z].
-__device__ __forceinline__ uint8_t halo_flag(
-    const uint8_t* __restrict__ flags, const HaloArgs& h, int zz, int yy,
-    int xx, int Z, int Y, int X) {
-  const long long yx = (long long)yy * X + xx;
-  if (zz < 0) return h.flb[yx];
-  if (zz >= Z) return h.fla[yx];
-  return flags[(long long)zz * Y * X + yx];
-}
-
-// Channel ch of the DDFs at (zz, yy, xx) of a halo-mode slab, zz in
-// [-1, Z]: the base pointer and the element index (ch is a cz = +1 channel
-// where zz = -1, a cz = -1 channel where zz = Z).
-template <class T>
-__device__ __forceinline__ const T* halo_elem(
-    const T* __restrict__ fa, const HaloArgs& h, int ch, int zz, int yy,
-    int xx, int Z, int Y, int X, long long N, long long& idx) {
-  const long long yx = (long long)yy * X + xx;
-  if (zz < 0) {
-    idx = (ch - 9) * h.fps + yx;
-    return static_cast<const T*>(h.fp);
-  }
-  if (zz >= Z) {
-    idx = (ch - 14) * h.fms + yx;
-    return static_cast<const T*>(h.fm);
-  }
-  idx = ch * N + (long long)zz * Y * X + yx;
-  return fa;
-}
-
-// solid_source_index's choice in a halo-mode slab: direction d at cell n =
-// (z, y, x) pulls from (z - cz, ys, xs), which may lie in a halo plane, and
-// so may the x- and y-face mirror partners; the ground partner lies in the
-// cell's own plane.  Returns the base pointer and sets the element index.
-template <class T, int kWall>
-__device__ __forceinline__ const T* halo_source(
-    const T* __restrict__ fa, const uint8_t* __restrict__ flags,
-    const HaloArgs& h, int d, long long n, int z, int y, int x, int ys,
-    int xs, int Z, int Y, int X, long long N, long long& idx) {
-  const int CX[19] = {0, 1, -1, 0, 0, 1, -1, 1, -1, 0, 1, -1, 0, 0, 0, -1, 1, 0, 0};
-  const int CY[19] = {0, 0, 0, 1, -1, 1, -1, -1, 1, 0, 0, 0, 1, -1, 0, 0, 0, -1, 1};
-  const int CZ[19] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1, 1, 1, -1, -1, -1, -1, -1};
-  const int OPP[19] = {0, 2, 1, 4, 3, 6, 5, 8, 7, 14, 15, 16, 17, 18, 9, 10, 11, 12, 13};
-  const int MZ[19] = {-1, -1, -1, -1, -1, -1, -1, -1, -1, 14, 16, 15, 18, 17, -1, -1, -1, -1, -1};
-  const int MX[19] = {-1, 2, 1, -1, -1, 8, 7, 6, 5, -1, 11, 10, -1, -1, -1, 16, 15, -1, -1};
-  const int MY[19] = {-1, -1, -1, 4, 3, 7, 8, 5, 6, -1, -1, -1, 13, 12, -1, -1, -1, 18, 17};
-  const int zs = z - CZ[d];
-  if (!(halo_flag(flags, h, zs, ys, xs, Z, Y, X) & kTypeS))
-    return halo_elem(fa, h, d, zs, ys, xs, Z, Y, X, N, idx);
-  if (kWall >= 1 && CZ[d] == 1) {
-    const long long p = ((long long)z * Y + ys) * X + xs;
-    if (!(flags[p] & kTypeS)) {
-      idx = MZ[d] * N + p;
-      return fa;
-    }
-  }
-  if (kWall == 2 && CX[d] != 0 &&
-      !(halo_flag(flags, h, zs, ys, x, Z, Y, X) & kTypeS))
-    return halo_elem(fa, h, MX[d], zs, ys, x, Z, Y, X, N, idx);
-  if (kWall == 2 && CY[d] != 0 &&
-      !(halo_flag(flags, h, zs, y, xs, Z, Y, X) & kTypeS))
-    return halo_elem(fa, h, MY[d], zs, y, xs, Z, Y, X, N, idx);
-  idx = OPP[d] * N + n;
-  return fa;
-}
-
 // wall_stress (below) with the neighbours' flags read through an accessor,
 // for the tiled body: `flag_at(dz, dy, dx)` gives the flags (at least their
 // kTypeS bit) of the cell (dz, dy, dx) away, which the tiled body takes from
-// its neighbourhood mask.  The old body and K-AVG keep wall_stress with its
-// own device-memory reads, for the reason given at solid_source_pick.
+// its neighbourhood mask (in a halo-mode slab the ring holds the halo
+// planes' flags).  K-AVG keeps wall_stress with its own device-memory
+// reads, for the reason given at solid_source_pick.
 template <int kWall, class FlagAt>
 __device__ __forceinline__ void wall_stress_at(
     float& Fx, float& Fy, float& Fz, float ux, float uy, float uz, float rho,
@@ -239,20 +179,17 @@ __device__ __forceinline__ void wall_stress_at(
 
 // The wall models' Schumann stress on the force at a fluid cell, from its
 // streamed (unforced) velocity u: -cd rho |u_h| u_h when the cell below
-// (z - 1, periodic; in a halo-mode slab, kHalo, the plane below's flags
-// `flb` at z = 0) is solid; with kWall 2 and cd_sides > 0, -cd_sides rho
+// (z - 1, periodic) is solid; with kWall 2 and cd_sides > 0, -cd_sides rho
 // |u_t| u_t beside an x-face solid neighbour (along y and z) and a y-face one
 // (along x and z).  The Pallas step's evaluation order (:678-703).
-template <int kWall, bool kHalo = false>
+template <int kWall>
 __device__ __forceinline__ void wall_stress(
     float& Fx, float& Fy, float& Fz, float ux, float uy, float uz, float rho,
     const uint8_t* __restrict__ flags, int z, int y, int x, int Z, int Y,
-    int X, float cd, float cd_sides, const uint8_t* __restrict__ flb = nullptr) {
+    int X, float cd, float cd_sides) {
   if (kWall == 0) return;
   const long long plane = (long long)Y * X;
-  const uint8_t below =
-      kHalo && z == 0 ? flb[(long long)y * X + x]
-                      : flags[wrap(z - 1, Z) * plane + (long long)y * X + x];
+  const uint8_t below = flags[wrap(z - 1, Z) * plane + (long long)y * X + x];
   if (below & kTypeS) {
     const float cw = cd * rho * sqrtf(ux * ux + uy * uy);
     Fx -= cw * ux;

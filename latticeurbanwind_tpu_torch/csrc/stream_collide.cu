@@ -1,16 +1,17 @@
 // Fused D3Q19 stream-collide step for Hopper (sm_90a): the C entry point,
-// the SRT instances without a wall model, and the VK inlet site pass.
+// the instances without a wall model under SRT, and the VK inlet site pass.
 //
 // Replaces: latticeurbanwind_tpu/ops/stream_collide.py::make_pallas_step,
 // the Pallas TPU kernel that advances the lattice by one time step.  The
-// step kernel itself is the old body of stream_collide.cuh (its stages,
-// bound and design are described there); this unit instantiates it for the
-// configurations without a wall model under SRT -- every storage codec,
-// with and without the volume force, nudging and the sponge -- and hands
-// the wall-model and TRT configurations to stream_collide_wall.cu and the
-// thermal ones to stream_collide_thermal.cu (both the tiled body of
-// stream_collide_tiled.cuh, each family with its compile-time shape) and
-// the halo-mode steps of a split domain (K8) to stream_collide_halo.cu.
+// step kernel is the tiled body of stream_collide_tiled.cuh (its phases,
+// bound and design are described there and in stream_collide.cuh); this
+// unit instantiates its plain family -- no wall model, SRT, not thermal:
+// every storage codec, with and without the volume force (nudging and the
+// sponge at run time) -- and hands the
+// wall-model and TRT configurations to stream_collide_wall.cu, the thermal
+// ones to stream_collide_thermal.cu and the halo-mode steps of a split
+// domain (K8) to stream_collide_halo.cu, each family with its compile-time
+// shape.
 //
 // VK inlet sites (the Pallas kernel's `vk` spec, make_pallas_step
 // :915-978): at the boundary faces that carry a site mask, the cell's
@@ -41,6 +42,7 @@
 
 #include "codec.cuh"
 #include "stream_collide.cuh"
+#include "stream_collide_tiled.cuh"
 
 namespace luw {
 
@@ -166,7 +168,9 @@ vk_site_kernel(typename C::T* __restrict__ fb, VkMasks vm,
   for (int d = 0; d < 19; ++d) fb[d * N + n] = o[d];
 }
 
-// One SRT step without a wall model; thermal steps go to the instances of
+// One SRT step without a wall model (the plain family: nudging and the
+// sponge as run-time switches, which chip_sweep.py measured no slower than
+// compile-time ones); thermal steps go to the instances of
 // stream_collide_thermal.cu, the wall models and TRT to those of
 // stream_collide_wall.cu.
 template <class C>
@@ -175,13 +179,9 @@ cudaError_t sc_dispatch_force(const ScArgs& a, cudaStream_t stream) {
   if (a.wall || a.trt) return sc_dispatch_wall<C>(a, stream);
   if (!a.volume_force) {
     if (a.has_nudge || a.has_sponge) return cudaErrorInvalidValue;
-    return sc_launch<C, false, 0, 0, 0, false>(a, stream);
+    return sc_launch_tiled<C, false, 0, 0, 0, false, false>(a, stream);
   }
-  if (a.has_nudge && a.has_sponge)
-    return sc_launch<C, true, 1, 1, 0, false>(a, stream);
-  if (a.has_nudge) return sc_launch<C, true, 1, 0, 0, false>(a, stream);
-  if (a.has_sponge) return sc_launch<C, true, 0, 1, 0, false>(a, stream);
-  return sc_launch<C, true, 0, 0, 0, false>(a, stream);
+  return sc_launch_tiled<C, true, 2, 2, 0, false, false>(a, stream);
 }
 
 // One step in storage codec C (a halo-mode one where halo planes are

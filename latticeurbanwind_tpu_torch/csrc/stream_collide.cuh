@@ -1,10 +1,12 @@
-// The fused D3Q19 stream-collide step kernel (K-SC): its old body, a
-// template over the storage codec and the configuration, instantiated by
-// stream_collide.cu (SRT without a wall model, and the C entry point) and by
-// stream_collide_halo.cu with stream_collide_halo_thermal.cu (the halo mode
-// of a domain split over devices).  The thermal, wall-model and TRT
-// configurations run the tiled body of stream_collide_tiled.cuh instead;
-// both bodies call collide_cell below for the work after the pull.
+// The fused D3Q19 stream-collide step (K-SC): what every instance shares --
+// the per-cell work after the pull (collide_cell), the face targets of the
+// nudging band, the VK site masks, the host-side arguments of one step
+// (ScArgs) and the dispatch of the instance families.  The kernel itself is
+// the tiled body of stream_collide_tiled.cuh, instantiated per family by
+// stream_collide.cu (no wall model under SRT, and the C entry point),
+// stream_collide_wall.cu (the wall models and TRT), stream_collide_thermal.cu
+// (D3Q7) and stream_collide_halo.cu with stream_collide_halo_thermal.cu (the
+// halo mode of a domain split over devices).
 //
 // Replaces: latticeurbanwind_tpu/ops/stream_collide.py::make_pallas_step,
 // the Pallas TPU kernel that advances the lattice by one time step.  Stages,
@@ -23,33 +25,8 @@
 // 19 (2*19*sizeof(storage) bytes) plus its flag byte -- 77 B for the 2-byte
 // storages, 153 B for f32 -- plus 5 B of nudge fields when nudging is on;
 // the ~300 flops per cell (and the few integer ops of a software codec) are
-// far below the card's compute roof at that traffic.  The wall models add
-// no bytes beyond reads that L1/L2 serve (the mirror partners and the
-// neighbour flags of the stress).
-//
-// Design: threads run along x (the innermost axis) so every warp load and
-// store of a DDF channel is one coalesced line; the 18 pulled neighbours of
-// a thread are the same channels shifted by one row/plane, so a warp's pull
-// reads are coalesced too, and neighbour reuse comes from L1/L2 rather than
-// shared memory.  Own values are read only where needed (bounce-back
-// opposites, the TYPE_E freeze), and solid / TYPE_E cells skip the
-// arithmetic.  Offsets are 64-bit: 19 channels of a 134M-cell grid exceed
-// 2^31 elements.  The wall models and TRT are template arguments, so the
-// instances without them compile to the same code as before the wall models
-// existed, register for register and instruction for instruction
-// (chip_compare.py against that checkout); the wall instances take
-// 72-80 registers and cost +6% (ground) to +38% (wall_sides) per step at
-// 256^3 bf16 on the H100, most of it the side mirrors (those instances now
-// run the tiled body).  The thermal sub-lattice (thermal.cuh) is a template
-// argument too, its arguments one trailing struct that the other instances
-// never read.  So is the halo mode
-// (kHalo, K8): one z slab of a split domain whose z pulls that leave the
-// slab read the neighbouring slabs' planes (HaloArgs, lattice.cuh) instead
-// of wrapping, while y and x still wrap inside the slab's ghost-extended
-// plane; its arguments are one more trailing struct.  The tiled body
-// (stream_collide_tiled.cuh) removes this body's 64-bit index arithmetic and
-// its loads that wait for flag loads; moving these instances onto it is
-// later work.
+// far below the card's compute roof at that traffic.  What the tiled body
+// does about the rest is in its header.
 
 #pragma once
 
@@ -125,8 +102,8 @@ struct ScArgs {
   HaloArgs halo;  // fp null: not a halo-mode step
 };
 
-// The per-cell work of a step after the pull, shared by the old body below
-// and the tiled body (stream_collide_tiled.cuh): moments, global force +
+// The per-cell work of a step after the pull, for every instance of the
+// tiled body (stream_collide_tiled.cuh): moments, global force +
 // Coriolis, the wall stress, nudging, the sponge, the thermal sub-lattice,
 // the Guo half-step, equilibrium + Guo source, the Smagorinsky rate, SRT or
 // TRT collision and the encoded stores, in the Pallas evaluation order.
@@ -290,145 +267,6 @@ __device__ __forceinline__ void collide_cell(
     if (kForce) coll += cfin * fin[d];
     store(d, coll);
   }
-}
-
-// kNudge / kSponge: 0 off, 1 on, 2 on where the pointer is not null (the
-// wall, TRT, thermal and halo instances take them at run time to keep their
-// count down).  kThermal steps the g populations of `th` with the cell
-// (thermal.cuh).  kHalo reads the z neighbours beyond the slab from `ha`.
-template <class C, bool kForce, int kNudge, int kSponge, int kWall, bool kTrt,
-          bool kThermal = false, bool kHalo = false>
-__global__ void __launch_bounds__(kScThreads)
-stream_collide_kernel(const typename C::T* __restrict__ fa,
-                      typename C::T* __restrict__ fb,
-                      const uint8_t* __restrict__ flags,
-                      const float* __restrict__ dyn,
-                      const float* __restrict__ nudge_sigma,
-                      const uint8_t* __restrict__ nudge_face,
-                      const float* __restrict__ uw, const float* __restrict__ ue,
-                      const float* __restrict__ us, const float* __restrict__ un,
-                      const float* __restrict__ ut, const float* __restrict__ ub,
-                      const float* __restrict__ sponge_z, int Z, int Y, int X,
-                      int nudge_vertical, int subgrid, float omega, float tau0,
-                      float tau0_sq, float wall_cd, float wall_cd_sides,
-                      ThermArgs th, HaloArgs ha) {
-  // cz-grouped D3Q19 order of latticeurbanwind_tpu/lbm/lattice.py
-  const int CX[19] = {0, 1, -1, 0, 0, 1, -1, 1, -1, 0, 1, -1, 0, 0, 0, -1, 1, 0, 0};
-  const int CY[19] = {0, 0, 0, 1, -1, 1, -1, -1, 1, 0, 0, 0, 1, -1, 0, 0, 0, -1, 1};
-  const int CZ[19] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1, 1, 1, -1, -1, -1, -1, -1};
-  const int OPP[19] = {0, 2, 1, 4, 3, 6, 5, 8, 7, 14, 15, 16, 17, 18, 9, 10, 11, 12, 13};
-
-  const long long N = (long long)Z * Y * X;
-  const long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
-  const int x = (int)(n % X);
-  const long long zy = n / X;
-  const int y = (int)(zy % Y);
-  const int z = (int)(zy / Y);
-
-  const uint8_t fl = flags[n];
-  const typename C::T* __restrict__ ga =
-      static_cast<const typename C::T*>(th.ga);
-  typename C::T* __restrict__ gb = static_cast<typename C::T*>(th.gb);
-  if (fl & kTypeS) {
-#pragma unroll
-    for (int d = 0; d < 19; ++d) fb[d * N + n] = C::enc(0.0f);
-    if (kThermal) thermal_zero<C>(gb, n, N);
-    return;
-  }
-  if (kThermal && (fl & kTypeE)) {
-    // frozen f; g collides with the prescribed velocity, recovered as the
-    // moments of the cell's own stored equilibria; no sponge on T here
-    float rho = 0.0f, mx = 0.0f, my = 0.0f, mz = 0.0f;
-#pragma unroll
-    for (int d = 0; d < 19; ++d) {
-      const typename C::T v = fa[d * N + n];
-      fb[d * N + n] = v;
-      const float q = C::dec(v);
-      rho = d == 0 ? q : rho + q;
-      if (CX[d] == 1) mx += q; else if (CX[d] == -1) mx -= q;
-      if (CY[d] == 1) my += q; else if (CY[d] == -1) my -= q;
-      if (CZ[d] == 1) mz += q; else if (CZ[d] == -1) mz -= q;
-    }
-    const float inv = 1.0f / (rho + 1.0f);
-    thermal_cell<C, kHalo>(ga, gb, flags, fl, n, z, y, x, Z, Y, X, N,
-                           mx * inv, my * inv, mz * inv, 0.0f, th.tt,
-                           th.omega_t, ha);
-    return;
-  }
-  if (fl & kTypeE) {  // frozen equilibrium: the stored bits go back unchanged
-#pragma unroll
-    for (int d = 0; d < 19; ++d) fb[d * N + n] = fa[d * N + n];
-    return;
-  }
-
-  // ---- pull streaming with halfway bounce-back (or the wall models'
-  // ---- mirrors) from solid sources ----
-  float f[19];
-  f[0] = C::load(fa, n);
-  if (kHalo && (z == 0 || z == Z - 1)) {
-    // halo mode: the slab's first and last planes pull from beyond it; the
-    // planes between take the single-device pull below, whose z never
-    // wraps there, as one straight loop of independent loads
-#pragma unroll
-    for (int d = 1; d < 19; ++d) {
-      long long idx;
-      const typename C::T* p = halo_source<typename C::T, kWall>(
-          fa, flags, ha, d, n, z, y, x, wrap(y - CY[d], Y), wrap(x - CX[d], X),
-          Z, Y, X, N, idx);
-      f[d] = C::load(p, idx);
-    }
-  } else {
-#pragma unroll
-    for (int d = 1; d < 19; ++d) {
-      const int xs = wrap(x - CX[d], X);
-      const int ys = wrap(y - CY[d], Y);
-      const int zs = wrap(z - CZ[d], Z);
-      const long long src = ((long long)zs * Y + ys) * X + xs;
-      if (kWall == 0) {  // kept as written before the wall models: same code
-        f[d] = (flags[src] & kTypeS) ? C::load(fa, (long long)OPP[d] * N + n)
-                                     : C::load(fa, (long long)d * N + src);
-      } else {
-        f[d] = C::load(fa, (flags[src] & kTypeS)
-                               ? solid_source_index<kWall>(
-                                     flags, d, n, src, z, y, x, zs, ys, xs, X,
-                                     (long long)Y * X, N)
-                               : (long long)d * N + src);
-      }
-    }
-  }
-
-  collide_cell<C, kForce, kNudge, kSponge, kTrt, kThermal>(
-      f, n, z, y, x, Y, X, dyn, nudge_sigma, nudge_face, uw, ue, us, un, ut,
-      ub, sponge_z, nudge_vertical, subgrid, omega, tau0, tau0_sq, th,
-      [&](float& Fx, float& Fy, float& Fz, float ux, float uy, float uz,
-          float rho) {
-        wall_stress<kWall, kHalo>(Fx, Fy, Fz, ux, uy, uz, rho, flags, z, y,
-                                  x, Z, Y, X, wall_cd, wall_cd_sides, ha.flb);
-      },
-      [&](float ux, float uy, float uz) {
-        return thermal_cell<C, kHalo>(
-            ga, gb, flags, fl, n, z, y, x, Z, Y, X, N, ux, uy, uz,
-            sponge_z != nullptr ? sponge_z[z] : 0.0f, th.tt, th.omega_t, ha);
-      },
-      [&](int d, float v) { fb[d * N + n] = C::enc(v); });
-}
-
-template <class C, bool kForce, int kNudge, int kSponge, int kWall, bool kTrt,
-          bool kThermal = false, bool kHalo = false>
-cudaError_t sc_launch(const ScArgs& a, cudaStream_t stream) {
-  using T = typename C::T;
-  const long long cells = (long long)a.Z * a.Y * a.X;
-  const unsigned int blocks =
-      (unsigned int)((cells + kScThreads - 1) / kScThreads);
-  stream_collide_kernel<C, kForce, kNudge, kSponge, kWall, kTrt, kThermal,
-                        kHalo>
-      <<<blocks, kScThreads, 0, stream>>>(
-          static_cast<const T*>(a.fa), static_cast<T*>(a.fb), a.flags, a.dyn,
-          a.nudge_sigma, a.nudge_face, a.uw, a.ue, a.us, a.un, a.ut, a.ub,
-          a.sponge_z, a.Z, a.Y, a.X, a.nudge_vertical, a.subgrid, a.omega,
-          a.tau0, a.tau0_sq, a.wall_cd, a.wall_cd_sides, a.th, a.halo);
-  return cudaGetLastError();
 }
 
 // One step of a wall-model or TRT configuration in codec C (defined and

@@ -4,17 +4,18 @@
 // latticeurbanwind_tpu/ops/stream_collide.py::make_pallas_step (:409,
 // :1032-1042, :1205-1241), the per-shard step that
 // latticeurbanwind_tpu/parallel/halo.py::make_sharded_pallas_runner runs on
-// every device of a split domain.  The kernel is the template of
-// stream_collide.cuh with kHalo set: a z pull whose source leaves the slab
-// reads the plane the neighbouring slab supplies (HaloArgs, lattice.cuh) --
-// the source's flags for the bounce-back test, the DDF itself, the wall
-// models' x- and y-face mirror partners and the Schumann stress's flag below,
-// and the thermal +-z pulls -- while y and x wrap inside the slab's
-// ghost-extended plane, whose ghost outputs the runner's next exchange
-// overwrites.  This unit instantiates it, each configuration in the four
-// storage codecs, and stream_collide.cu's entry point dispatches here when
-// halo planes are given (the VK site pass then runs with the slab's ghost
-// offsets).
+// every device of a split domain.  The kernel is the tiled body of
+// stream_collide_tiled.cuh with kHalo set: a z pull whose source leaves the
+// slab reads the plane the neighbouring slab supplies (HaloArgs, lattice.cuh)
+// -- the flag ring fetches the halo planes' flags (the bounce-back test, the
+// wall models' mirror partners and the Schumann stress's flag below), the
+// pulls read their channels, the mirrors' partners and the thermal +-z pulls read them through the element
+// accessor -- while y and x still wrap inside the slab's ghost-extended
+// plane, whose ghost outputs the runner's next exchange overwrites.  This
+// unit instantiates it, each configuration in the four storage codecs, each
+// on its family's compile-time shape, and stream_collide.cu's
+// entry point dispatches here when halo planes are given (the VK site pass
+// then runs with the slab's ghost offsets).
 //
 // Instances, per codec: without the volume force SRT and TRT; with it SRT or
 // TRT, each without a wall model, with wall_model and with wall_sides -- 8,
@@ -27,20 +28,14 @@
 // planes add 2 * 5 (thermal 2 * 6) * sizeof(storage) bytes per plane cell
 // of the slab, read once by the cells of its first and last plane.
 //
-// Design: the same kernel as on one device, so a slab's cell runs the same
-// arithmetic on the same inputs and a split run's stored DDFs equal the
-// single-device run's bit for bit.  Only the cells of the slab's first and
-// last planes take the halo-aware pull (halo_source: per direction, the
-// choice of plane and base pointer); the planes between take the
-// single-device pull, whose z never leaves the slab there.  A z plane is
-// uniform across a warp but at one row per plane boundary, so the two
-// paths barely diverge.  (Every cell through halo_source cost +81% per step
-// against the non-halo instance on the deck's shard, 0.723 against 0.400
-// ms, on the H100.)  A halo plane can be a view into the neighbouring
-// slab's own DDF buffer (channel stride = its cell count) when both slabs
-// live on one device: the runner then copies no z plane at all.
+// Design: the same per-cell arithmetic as on one device, so a slab's cell
+// runs the same arithmetic on the same inputs and a split run's stored DDFs
+// equal the single-device run's bit for bit.  A halo plane can be a view
+// into the neighbouring slab's own DDF buffer (channel stride = its cell
+// count) when both slabs live on one device: the runner then copies no z
+// plane at all.
 
-#include "stream_collide.cuh"
+#include "stream_collide_tiled.cuh"
 
 namespace luw {
 
@@ -53,16 +48,18 @@ cudaError_t sc_dispatch_halo(const ScArgs& a, cudaStream_t stream) {
   if (a.thermal) return sc_dispatch_halo_thermal<C>(a, stream);
   if (!a.volume_force) {
     if (a.has_nudge || a.has_sponge || a.wall) return cudaErrorInvalidValue;
-    return a.trt ? sc_launch<C, false, 0, 0, 0, true, false, true>(a, stream)
-                 : sc_launch<C, false, 0, 0, 0, false, false, true>(a, stream);
+    return a.trt
+               ? sc_launch_tiled<C, false, 0, 0, 0, true, false, true>(a, stream)
+               : sc_launch_tiled<C, false, 0, 0, 0, false, false, true>(a,
+                                                                       stream);
   }
   switch (a.wall * 2 + (a.trt ? 1 : 0)) {
-    case 0: return sc_launch<C, true, 2, 2, 0, false, false, true>(a, stream);
-    case 1: return sc_launch<C, true, 2, 2, 0, true, false, true>(a, stream);
-    case 2: return sc_launch<C, true, 2, 2, 1, false, false, true>(a, stream);
-    case 3: return sc_launch<C, true, 2, 2, 1, true, false, true>(a, stream);
-    case 4: return sc_launch<C, true, 2, 2, 2, false, false, true>(a, stream);
-    case 5: return sc_launch<C, true, 2, 2, 2, true, false, true>(a, stream);
+    case 0: return sc_launch_tiled<C, true, 2, 2, 0, false, false, true>(a, stream);
+    case 1: return sc_launch_tiled<C, true, 2, 2, 0, true, false, true>(a, stream);
+    case 2: return sc_launch_tiled<C, true, 2, 2, 1, false, false, true>(a, stream);
+    case 3: return sc_launch_tiled<C, true, 2, 2, 1, true, false, true>(a, stream);
+    case 4: return sc_launch_tiled<C, true, 2, 2, 2, false, false, true>(a, stream);
+    case 5: return sc_launch_tiled<C, true, 2, 2, 2, true, false, true>(a, stream);
     default: return cudaErrorInvalidValue;
   }
 }

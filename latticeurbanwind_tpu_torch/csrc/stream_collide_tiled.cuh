@@ -1,60 +1,59 @@
 // The tiled body of the fused D3Q19 stream-collide step (K-SC) for Hopper
-// (sm_90a): the thermal (K7) and wall-model / TRT (K4, K2) configurations.
-// stream_collide_thermal.cu and stream_collide_wall.cu instantiate it; the
-// configurations without a wall model under SRT and the halo mode (K8) still
-// run the old body of stream_collide.cuh.
+// (sm_90a): every instance of the step.  stream_collide.cu instantiates it
+// for the configurations without a wall model under SRT, stream_collide_wall.cu
+// for the wall models and TRT, stream_collide_thermal.cu for D3Q7, and
+// stream_collide_halo.cu with stream_collide_halo_thermal.cu for the halo
+// mode (K8) of a domain split over devices.
 //
-// Replaces: the thermal and wall branches of
-// latticeurbanwind_tpu/ops/stream_collide.py::make_pallas_step -- the D3Q7
-// sub-lattice (:732-807, outputs :909-913), the specular mirrors and
-// Schumann stress of the wall models (:618-650, :678-703) and TRT
-// (:890-902) -- with everything the step does around them.  The per-cell
-// arithmetic after the pull is collide_cell of stream_collide.cuh, which the
-// old body calls too, so both bodies evaluate in the Pallas order.
+// Replaces: latticeurbanwind_tpu/ops/stream_collide.py::make_pallas_step,
+// every branch: SRT + LES, force, nudging, sponge (:674-730, :882-889), the
+// codecs (:283-373), the wall models' mirrors and stress (:618-650,
+// :678-703), TRT (:890-902), the D3Q7 sub-lattice (:732-807, outputs
+// :909-913) and the halo mode (:409, :1032-1042, :1222-1241).  The per-cell
+// arithmetic after the pull is collide_cell of stream_collide.cuh, so every
+// instance evaluates in the Pallas order.
 //
 // Bound on the H100: device memory.  A cell update reads 19 DDFs and writes
 // 19, plus its flag byte: 77 B in the 2-byte storages (153 B f32); thermal
 // adds 2 * 7 values, 105 B (209 B); nudging 5 B.  ~600-660 flops per cell
 // are far below the compute roof at that traffic.  A pull reads every DDF
-// element once (it is a permutation), so staging the DDFs in shared memory
-// would save no bytes: what the old body loses to the bound is instructions
-// and latency.  This body removes the costs below; on the card that gains
-// 5-15% per step (PERF.md), and what still holds it at a third of its bound
-// is the DRAM round trip each warp waits once per plane, with 16-20 warps
-// resident per SM:
+// element once (it is a permutation), so what a kernel loses to the bound
+// is instructions and latency.  This body's design:
 //
-//   * Index arithmetic.  The old body recovers (z, y, x) from a flat 64-bit
-//     index with 64-bit division, which the card emulates, and forms every
-//     source with 64-bit multiplies.  Here a 2-D block of TX x TY threads
-//     covers a tile of a plane and marches over KZ planes: coordinates
-//     come from the block and thread indices, every source is the cell's
-//     32-bit offset plus one of six wrapped neighbour offsets, and only the
-//     channel stride d * N is 64-bit (19 N exceeds 2^31; Z Y X < 2^31 is
-//     checked at launch).  No 64-bit division is left.
-//   * Loads that wait for loads.  The old body reads each source's flag byte
-//     before it can choose the DDF element to load, and the wall models chain
-//     up to three more flag reads per solid-adjacent direction and five for
-//     the stress.  Here a block keeps the flags of three planes of its tile
-//     with a one-cell rim, (TY + 2) x (TX + 2) bytes each, in a ring in
-//     shared memory; every flag the cell's logic reads lies in that 3x3x3
-//     neighbourhood (the 18 sources, the mirrors' partners, the stress's five
-//     neighbours), so a cell first folds it into a 27-bit mask of solid
-//     cells and its own flag byte, then picks all 18 f elements (and its 7
-//     g elements) from the mask and issues every load before any arithmetic.
+//   * Index arithmetic.  A 2-D block of TX x TY threads covers a tile of a
+//     plane and marches over KZ planes: coordinates come from the block and
+//     thread indices, every source is the cell's 32-bit offset plus one of
+//     six wrapped neighbour offsets, and only the channel stride d * N is
+//     64-bit (19 N exceeds 2^31; Z Y X < 2^31 is checked at launch).  No
+//     64-bit division.
+//   * Loads that wait for loads.  A block keeps the flags of the planes
+//     around its tile with a one-cell rim, (TY + 2) x (TX + 2) bytes each, in
+//     a ring in shared memory; every flag the cell's logic reads lies in its
+//     3x3x3 neighbourhood (the 18 sources, the mirrors' partners, the
+//     stress's five neighbours), so a cell first folds it into a 27-bit mask
+//     of solid cells and its own flag byte, then picks all 18 f elements (and
+//     its 7 g elements) from the mask and issues every load before any
+//     arithmetic.  The ring's planes are fetched ahead by cp.async: the
+//     4-byte-aligned words of each rim row (each ring row shifted so that its
+//     words land aligned), the unaligned head and tail bytes and the two
+//     wrapped edge columns by plain loads that a thread issues before its
+//     cell's work and stores after it.
 //   * The thermal second memory phase.  The g loads go out with the f loads
 //     (thermal_pull_index); the relax (thermal_finish) runs after the
-//     forces, where the Pallas kernel and the old body evaluate it.
-//   * Flag re-reads.  A flag byte is read from device memory once per block
-//     (plus its rim) instead of 19-25 times per cell through L1/L2.  The next
-//     plane's bytes are fetched while the current plane computes: the
-//     4-byte-aligned words of each rim row by cp.async (each ring row is
-//     shifted so that its words land aligned), the unaligned head and tail
-//     bytes and the two wrapped edge columns by plain loads that a thread
-//     issues before its cell's work and stores after it.
-//   * DRAM latency.  Every warp waits once per plane for its pulls; the
-//     wall-model and TRT instances also ask L2 for the next plane's sources
-//     (prefetch.global.L2) before a plane's work, which the thermal ones,
-//     with twice the lines per cell, lose to (PERF.md).
+//     forces, where the Pallas kernel evaluates it.
+//   * DRAM latency.  Every warp waits one DRAM round trip per plane for
+//     its pulls and has nothing in flight while it computes.  Staging the
+//     19 pulled windows of the next planes in shared memory by cp.async was
+//     12-87% slower on the H100 than this body unstaged, and one bulk copy
+//     per row no faster (PERF.md): the step is not held back by bytes in
+//     flight, so the body does not stage.  The wall-model and TRT family
+//     asks L2 for the next plane's sources (prefetch.global.L2) instead,
+//     which helps it and no other family.
+//   * The halo mode (kHalo).  The planes -1 and Z of a slab are the
+//     neighbours' (HaloArgs): the ring fetches their flags there, the pulls
+//     read their channels there through an element accessor (which the
+//     wall models' mirror choice and the D3Q7 pull take too), and the z
+//     offsets do not wrap.
 //
 // The wrap is periodic on all three axes, applied when the ring is filled
 // (rows and edge columns) and by the neighbour offsets; the ragged edges of
@@ -69,6 +68,8 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "codec.cuh"
 #include "lattice.cuh"
 #include "stream_collide.cuh"
@@ -77,20 +78,26 @@
 namespace luw {
 
 // The tiled body's compile-time shape per family (the thermal instances in
-// the 2-byte storages, the thermal ones in f32, and the wall-model and TRT
-// ones): a block of tx x ty threads along (x, y) marching over kz planes,
-// at least min_blocks blocks resident per SM (__launch_bounds__, which caps
-// the registers), and how many planes ahead each thread asks L2 for its
-// cell's sources (0: none).  Chosen per family on the card (chip_sweep.py,
-// chip_smoke.py's 256^3 rows; PERF.md): the 2-byte thermal instances as
-// 256 x 1 x 8 with 2 blocks (128 registers) and no prefetch; in f32,
-// where that shape cost +35% at 256^3, as 64 x 2 x 8 with 4 blocks
-// (128 registers); the wall-model and TRT ones as 64 x 2 x 8 with 5 blocks
-// (96 registers; 6 would spill) and one plane prefetched.  A build may set
-// a family's five numbers, `tx, ty, kz, min_blocks, prefetch`, as
-// LUW_TILE_THERMAL, LUW_TILE_THERMAL_F32 or LUW_TILE_OTHER in a header it
-// pre-includes; that is how the sweep builds its variants (nvcc's -D would
-// split the list at its commas).
+// the 2-byte storages, the thermal ones in f32, the wall-model and TRT ones,
+// and the plain ones: no wall model, SRT, not thermal): a block of tx x ty
+// threads along (x, y) marching over kz planes, at least min_blocks blocks
+// resident per SM (__launch_bounds__, which caps the registers) and how many
+// planes ahead each thread asks L2 for its cell's sources (0: none).  Chosen
+// per family on the card (chip_sweep.py, chip_smoke.py's 256^3 rows;
+// PERF.md): the 2-byte thermal
+// instances as 256 x 1 x 8 with 2 blocks (128 registers); in f32, where that
+// shape cost +35% at 256^3, as 64 x 2 x 8 with 4 blocks (128 registers); the
+// wall-model and TRT ones as 64 x 2 x 8 with 5 blocks (96 registers; 6
+// would spill) and one plane prefetched; the plain ones in bf16 and f16 as
+// 128 x 1 x 8 with 6 blocks (75-80 registers, no spills; 64 x 2 x 8 with 5
+// blocks was 1-4% slower), and in f32 and fp16c, where that shape cost 9%
+// and 21% more than the old body, as 64 x 2 x 8 with 6 blocks (76-80
+// registers; 5 blocks was 5% slower in fp16c); none with a prefetch
+// (+8-11%).  A build may set a family's five numbers,
+// `tx, ty, kz, min_blocks, prefetch`, as LUW_TILE_THERMAL,
+// LUW_TILE_THERMAL_F32, LUW_TILE_OTHER, LUW_TILE_PLAIN or
+// LUW_TILE_PLAIN_F32_FP16C in a header it pre-includes; that is how the
+// sweep builds its variants (nvcc's -D would split the list at its commas).
 struct TileShape {
   int tx, ty, kz, min_blocks, prefetch;
 };
@@ -103,29 +110,53 @@ struct TileShape {
 #ifndef LUW_TILE_OTHER
 #define LUW_TILE_OTHER 64, 2, 8, 5, 1
 #endif
-// f32: the storage takes 4 bytes per value.
-__host__ __device__ constexpr TileShape tile_shape(bool thermal, bool f32) {
-  return !thermal ? TileShape{LUW_TILE_OTHER}
-         : f32    ? TileShape{LUW_TILE_THERMAL_F32}
-                  : TileShape{LUW_TILE_THERMAL};
+#ifndef LUW_TILE_PLAIN
+#define LUW_TILE_PLAIN 128, 1, 8, 6, 0
+#endif
+#ifndef LUW_TILE_PLAIN_F32_FP16C
+#define LUW_TILE_PLAIN_F32_FP16C 64, 2, 8, 6, 0
+#endif
+// f32: the storage takes 4 bytes per value; plain: no wall model, SRT;
+// fp16c: the storage is the software-decoded 1-4-11 float.
+__host__ __device__ constexpr TileShape tile_shape(bool thermal, bool f32,
+                                                  bool plain = false,
+                                                  bool fp16c = false) {
+  return plain && (f32 || fp16c) ? TileShape{LUW_TILE_PLAIN_F32_FP16C}
+         : plain                 ? TileShape{LUW_TILE_PLAIN}
+         : !thermal              ? TileShape{LUW_TILE_OTHER}
+         : f32                   ? TileShape{LUW_TILE_THERMAL_F32}
+                                 : TileShape{LUW_TILE_THERMAL};
 }
-// The bytes of a ring plane: ty + 2 rows of tx + 8 (the rim, and the shift
-// that aligns each row's words).
+// The bytes of a flag ring plane: ty + 2 rows of tx + 8 (the rim, and the
+// shift that aligns each row's words); the ring holds 3 planes, each with
+// its row shifts, in static shared memory.
 __host__ __device__ constexpr int ring_plane_bytes(TileShape t) {
   return (t.ty + 2) * (t.tx + 8);
 }
-// A shape the ring takes: tx a multiple of 4 (the rows' words), one thread
-// per word of a rim row's copy and 8 threads per rim row's plain bytes.
+__host__ __device__ constexpr int ring_bytes(TileShape t) {
+  return 3 * (ring_plane_bytes(t) + t.ty + 2);
+}
+// The H100's shared memory: 48 KB of static shared memory a block can take,
+// 228 KB an SM holds, of which 1 KB per resident block is the system's.
+constexpr int kSmemStatic = 49152;
+constexpr int kSmemPerSm = 233472;
+constexpr int kSmemReserved = 1024;
+// A shape the ring takes: tx a multiple of 4 (the flag rows' words), one
+// thread per word of a flag rim row's copy and 8 threads per flag rim row's
+// plain bytes, and min_blocks blocks' rings on one SM.
 __host__ __device__ constexpr bool tile_ok(TileShape t) {
   return t.tx >= 4 && t.tx % 4 == 0 && t.ty >= 1 && t.kz >= 1 &&
          t.min_blocks >= 1 && t.prefetch >= 0 &&
          (t.ty + 2) * (t.tx / 4) <= t.tx * t.ty &&
-         (t.ty + 2) * 8 <= t.tx * t.ty;
+         (t.ty + 2) * 8 <= t.tx * t.ty && ring_bytes(t) <= kSmemStatic &&
+         t.min_blocks * (ring_bytes(t) + kSmemReserved) <= kSmemPerSm;
 }
 static_assert(tile_ok(tile_shape(true, false)) &&
                   tile_ok(tile_shape(true, true)) &&
-                  tile_ok(tile_shape(false, false)),
-              "a tiled body shape the flag ring does not take");
+                  tile_ok(tile_shape(false, false)) &&
+                  tile_ok(tile_shape(false, false, true)) &&
+                  tile_ok(tile_shape(false, true, true)),
+              "a tiled body shape the ring does not take");
 // The neighbourhood mask takes each flag's kTypeS bit by masking and shifting.
 static_assert(kTypeS == 1, "the neighbourhood mask needs kTypeS in bit 0");
 
@@ -214,9 +245,10 @@ __device__ __forceinline__ void prefetch_cell(
 
 // One cell of the tiled body: fl its flags, nb the solid bits of its 3x3x3
 // neighbourhood (nb_bit), n its offset in a channel, the o* the offsets of
-// its wrapped neighbours along each axis.
+// its neighbours along each axis (wrapped; in a halo-mode slab the z ones
+// do not wrap, and a pull beyond the slab reads the halo planes `ha`).
 template <class C, bool kForce, int kNudge, int kSponge, int kWall, bool kTrt,
-          bool kThermal>
+          bool kThermal, bool kHalo = false>
 __device__ __forceinline__ void tiled_cell(
     const typename C::T* __restrict__ fa, typename C::T* __restrict__ fb,
     uint8_t fl, uint32_t nb, int n, long long N, int z, int y, int x, int Y,
@@ -227,7 +259,8 @@ __device__ __forceinline__ void tiled_cell(
     const float* __restrict__ un, const float* __restrict__ ut,
     const float* __restrict__ ub, const float* __restrict__ sponge_z,
     int nudge_vertical, int subgrid, float omega, float tau0, float tau0_sq,
-    float wall_cd, float wall_cd_sides, const ThermArgs& th) {
+    float wall_cd, float wall_cd_sides, const ThermArgs& th,
+    const HaloArgs& ha, int Z) {
   using T = typename C::T;
   const int CX[19] = {0, 1, -1, 0, 0, 1, -1, 1, -1, 0, 1, -1, 0, 0, 0, -1, 1, 0, 0};
   const int CY[19] = {0, 0, 0, 1, -1, 1, -1, -1, 1, 0, 0, 0, 1, -1, 0, 0, 0, -1, 1};
@@ -247,6 +280,29 @@ __device__ __forceinline__ void tiled_cell(
   };
   const T* __restrict__ ga = static_cast<const T*>(th.ga);
   T* __restrict__ gb = static_cast<T*>(th.gb);
+  // a halo-mode slab's element: channel ch of the cell at offset p, in the
+  // plane dz from the cell's -- the halo plane below (channels 9-13 of fp)
+  // or above (14-18 of fm) where that plane leaves the slab, else fa's (the
+  // thermal g: gp / gm, one channel each, else ga's)
+  struct Elem {
+    const T* p;
+    long long i;
+  };
+  const int plane = Y * X;
+  auto at_halo = [&](int ch, int p, int dz) -> Elem {
+    if (dz < 0 && z == 0)
+      return {static_cast<const T*>(ha.fp), (ch - 9) * ha.fps + (p + plane)};
+    if (dz > 0 && z == Z - 1)
+      return {static_cast<const T*>(ha.fm), (ch - 14) * ha.fms + (p - Z * plane)};
+    return {fa, ch * N + p};
+  };
+  auto at_halo_g = [&](int ch, int p, int dz) -> Elem {
+    if (dz < 0 && z == 0) return {static_cast<const T*>(ha.gp), p + plane};
+    if (dz > 0 && z == Z - 1)
+      return {static_cast<const T*>(ha.gm), (long long)(p - Z * plane)};
+    return {ga, ch * N + p};
+  };
+  auto at = [&](int ch, int p, int) { return ch * N + p; };
 
   if (fl & kTypeS) {
 #pragma unroll
@@ -257,14 +313,21 @@ __device__ __forceinline__ void tiled_cell(
   T graw[7];
   if (kThermal) {
 #pragma unroll
-    for (int d = 0; d < 7; ++d)
-      graw[d] = ga[thermal_pull_index(
-          d, fl, solid(-CZ7[d], -CY7[d], -CX7[d]), n,
-          off(-CZ7[d], -CY7[d], -CX7[d]), N)];
+    for (int d = 0; d < 7; ++d) {
+      const bool src_solid = solid(-CZ7[d], -CY7[d], -CX7[d]);
+      const int src_off = off(-CZ7[d], -CY7[d], -CX7[d]);
+      if constexpr (kHalo) {
+        const Elem e =
+            thermal_pull_index(d, fl, src_solid, n, src_off, at_halo_g);
+        graw[d] = e.p[e.i];
+      } else {
+        graw[d] = ga[thermal_pull_index(d, fl, src_solid, n, src_off, at)];
+      }
+    }
   }
   if (kThermal && (fl & kTypeE)) {
     // frozen f; g collides with the velocity of the cell's own stored
-    // equilibria; no sponge on T here (as the old body)
+    // equilibria; no sponge on T here
     float rho = 0.0f, mx = 0.0f, my = 0.0f, mz = 0.0f;
 #pragma unroll
     for (int d = 0; d < 19; ++d) {
@@ -290,22 +353,42 @@ __device__ __forceinline__ void tiled_cell(
   // ---- the pull: every element chosen from the mask, every load issued
   // ---- before any arithmetic
   float f[19];
-  f[0] = C::load(fa, n);
+  if constexpr (kHalo) {
+    f[0] = C::load(fa, n);
 #pragma unroll
-  for (int d = 1; d < 19; ++d) {
-    const int src = n + off(-CZ[d], -CY[d], -CX[d]);
-    long long idx = d * N + src;
-    if (solid(-CZ[d], -CY[d], -CX[d])) {
-      if (kWall == 0) {
-        idx = OPP[d] * N + n;
-      } else {
-        idx = solid_source_pick<kWall>(
-            [&](int, int dz, int dy, int dx) { return solid(dz, dy, dx); }, d,
-            n, src, -off(-CZ[d], 0, 0), -off(0, 0, -CX[d]),
-            -off(0, -CY[d], 0), N);
+    for (int d = 1; d < 19; ++d) {
+      const int src = n + off(-CZ[d], -CY[d], -CX[d]);
+      Elem e = at_halo(d, src, -CZ[d]);
+      if (solid(-CZ[d], -CY[d], -CX[d])) {
+        if (kWall == 0) {
+          e = at_halo(OPP[d], n, 0);
+        } else {
+          e = solid_source_pick<kWall>(
+              [&](int, int dz, int dy, int dx) { return solid(dz, dy, dx); },
+              at_halo, d, n, src, -off(-CZ[d], 0, 0), -off(0, 0, -CX[d]),
+              -off(0, -CY[d], 0));
+        }
       }
+      f[d] = C::load(e.p, e.i);
     }
-    f[d] = C::load(fa, idx);
+  } else {
+    f[0] = C::load(fa, n);
+#pragma unroll
+    for (int d = 1; d < 19; ++d) {
+      const int src = n + off(-CZ[d], -CY[d], -CX[d]);
+      long long idx = d * N + src;
+      if (solid(-CZ[d], -CY[d], -CX[d])) {
+        if (kWall == 0) {
+          idx = OPP[d] * N + n;
+        } else {
+          idx = solid_source_pick<kWall>(
+              [&](int, int dz, int dy, int dx) { return solid(dz, dy, dx); },
+              at, d, n, src, -off(-CZ[d], 0, 0), -off(0, 0, -CX[d]),
+              -off(0, -CY[d], 0));
+        }
+      }
+      f[d] = C::load(fa, idx);
+    }
   }
 
   collide_cell<C, kForce, kNudge, kSponge, kTrt, kThermal>(
@@ -328,20 +411,41 @@ __device__ __forceinline__ void tiled_cell(
       [&](int d, float v) { fb[d * N + n] = C::enc(v); });
 }
 
-// The shape of a codec's thermal or other instances.
+// The shape of a codec's family: thermal, or plain (no wall model, SRT),
+// or the wall-model and TRT one.
 template <class C>
-__host__ __device__ constexpr TileShape tile_shape_of(bool thermal) {
-  return tile_shape(thermal, sizeof(typename C::T) == 4);
+__host__ __device__ constexpr TileShape tile_shape_of(bool thermal,
+                                                      bool plain) {
+  return tile_shape(thermal, sizeof(typename C::T) == 4, plain,
+                    std::is_same<C, CodecFP16C>::value);
 }
 
-// kNudge / kSponge as in stream_collide_kernel (the instances take 2: on
-// where the pointer is set).  Block (TX, TY) and KZ planes per block from
-// tile_shape_of, grid (x tiles, y tiles, z chunks of KZ planes).
+// The flags of plane zz in [-1, Z] of a slab: the halo's planes beyond it
+// (kHalo), else plane wrap(zz, Z) of flags; as a base and a plane index for
+// ring_fetch.
+template <bool kHalo>
+__device__ __forceinline__ const uint8_t* flag_plane(
+    const uint8_t* __restrict__ flags, const HaloArgs& ha, int zz, int Z,
+    int& zi) {
+  if (kHalo && (zz < 0 || zz >= Z)) {
+    zi = 0;
+    return zz < 0 ? ha.flb : ha.fla;
+  }
+  zi = wrap(zz, Z);
+  return flags;
+}
+
+// kNudge / kSponge: 0 off, 1 on, 2 on where the pointer is not null (every
+// instance with the volume force takes 2, which keeps their count down and
+// cost nothing measurable in the plain family: chip_sweep.py, PERF.md).
+// Block (TX, TY) and KZ planes per block from tile_shape_of, grid (x tiles,
+// y tiles, z chunks of KZ planes).
 template <class C, bool kForce, int kNudge, int kSponge, int kWall, bool kTrt,
-          bool kThermal>
-__global__ void __launch_bounds__(tile_shape_of<C>(kThermal).tx *
-                                      tile_shape_of<C>(kThermal).ty,
-                                  tile_shape_of<C>(kThermal).min_blocks)
+          bool kThermal, bool kHalo = false>
+__global__ void __launch_bounds__(
+    tile_shape_of<C>(kThermal, kWall == 0 && !kTrt && !kThermal).tx *
+        tile_shape_of<C>(kThermal, kWall == 0 && !kTrt && !kThermal).ty,
+    tile_shape_of<C>(kThermal, kWall == 0 && !kTrt && !kThermal).min_blocks)
 stream_collide_tiled_kernel(
     const typename C::T* __restrict__ fa, typename C::T* __restrict__ fb,
     const uint8_t* __restrict__ flags, const float* __restrict__ dyn,
@@ -351,11 +455,11 @@ stream_collide_tiled_kernel(
     const float* __restrict__ un, const float* __restrict__ ut,
     const float* __restrict__ ub, const float* __restrict__ sponge_z, int Z,
     int Y, int X, int nudge_vertical, int subgrid, float omega, float tau0,
-    float tau0_sq, float wall_cd, float wall_cd_sides, ThermArgs th) {
-  constexpr TileShape kShape = tile_shape_of<C>(kThermal);
+    float tau0_sq, float wall_cd, float wall_cd_sides, ThermArgs th,
+    HaloArgs ha) {
+  constexpr TileShape kShape =
+      tile_shape_of<C>(kThermal, kWall == 0 && !kTrt && !kThermal);
   constexpr int TX = kShape.tx, TY = kShape.ty, KZ = kShape.kz;
-  __shared__ __align__(16) uint8_t ring[3][ring_plane_bytes(kShape)];
-  __shared__ uint8_t shift[3][TY + 2];
 
   const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * TX + tx;
   const int x0 = blockIdx.x * TX, y0 = blockIdx.y * TY;
@@ -368,13 +472,24 @@ stream_collide_tiled_kernel(
   const long long N = (long long)Z * plane;
   const int oxm = x == 0 ? X - 1 : -1, oxp = x == X - 1 ? 1 - X : 1;
   const int oym = y == 0 ? (Y - 1) * X : -X, oyp = y == Y - 1 ? (1 - Y) * X : X;
+  // the z offsets of plane z: wrapped, or in a halo-mode slab straight into
+  // the halo planes (which the accessors then read)
+  auto ozm_of = [&](int z) { return !kHalo && z == 0 ? (Z - 1) * plane : -plane; };
+  auto ozp_of = [&](int z) {
+    return !kHalo && z == Z - 1 ? (1 - Z) * plane : plane;
+  };
+
+  __shared__ __align__(16) uint8_t ring[3][ring_plane_bytes(kShape)];
+  __shared__ uint8_t shift[3][TY + 2];
 
   // the ring's first three planes: z0 - 1, z0, z0 + 1 (wrapped)
 #pragma unroll
   for (int j = 0; j < 3; ++j) {
     uint8_t v;
-    const int pos = ring_fetch(ring[j], shift[j], flags, wrap(z0 - 1 + j, Z),
-                               tid, x0, y0, txn, tyn, TX, X, Y, v);
+    int zi;
+    const uint8_t* fp = flag_plane<kHalo>(flags, ha, z0 - 1 + j, Z, zi);
+    const int pos = ring_fetch(ring[j], shift[j], fp, zi, tid, x0, y0, txn,
+                               tyn, TX, X, Y, v);
     if (pos >= 0) ring[j][pos] = v;
   }
   __pipeline_commit();
@@ -406,8 +521,10 @@ stream_collide_tiled_kernel(
     int pos = -1;
     uint8_t v = 0;
     if (more) {
-      pos = ring_fetch(ring[sm], shift[sm], flags, wrap(z + 2, Z), tid, x0, y0,
-                       txn, tyn, TX, X, Y, v);
+      int zi;
+      const uint8_t* fp = flag_plane<kHalo>(flags, ha, z + 2, Z, zi);
+      pos = ring_fetch(ring[sm], shift[sm], fp, zi, tid, x0, y0, txn, tyn,
+                       TX, X, Y, v);
       __pipeline_commit();
     }
     constexpr int kAhead = kShape.prefetch;
@@ -419,13 +536,11 @@ stream_collide_tiled_kernel(
                        oxp);
     }
     if (live) {
-      tiled_cell<C, kForce, kNudge, kSponge, kWall, kTrt, kThermal>(
-          fa, fb, fl, nb, (z * Y + y) * X + x, N, z, y, x, Y, X,
-          z == 0 ? (Z - 1) * plane : -plane,
-          z == Z - 1 ? (1 - Z) * plane : plane, oym, oyp, oxm, oxp, dyn,
-          nudge_sigma, nudge_face, uw, ue, us, un, ut, ub, sponge_z,
-          nudge_vertical, subgrid, omega, tau0, tau0_sq, wall_cd,
-          wall_cd_sides, th);
+      tiled_cell<C, kForce, kNudge, kSponge, kWall, kTrt, kThermal, kHalo>(
+          fa, fb, fl, nb, (z * Y + y) * X + x, N, z, y, x, Y, X, ozm_of(z),
+          ozp_of(z), oym, oyp, oxm, oxp, dyn, nudge_sigma, nudge_face, uw,
+          ue, us, un, ut, ub, sponge_z, nudge_vertical, subgrid, omega, tau0,
+          tau0_sq, wall_cd, wall_cd_sides, th, ha, Z);
     }
     if (more) {
       if (pos >= 0) ring[sm][pos] = v;
@@ -440,19 +555,24 @@ stream_collide_tiled_kernel(
 }
 
 template <class C, bool kForce, int kNudge, int kSponge, int kWall, bool kTrt,
-          bool kThermal>
+          bool kThermal, bool kHalo = false>
 cudaError_t sc_launch_tiled(const ScArgs& a, cudaStream_t stream) {
   using T = typename C::T;
-  constexpr TileShape t = tile_shape_of<C>(kThermal);
-  if ((long long)a.Z * a.Y * a.X > INT_MAX) return cudaErrorInvalidValue;
+  constexpr TileShape t =
+      tile_shape_of<C>(kThermal, kWall == 0 && !kTrt && !kThermal);
+  // every cell offset, and in a halo-mode slab those of the halo planes
+  // around it, is a 32-bit int
+  if ((long long)(a.Z + (kHalo ? 2 : 0)) * a.Y * a.X > INT_MAX)
+    return cudaErrorInvalidValue;
   const dim3 grid((a.X + t.tx - 1) / t.tx, (a.Y + t.ty - 1) / t.ty,
                   (a.Z + t.kz - 1) / t.kz);
-  stream_collide_tiled_kernel<C, kForce, kNudge, kSponge, kWall, kTrt,
-                              kThermal><<<grid, dim3(t.tx, t.ty), 0, stream>>>(
+  auto kernel = stream_collide_tiled_kernel<C, kForce, kNudge, kSponge, kWall,
+                                            kTrt, kThermal, kHalo>;
+  kernel<<<grid, dim3(t.tx, t.ty), 0, stream>>>(
       static_cast<const T*>(a.fa), static_cast<T*>(a.fb), a.flags, a.dyn,
       a.nudge_sigma, a.nudge_face, a.uw, a.ue, a.us, a.un, a.ut, a.ub,
       a.sponge_z, a.Z, a.Y, a.X, a.nudge_vertical, a.subgrid, a.omega,
-      a.tau0, a.tau0_sq, a.wall_cd, a.wall_cd_sides, a.th);
+      a.tau0, a.tau0_sq, a.wall_cd, a.wall_cd_sides, a.th, a.halo);
   return cudaGetLastError();
 }
 

@@ -21,11 +21,11 @@
 //     the cell's own frozen f);
 //   * g_post = (1 - omega_t) g + omega_t g_eq, encoded by the step's codec.
 //
-// In a halo-mode slab (kHalo) the z pulls that leave the slab read the
-// neighbouring slabs' planes (HaloArgs of lattice.cuh) instead of wrapping.
-// thermal_cell serves the old body (halo mode); the tiled body takes the
-// same work in two halves, thermal_pull_index with its f pulls and
-// thermal_finish after the forces, and both end in thermal_relax.
+// The tiled body (stream_collide_tiled.cuh) takes this work in two halves,
+// thermal_pull_index with its f pulls and thermal_finish after the forces,
+// which ends in thermal_relax.  In a halo-mode slab the z pulls that leave
+// the slab read the neighbouring slabs' planes (HaloArgs of lattice.cuh)
+// instead of wrapping, through the element accessor of thermal_pull_index.
 //
 // Bound: device memory, with the step: 2 * 7 * sizeof(storage) bytes per
 // cell on top of the step's 2 * 19 * sizeof(storage) + 1; ~40 flops.  The g
@@ -89,71 +89,22 @@ __device__ __forceinline__ float thermal_relax(
   return T;
 }
 
-// kHalo: a halo-mode slab (lattice.cuh HaloArgs): the +z pull at z = 0
-// reads the plane below's g channel 5 and flags, the -z pull at z = Z-1 the
-// plane above's channel 6 and flags.
-template <class C, bool kHalo = false>
-__device__ __forceinline__ float thermal_cell(
-    const typename C::T* __restrict__ ga, typename C::T* __restrict__ gb,
-    const uint8_t* __restrict__ flags, uint8_t fl, long long n, int z, int y,
-    int x, int Z, int Y, int X, long long N, float ux, float uy, float uz,
-    float sig_t, const float* __restrict__ tt, float omega_t,
-    const HaloArgs& h = HaloArgs{}) {
-  const int CX[7] = {0, 1, -1, 0, 0, 0, 0};
-  const int CY[7] = {0, 0, 0, 1, -1, 0, 0};
+// The tiled body's two halves of a cell's D3Q7 update, so that the g loads
+// go out with the f loads and the relax runs after the forces, where the
+// Pallas kernel evaluates it.  thermal_pull_index: the element of g that
+// D3Q7 direction d takes at cell n -- its own g_d at a TYPE_T cell (kept bit
+// for bit), else g_d of the source n + src_off or, where that source is
+// solid, its own g_opp(d) -- as `at(ch, p, dz)` names channel ch of the cell
+// at offset p in the plane dz from the cell's (the source's plane, which in
+// a halo-mode slab may be a halo plane, or the cell's own).
+template <class I, class At>
+__device__ __forceinline__ auto thermal_pull_index(int d, uint8_t fl,
+                                                   bool src_solid, I n,
+                                                   I src_off, const At& at) {
   const int CZ[7] = {0, 0, 0, 0, 0, 1, -1};
   const int OPP[7] = {0, 2, 1, 4, 3, 6, 5};
-
-  if (fl & kTypeT) {  // fixed temperature: the stored bits go back unchanged
-    float t_own = 0.0f;
-#pragma unroll
-    for (int d = 0; d < 7; ++d) {
-      const typename C::T v = ga[d * N + n];
-      gb[d * N + n] = v;
-      t_own = d == 0 ? C::dec(v) : t_own + C::dec(v);
-    }
-    return t_own + 1.0f;
-  }
-
-  float g[7];
-  g[0] = C::load(ga, n);
-#pragma unroll
-  for (int d = 1; d < 7; ++d) {
-    const int xs = wrap(x - CX[d], X);
-    const int ys = wrap(y - CY[d], Y);
-    if (kHalo && (z - CZ[d] < 0 || z - CZ[d] >= Z)) {
-      // the z pulls (d = 5: +z, 6: -z) from the neighbouring slab's plane
-      const long long yx = (long long)y * X + x;
-      const bool below = z - CZ[d] < 0;
-      const typename C::T* __restrict__ hp =
-          static_cast<const typename C::T*>(below ? h.gp : h.gm);
-      g[d] = ((below ? h.flb : h.fla)[yx] & kTypeS)
-                 ? C::load(ga, (long long)OPP[d] * N + n)
-                 : C::load(hp, yx);
-      continue;
-    }
-    const int zs = wrap(z - CZ[d], Z);
-    const long long src = ((long long)zs * Y + ys) * X + xs;
-    g[d] = (flags[src] & kTypeS) ? C::load(ga, (long long)OPP[d] * N + n)
-                                 : C::load(ga, (long long)d * N + src);
-  }
-  return thermal_relax<C>(g, gb, n, N, y, x, X, ux, uy, uz, sig_t, tt,
-                          omega_t);
-}
-
-
-// The tiled body's two halves of thermal_cell (stream_collide_tiled.cuh),
-// so that the g loads go out with the f loads and the relax runs where
-// thermal_cell's does, after the forces.  thermal_pull_index: the element
-// of ga that D3Q7 direction d takes at cell n -- its own g_d at a TYPE_T
-// cell (kept bit for bit), else g_d of the source n + src_off or, where
-// that source is solid, its own g_opp(d).
-template <class I>
-__device__ __forceinline__ long long thermal_pull_index(
-    int d, uint8_t fl, bool src_solid, I n, I src_off, long long N) {
-  const int OPP[7] = {0, 2, 1, 4, 3, 6, 5};
-  if (d == 0 || (fl & kTypeT)) return d * N + n;
-  return src_solid ? OPP[d] * N + n : d * N + (n + src_off);
+  if (d == 0 || (fl & kTypeT)) return at(d, n, 0);
+  return src_solid ? at(OPP[d], n, 0) : at(d, n + src_off, -CZ[d]);
 }
 
 // thermal_finish: from the pulled stored values graw, a TYPE_T cell writes

@@ -8,9 +8,11 @@ come from the static `FaceBC` built once from the initial velocity field.
 
 `stream_collide` is the entry point.  A tensor on the CPU goes to
 `stream_collide_plain` (torch ops with `torch.roll` pulls); a CUDA tensor
-launches `csrc/stream_collide.cu` (no wall model, SRT) or
-`csrc/stream_collide_wall.cu` (the wall models or TRT) or raises.  There is
-no fallback between the two.  Both take every configuration of one device:
+launches an instance of the tiled body `csrc/stream_collide_tiled.cuh`
+(`csrc/stream_collide.cu`: no wall model, SRT; `csrc/stream_collide_wall.cu`:
+the wall models or TRT) or raises.
+There is no fallback between the two.  Both take every configuration of one
+device:
 SRT or TRT collision with Smagorinsky LES and equilibrium boundaries, f32,
 bf16, f16 or fp16c storage, volume force (global force + Coriolis) on or
 off, buffer nudging, the top sponge, the wall models (`wall_model`,
@@ -519,8 +521,8 @@ def stream_collide(fi: torch.Tensor, flags: torch.Tensor, dyn: torch.Tensor,
     `stream_collide.launches_wall`; thermal, an instance of
     `csrc/stream_collide_thermal.cu`, in `stream_collide.launches_thermal`;
     halo mode, an instance of `csrc/stream_collide_halo.cu`, in
-    `stream_collide.launches_halo`).  The thermal, wall-model and TRT
-    instances are the tiled body (`csrc/stream_collide_tiled.cuh`)."""
+    `stream_collide.launches_halo`).  Every instance is the tiled body
+    (`csrc/stream_collide_tiled.cuh`)."""
     check_config(config, forcing, vk)
     if fi.device.type not in ("cpu", "cuda"):
         raise NotImplementedError(f"no stream-collide kernel for {fi.device}")

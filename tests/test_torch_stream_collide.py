@@ -401,8 +401,7 @@ def test_extra_nvcc_flags_reach_every_compile_and_the_digest(monkeypatch,
 # Every direction table the kernels hold (local arrays in each function, so
 # that the unrolled loops fold each lookup), by name and length.
 _TABLES = ("CX[19]", "CY[19]", "CZ[19]", "OPP[19]", "MX[19]", "MY[19]",
-           "MZ[19]", "CX[7]", "CY[7]", "CZ[7]", "OPP[7]", "CX7[7]", "CY7[7]",
-           "CZ7[7]")
+           "MZ[19]", "CZ[7]", "OPP[7]", "CX7[7]", "CY7[7]", "CZ7[7]")
 
 
 def _csrc_tables() -> dict:
@@ -439,10 +438,9 @@ def _lattice_table(name: str) -> list:
 @pytest.mark.parametrize("table", _TABLES)
 def test_every_copy_of_a_direction_table_matches_the_lattice(table):
     """Each copy of a direction table in csrc/ -- the velocities, the
-    opposites and the wall models' mirrors, which solid_source_index (the
-    old body, K-AVG), solid_source_pick (the tiled body) and halo_source
-    (K8) each hold -- equals lbm/lattice.py's, so the copies cannot drift
-    apart."""
+    opposites and the wall models' mirrors, which solid_source_index (K-AVG)
+    and solid_source_pick (the tiled body) each hold -- equals
+    lbm/lattice.py's, so the copies cannot drift apart."""
     copies = _csrc_tables()[table]
     want = _lattice_table(table)
     assert copies
@@ -470,14 +468,22 @@ def _function_body(name: str) -> str:
 
 @pytest.mark.parametrize("pair", [
     ("solid_source_index", "solid_source_pick"),
-    ("solid_source_index", "halo_source"),
+    ("solid_source_index", "solid_source_pick", "planes"),
     ("wall_stress", "wall_stress_at")])
 def test_wall_model_helpers_take_the_same_choices(pair):
-    """The wall models' helpers come in a device-memory form (the old body,
-    K-AVG), an accessor form (the tiled body) and a halo form (K8): each
-    pair takes its mirrors under the same conditions in the same priority,
-    or applies the same stress arithmetic under the same conditions."""
+    """The wall models' helpers come in a device-memory form (K-AVG) and an
+    accessor form (the tiled body): each pair takes its mirrors under the
+    same conditions in the same priority, or applies the same stress
+    arithmetic under the same conditions.  "planes": the halo form -- a
+    halo-mode slab (K8) reads a partner that lies beyond the slab from the
+    halo planes through the accessor form's `at(channel, cell, plane)` --
+    names each partner's plane as the device-memory form reaches it: the
+    ground partner and the bounce-back element in the cell's own plane (0),
+    the face partners in the source's (-cz), and the tiled body's halo
+    instances pass it their halo accessor."""
     import re
+
+    from latticeurbanwind_tpu_torch.utils import cuda_build
 
     def choices(name):
         body = _function_body(name)
@@ -489,9 +495,74 @@ def test_wall_model_helpers_take_the_same_choices(pair):
                 re.findall(r"kWall [=>]= \d && C[XYZ]\[d\] [!=]= 1|"
                            r"kWall [=>]= \d && C[XYZ]\[d\] != 0", body))
 
-    a, b = (choices(n) for n in pair)
+    a, b = (choices(n) for n in pair[:2])
     assert a[0] and a[1]
     assert a == b
+    if pair[2:] == ("planes",):
+        index = _function_body("solid_source_index")
+        want = [(m, "0" if "plane" in step else "-CZ[d]") for step, m in
+                re.findall(r"const long long p = src \+ ([^;]*);\s*"
+                           r"if \([^)]*\)+ return (MZ|MX|MY)\[d\]", index)]
+        want.append(("OPP", "0"))
+        got = re.findall(r"at\((MZ|MX|MY|OPP)\[d\], \w+, ([^)]*)\)",
+                         _function_body("solid_source_pick"))
+        assert len(want) == 4 and got == want
+        tiled = (cuda_build.CSRC_DIR / "stream_collide_tiled.cuh").read_text()
+        assert re.search(r"solid_source_pick<kWall>\(\s*\[&\]\([^)]*\) "
+                         r"\{[^}]*\},\s*at_halo, d,", tiled)
+
+
+def _tile_shapes() -> dict:
+    """{family: (tx, ty, kz, min_blocks, prefetch)} as the tiled body defines
+    them (LUW_TILE_*), and its shared-memory constants."""
+    import re
+
+    from latticeurbanwind_tpu_torch.utils import cuda_build
+
+    text = (cuda_build.CSRC_DIR / "stream_collide_tiled.cuh").read_text()
+    shapes = {m.group(1): tuple(int(v) for v in m.group(2).split(","))
+              for m in re.finditer(r"#define LUW_TILE_(\w+) ([\d, ]+)\n", text)}
+    consts = {m.group(1): int(m.group(2)) for m in re.finditer(
+        r"constexpr int (kSmem\w+) = (\d+);", text)}
+    return shapes, consts
+
+
+@pytest.mark.parametrize("family", ["THERMAL", "THERMAL_F32", "OTHER", "PLAIN",
+                                    "PLAIN_F32_FP16C"])
+def test_every_tile_shape_fits_its_rings_and_the_sm(family):
+    """Each family's compile-time shape (stream_collide_tiled.cuh's
+    LUW_TILE_*) keeps tile_ok's rules -- the flag ring's words and plain
+    bytes each have a thread -- and its flag ring of three planes with
+    their row shifts (static shared memory) fits a block's 48 KB, and
+    min_blocks blocks of it, with the 1 KB each that the system keeps, fit
+    the SM's 228 KB."""
+    shapes, consts = _tile_shapes()
+    assert set(shapes) == {"THERMAL", "THERMAL_F32", "OTHER", "PLAIN",
+                           "PLAIN_F32_FP16C"}
+    assert consts == {"kSmemStatic": 49152, "kSmemPerSm": 233472,
+                      "kSmemReserved": 1024}
+    tx, ty, kz, min_blocks, prefetch = shapes[family]
+    threads = tx * ty
+    assert tx >= 4 and tx % 4 == 0 and ty >= 1 and kz >= 1
+    assert min_blocks >= 1 and prefetch >= 0
+    assert (ty + 2) * (tx // 4) <= threads and (ty + 2) * 8 <= threads
+    assert threads <= 1024 and threads % 32 == 0
+    ring = 3 * ((ty + 2) * (tx + 8) + ty + 2)
+    assert ring <= consts["kSmemStatic"]
+    assert min_blocks * (ring + consts["kSmemReserved"]) <= consts["kSmemPerSm"]
+
+
+@pytest.mark.parametrize("name", ["stream_collide_kernel", "sc_launch",
+                                  "halo_source", "thermal_cell"])
+def test_the_old_step_body_is_gone(name):
+    """Every step runs the tiled body: no source of csrc/ defines the old
+    body's kernel, its launcher or its halo and thermal helpers any more."""
+    import re
+
+    from latticeurbanwind_tpu_torch.utils import cuda_build
+
+    for p in cuda_build.sources() + cuda_build.headers():
+        assert not re.search(rf"\b{name}\s*\(", p.read_text()), (name, p.name)
 
 
 def test_wrappers_refuse_devices_without_a_kernel():

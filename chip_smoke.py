@@ -9,7 +9,8 @@ nvcc per source, in parallel), then:
      the build time (each nvcc and the whole build + load) and every kernel
      instance's register count and spill bytes (the tiled body's families
      -- plain, wall models and TRT, thermal, each single-device and halo
-     mode -- summed up apart), and checks that float32
+     mode -- summed up apart; the VK site pass's and K-AVG's instances,
+     none of which may spill), and checks that float32
      matrix products run
      in full float32 (no TF32: the VK inlet's mode sum is one);
   2. runs each kernel against its plain PyTorch version on the card: K-SC
@@ -24,7 +25,9 @@ nvcc per source, in parallel), then:
      in all four storages and in bf16 and fp16c at the main grid; K-AVG
      (averaging) for 4 samples against update_fields + welford_update after
      each of the K-SC runs without sites (the wall-model K-AVG after the
-     wall runs); K-SC thermal (the D3Q7 sub-lattice: TYPE_T cells, sponge on
+     wall runs), and at the ragged shape below with solid cells on all six
+     boundary planes in every storage without a wall model, with
+     `wall_model` and with `wall_sides`; K-SC thermal (the D3Q7 sub-lattice: TYPE_T cells, sponge on
      T, and a global force, expansion coefficient and temperature spread
      large enough that the Boussinesq term moves f by at least 10x the
      tolerance in 5 steps, which is checked against the same steps with
@@ -56,6 +59,10 @@ nvcc per source, in parallel), then:
      (2,2,2) and the uneven (3,5,1) and (1,2,5) (shards one cell apart in
      size), f32 and bf16, bf16 `wall_sides`, thermal bf16 and fp16c: the
      stored DDFs (and g) and the fields pass's rho, u (and T) EQUAL;
+     the VK site pass alone (`vk_sites`) against `apply_vk_sites` on the
+     same step outputs in every storage, by stored codes (EQUAL), on the
+     inlet hook's masks at the main grid and on random masks over all six
+     faces of a box one cell inside a slab's y and x edges;
      the device codecs bit for bit against the torch codecs (all 65,536
      fp16c and f16 codes, a dense sweep of every float32 exponent band with
      ties);
@@ -65,7 +72,12 @@ nvcc per source, in parallel), then:
      device-to-device copy bandwidth measured here, and the plain versions
      at the same shapes; K-SC with VK sites (without and with the wall
      models) and K-AVG (without and with `wall_sides`) at the main grid and
-     at 256^3; K-SC (K1-K3) with VK sites at the NWP deck's grid without T
+     at 256^3, and without at the NWP deck's grid (K-AVG held there to its
+     plain version on two samples, each in its own accumulators, within
+     AVG_TOL); the VK site pass alone
+     at the main grid and at the NWP deck's grid with the inlet hook's
+     sites, beside its element bound and its sector bound (the distinct
+     32-byte sectors its DDF elements touch); K-SC (K1-K3) with VK sites at the NWP deck's grid without T
      (`nwp-bf16-300`'s step); K-SC thermal at 256^3 in bf16 and f32 and,
      with VK sites, at the NWP deck's grid, and the thermal `update_fields` (which a thermal
      run takes at every averaging sample) alone at that grid (the tiled
@@ -105,7 +117,7 @@ nvcc per source, in parallel), then:
      launch counts are zeroed just before it and read just after.  After
      each inlet-on run its step loop is taken apart with the run's own
      configuration, forcing and inlet hook: K-SC without and with sites, the
-     FaceBC refresh and the whole step (refresh + K-SC), each by device time
+     site pass alone, the FaceBC refresh and the whole step (refresh + K-SC), each by device time
      and by host enqueue time.
 
 The second-to-last line is the kernels' JSON record, the last line
@@ -339,6 +351,11 @@ def max_err(a: torch.Tensor, b: torch.Tensor, storage: str = "f32") -> float:
                   - decode_ddf(b, storage).float()).abs().max())
 
 
+def code_bits(t: torch.Tensor) -> torch.Tensor:
+    """The stored codes of a tensor of DDFs as integers (f32: its bits)."""
+    return t.view(torch.int32 if t.element_size() == 4 else torch.int16)
+
+
 def stored_steps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Distance of two tensors of 2-byte stored codes (bf16, f16, fp16c: all
     sign-magnitude floats) in storage steps, element by element."""
@@ -412,8 +429,17 @@ def phase_card() -> dict:
             f"{max((regs[k] for k in members), default=0)}, "
             f"{sum(1 for k in members if any(spills.get(k, (0, 0))))} with "
             f"spills")
+    # the site pass and K-AVG: every instance, and none may spill
+    passes = sorted(k for k in regs if k.startswith(("vk_site", "avg_update")))
+    for name in passes:
+        log(f"  {name}: {regs[name]} registers, spill bytes "
+            f"{spills.get(name, (0, 0))}")
+    if len(passes) != 16 or any(any(spills.get(k, (0, 0))) for k in passes):
+        raise AssertionError(f"the site pass and K-AVG: {len(passes)} "
+                             f"instances (want 4 + 12), spills "
+                             f"{ {k: spills.get(k) for k in passes} }")
     return {"smi": smi, "build_s": build_s, "nvcc_s": nvcc, "registers": regs,
-            "spill_bytes": {k: spills.get(k, (0, 0)) for k in tiled}}
+            "spill_bytes": {k: spills.get(k, (0, 0)) for k in tiled + passes}}
 
 
 def tiled_families(names) -> dict:
@@ -755,6 +781,68 @@ def compare_halo(small) -> tuple:
     return errs, shares
 
 
+def all_face_sites(shape, seed=5):
+    """Random 0/1 masks on all six faces."""
+    spec = random_sites(shape, seed)
+    Y, X = shape[1:]
+    rng = np.random.default_rng(seed + 1)
+    spec["masks"]["ub"] = torch.from_numpy(
+        (rng.random((Y, X)) < 0.5).astype(np.float32)).to(DEVICE)
+    spec["sites"] += (("plane0", "ub"),)
+    return spec
+
+
+def compare_vk_sites() -> dict:
+    """The VK site pass alone (`vk_sites`, K6) against `apply_vk_sites` on
+    the same encoded step outputs, in every storage: on the inlet hook's
+    masks at the main grid (the four side faces the deck's inlet takes)
+    and on random masks over all six faces of a slab's box one cell inside
+    its y and x edges (gy = gx = 1).  The kernel rounds each site's
+    equilibrium and blend as the plain version does, one multiply or add
+    at a time, so the stored codes must be EQUAL; returns {config:
+    (differing codes (0), codes the sites set, largest decoded
+    difference (0))}."""
+    from latticeurbanwind_tpu_torch.ops.stream_collide import (
+        apply_vk_sites, build_face_bc, stream_collide, vk_sites, _inner_box,
+    )
+
+    out = {}
+    hook_st = None
+    for shape, kind, gy, gx in ((MAIN_SHAPE, "hook", 0, 0),
+                                ((24, 72, 136), "all six faces", 1, 1)):
+        for storage in STORAGES:
+            cfg, st, frc, row = make_case(shape, storage, inflow=0.05)
+            if kind == "hook":
+                if hook_st is None:
+                    hook_st = vk_hook(st)[0].ddf.kernel_spec
+                vk = hook_st
+            else:
+                vk = all_face_sites(shape)
+            fbc = build_face_bc(st.u)
+            step = stream_collide(st.fi, st.flags, row, cfg, frc, fbc)
+            before = vk_sites.launches
+            got = vk_sites(step.clone(), fbc, vk, storage, gy=gy, gx=gx)
+            want = step.clone()
+            apply_vk_sites(*_inner_box(want, fbc, vk, gy, gx), storage)
+            torch.cuda.synchronize()
+            moved = int((code_bits(got) != code_bits(step)).sum())
+            differing = int((code_bits(got) != code_bits(want)).sum())
+            e = max_err(got, want, storage)
+            ok = vk_sites.launches == before + 1 and moved > 0 and differing == 0
+            name = f"{storage} {kind} {shape} gy={gy} gx={gx}"
+            log(f"vk_sites {name}: {moved} codes set by the sites, "
+                f"{differing} codes differ from apply_vk_sites, "
+                f"max|kernel-plain| = {e:.3e} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"the VK site pass disagrees with "
+                                     f"apply_vk_sites: {name}: {differing} "
+                                     f"codes, {e}")
+            out[name] = {"differing": differing, "set": moved, "max_abs": e}
+            del st, step, got, want
+            torch.cuda.empty_cache()
+    return out
+
+
 def codes_apart(a: torch.Tensor, b: torch.Tensor) -> dict:
     """How two tensors of stored values differ: the number of differing
     elements and the largest distance in storage steps (f32: decoded)."""
@@ -829,14 +917,59 @@ def compare_sharded() -> dict:
     return out
 
 
-def phase_compare() -> dict:
-    """Kernels against plain versions on the card; returns the errors."""
+def compare_avg(name, cfg, st, frc, row, fbc, fi) -> float:
+    """K-AVG against update_fields + welford_update: 4 samples from `fi` and
+    the DDFs of the kernel steps after it; returns the largest difference
+    of the accumulators at fluid cells (raises beyond AVG_TOL)."""
     from latticeurbanwind_tpu_torch.lbm.fields import update_fields
     from latticeurbanwind_tpu_torch.lbm.state import DynParams, TYPE_S
     from latticeurbanwind_tpu_torch.ops.avg_kernel import avg_update
     from latticeurbanwind_tpu_torch.ops.stream_collide import stream_collide
     from latticeurbanwind_tpu_torch.run.welford import init_avg, welford_update
 
+    shape = tuple(st.flags.shape)
+    dyn = DynParams(force=row[:3].cpu(), omega_coriolis=row[3:6].cpu())
+    ak = init_avg(shape, False, DEVICE)
+    ap = init_avg(shape, False, DEVICE)
+    for k in range(4):
+        ak = avg_update(fi, st.flags, row, 1.0 / (k + 1), ak, cfg)
+        ap = welford_update(ap, update_fields(st._replace(fi=fi), cfg, dyn))
+        fi = stream_collide(fi, st.flags, row, cfg, frc, fbc)
+    torch.cuda.synchronize()
+    fluid = (st.flags & TYPE_S) == 0
+    e = max(float((ak.mean_u[:, fluid] - ap.mean_u[:, fluid]).abs().max()),
+            float((ak.m2_u[fluid] - ap.m2_u[fluid]).abs().max()),
+            float((ak.mean_rho[fluid] - ap.mean_rho[fluid]).abs().max()))
+    ok = e <= AVG_TOL and bool(torch.isfinite(ak.mean_u).all())
+    log(f"K-AVG {name} 4 samples: max|kernel-plain| at fluid cells = "
+        f"{e:.3e} (tol {AVG_TOL:.0e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"K-AVG disagrees with its plain version: {e}")
+    return e
+
+
+def compare_avg_ragged() -> dict:
+    """K-AVG at RAGGED, a shape that is a multiple of no tile edge above 1,
+    with no TYPE_E shell and solid cells on all six boundary planes (its
+    flag ring's and its pulls' periodic wrap on every axis), in every
+    storage, without a wall model, with `wall_model` and with
+    `wall_sides`: {config: max difference at fluid cells}."""
+    from latticeurbanwind_tpu_torch.ops.stream_collide import build_face_bc
+
+    out = {}
+    for storage in STORAGES:
+        for variant in ("", "wall", "wall+sides"):
+            cfg, st, frc, row = make_case(RAGGED, storage, inflow=0.05,
+                                          variant=variant, wrap=True)
+            name = (f"{storage} nudge+sponge{' ' + variant if variant else ''}"
+                    f", solids on the boundary planes {RAGGED}")
+            out[name] = compare_avg(name, cfg, st, frc, row,
+                                    build_face_bc(st.u), st.fi)
+    return out
+
+
+def phase_compare() -> dict:
+    """Kernels against plain versions on the card; returns the errors."""
     log("== phase 2: kernels against their plain versions on the card")
     errs = {"stream_collide": {}, "stream_collide_wall": {},
             "avg_update": {}}
@@ -857,28 +990,11 @@ def phase_compare() -> dict:
             raise AssertionError(f"K-SC disagrees with its plain version: {e}")
         errs["stream_collide_wall" if variant else "stream_collide"][name] = e
 
-        # K-AVG: 4 samples from the DDFs of successive kernel steps
-        dyn = DynParams(force=row[:3].cpu(), omega_coriolis=row[3:6].cpu())
-        ak = init_avg(shape, False, DEVICE)
-        ap = init_avg(shape, False, DEVICE)
-        fi = fk
-        for k in range(4):
-            ak = avg_update(fi, st.flags, row, 1.0 / (k + 1), ak, cfg)
-            ap = welford_update(ap, update_fields(st._replace(fi=fi), cfg, dyn))
-            fi = stream_collide(fi, st.flags, row, cfg, frc, fbc)
-        torch.cuda.synchronize()
-        fluid = (st.flags & TYPE_S) == 0
-        e = max(float((ak.mean_u[:, fluid] - ap.mean_u[:, fluid]).abs().max()),
-                float((ak.m2_u[fluid] - ap.m2_u[fluid]).abs().max()),
-                float((ak.mean_rho[fluid] - ap.mean_rho[fluid]).abs().max()))
-        ok = e <= AVG_TOL and bool(torch.isfinite(ak.mean_u).all())
-        log(f"K-AVG {name} 4 samples: max|kernel-plain| at fluid cells = "
-            f"{e:.3e} (tol {AVG_TOL:.0e}) {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"K-AVG disagrees with its plain version: {e}")
-        errs["avg_update"][name] = e
-        del st, fk, fi, ak, ap, frc, fbc
+        errs["avg_update"][name] = compare_avg(name, cfg, st, frc, row, fbc,
+                                               fk)
+        del st, fk, frc, fbc
         torch.cuda.empty_cache()
+    errs["avg_update"].update(compare_avg_ragged())
 
     # K-SC with VK inlet sites
     vk_runs = [(small, s, kind, 5, "") for s in STORAGES
@@ -910,6 +1026,7 @@ def phase_compare() -> dict:
     errs["thermal_code_shares"].update(shares)
     errs["stream_collide_halo"], errs["halo_code_shares"] = compare_halo(small)
     errs["sharded"] = compare_sharded()
+    errs["vk_sites"] = compare_vk_sites()
     phase_codecs()
     return errs
 
@@ -1017,26 +1134,71 @@ def step_bound(st, frc, fbc, spec, halo=None) -> dict:
                  nbytes, live)
 
 
-def site_bound(shape, storage) -> dict:
-    """The VK site pass's bound at `shape` with the inlet hook's sites (the
-    faces the deck's inlet takes): the DDFs of every cell on a masked face
-    read and written once, and per site of a cell its mask value and the
-    FaceBC velocity (3 f32) read once; 120 operations per site."""
+SITE_FACE = {"planeL": (-1,), "plane0": (0,), "row0": (slice(None), 0),
+             "rowL": (slice(None), -1), "lane0": (Ellipsis, 0),
+             "laneL": (Ellipsis, -1)}
+
+
+def site_faces(spec, shape, only_set=False) -> torch.Tensor:
+    """(Z, Y, X) bool on the host: the cells on the faces that carry a site
+    of `spec` (with `only_set`, only those whose mask is set)."""
+    on = torch.zeros(shape, dtype=torch.bool)
+    for kind, field in spec["sites"]:
+        if not only_set:
+            on[SITE_FACE[kind]] = True
+            continue
+        m = spec["masks"][field].cpu() != 0
+        on[SITE_FACE[kind]] |= m if kind.startswith("plane") else m[:, 0]
+    return on
+
+
+def time_site_pass(shape, storage) -> dict:
+    """The VK site pass alone (`vk_sites`) at `shape` with the inlet hook's
+    sites (the faces the deck's inlet takes), by CUDA events, against its
+    plain version, with two bounds.  The element bound: the DDFs of every
+    cell on a masked face read and written once, and per site of a cell its
+    mask value and the FaceBC velocity (3 f32) read once; 120 operations
+    per site.  The sector bound: the same, but the DDFs moved as the
+    distinct 32-byte sectors their elements lie in (read and written), as
+    the SoA layout places them: a lane face's (x = 0 or X-1) neighbours
+    along y lie X elements apart, while the east cell of row y and the west
+    cell of row y + 1 may share a sector."""
+    from latticeurbanwind_tpu_torch.ops.stream_collide import (
+        apply_vk_sites, build_face_bc, vk_sites,
+    )
+
     cfg, st, frc, row = make_case(shape, storage, inflow=0.05)
     pre, _ = vk_hook(st)
-    face = {"planeL": (-1,), "plane0": (0,), "row0": (slice(None), 0),
-            "rowL": (slice(None), -1), "lane0": (Ellipsis, 0),
-            "laneL": (Ellipsis, -1)}
-    on = torch.zeros(shape, dtype=torch.bool)
-    sites = 0
-    for kind, _ in pre.ddf.kernel_spec["sites"]:
-        on[face[kind]] = True
-        sites += on[face[kind]].numel()
+    spec = pre.ddf.kernel_spec
+    fbc = build_face_bc(st.u)
+    on = site_faces(spec, shape)
+    sites = sum(on[SITE_FACE[kind]].numel() for kind, _ in spec["sites"])
+    lanes = on.clone()
+    lanes[..., 1:-1] = False
+    for kind, _ in spec["sites"]:
+        if not kind.startswith("lane"):
+            lanes[SITE_FACE[kind]] = False
     cells = int(on.sum())
-    nbytes = cells * 2 * 19 * st.fi.element_size() + sites * 4 * 4
-    del st, pre
+    elem = st.fi.element_size()
+    site_bytes = sites * 4 * 4
+    nbytes = cells * 2 * 19 * elem + site_bytes
+    # the sectors of the 19 channels' elements of every face cell, offsets
+    # from the tensor's (512-byte aligned) base
+    cell = torch.nonzero(on.flatten()).flatten().to(DEVICE)
+    chan = torch.arange(19, device=DEVICE)[:, None] * on.numel()
+    sectors = int(torch.unique(((chan + cell[None]) * elem) // 32).numel())
+    sector_bytes = sectors * 32 * 2 + site_bytes
+    out = st.fi
+    ms = cuda_ms(lambda: vk_sites(out, fbc, spec, storage), reps=50, warmup=5)
+    plain = cuda_ms(lambda: apply_vk_sites(out, fbc, spec, storage), reps=3,
+                    warmup=1)
+    sector = bound("vk_site", sector_bytes, sites)
+    del st, pre, out, cell
     torch.cuda.empty_cache()
-    return dict(bound("vk_site", nbytes, sites), cells=cells, sites=sites)
+    return dict(bound("vk_site", nbytes, sites), ms=ms, plain_ms=plain,
+                cells=cells, lane_cells=int(lanes.sum()), sites=sites,
+                sectors=sectors, sector_bound_ms=sector["bound_ms"],
+                sector_bound_by=sector["bound_by"])
 
 
 def avg_bound(st) -> dict:
@@ -1100,8 +1262,12 @@ def time_thermal_fields(shape, storage) -> dict:
 
 
 def time_avg_kernel(shape, storage, variant=""):
-    """{ms, plain_ms, bound_ms, bound_by}: K-AVG and its plain version per
-    sample at `shape`."""
+    """{ms, plain_ms, bound_ms, bound_by, max_abs_err}: K-AVG and its plain
+    version per sample at `shape`, and the kernel held to the plain version
+    there: two samples (the case's DDFs, then them shifted by a cell
+    along x) into separate accumulators, compared at fluid cells (raises
+    beyond AVG_TOL)."""
+    from latticeurbanwind_tpu_torch.lbm.state import TYPE_S
     from latticeurbanwind_tpu_torch.ops.avg_kernel import (
         avg_update, avg_update_plain,
     )
@@ -1109,13 +1275,34 @@ def time_avg_kernel(shape, storage, variant=""):
 
     cfg, st, _, row = make_case(shape, storage, forcing=bool(variant),
                                 variant=variant)
-    avg = init_avg(shape, False, DEVICE)
-    ms = cuda_ms(lambda: avg_update(st.fi, st.flags, row, 0.5, avg, cfg),
+    ak = init_avg(shape, False, DEVICE)
+    ap = init_avg(shape, False, DEVICE)
+    shifted = torch.roll(code_bits(st.fi), 1, dims=3).view(st.fi.dtype)
+    for k, fi in enumerate((st.fi, shifted)):
+        avg_update(fi, st.flags, row, 1.0 / (k + 1), ak, cfg)
+        avg_update_plain(fi, st.flags, row, 1.0 / (k + 1), ap, cfg)
+    del fi, shifted
+    torch.cuda.synchronize()
+    fluid = (st.flags & TYPE_S) == 0
+    e = max(float((ak.mean_u[:, fluid] - ap.mean_u[:, fluid]).abs().max()),
+            float((ak.m2_u[fluid] - ap.m2_u[fluid]).abs().max()),
+            float((ak.mean_rho[fluid] - ap.mean_rho[fluid]).abs().max()))
+    ok = e <= AVG_TOL and bool(torch.isfinite(ak.mean_u).all()) and bool(
+        (ak.m2_u[fluid] > 0).any())
+    log(f"K-AVG {shape} {storage} {variant or 'no wall'} 2 samples: "
+        f"max|kernel-plain| at fluid cells = {e:.3e} (tol {AVG_TOL:.0e}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"K-AVG disagrees with its plain version at "
+                             f"{shape} {storage} {variant}: {e}")
+    del ap, fluid
+    torch.cuda.empty_cache()
+    ms = cuda_ms(lambda: avg_update(st.fi, st.flags, row, 0.5, ak, cfg),
                  reps=20, warmup=3)
-    plain = cuda_ms(lambda: avg_update_plain(st.fi, st.flags, row, 0.5, avg,
+    plain = cuda_ms(lambda: avg_update_plain(st.fi, st.flags, row, 0.5, ak,
                                              cfg),
                     reps=3, warmup=1)
-    return {"ms": ms, "plain_ms": plain, **avg_bound(st)}
+    return {"ms": ms, "plain_ms": plain, "max_abs_err": e, **avg_bound(st)}
 
 
 def run_ahead(fn, n: int = 16, sleep_cycles: int = 400_000_000):
@@ -1153,7 +1340,7 @@ def step_loop_breakdown(case, final) -> dict:
     and device time; thermal: `update_fields` per averaging sample too."""
     from latticeurbanwind_tpu_torch.lbm.state import dyn_row
     from latticeurbanwind_tpu_torch.ops.stream_collide import (
-        build_face_bc, stream_collide,
+        build_face_bc, stream_collide, vk_sites,
     )
 
     pre = case.pre_step.ddf
@@ -1184,7 +1371,11 @@ def step_loop_breakdown(case, final) -> dict:
 
     out = {"sc_novk_ms": cuda_ms(lambda: step(None), reps=50, warmup=3),
            "sc_vk_ms": cuda_ms(step, reps=50, warmup=3),
-           "step_ms": cuda_ms(whole, reps=100, warmup=5)}
+           "step_ms": cuda_ms(whole, reps=100, warmup=5),
+           # the site pass alone on the run's state
+           "sites_ms": cuda_ms(lambda: vk_sites(bufs[0], cell["fbc"], spec,
+                                                case.config.storage),
+                               reps=50, warmup=3)}
     for name, fn in (("refresh", refresh), ("sc_vk", step), ("step", whole)):
         out[f"{name}_host_ms"], out[f"{name}_device_ms"] = run_ahead(fn)
     if case.config.wall_model:
@@ -1373,11 +1564,15 @@ def phase_timing() -> dict:
             f"({t['bound_by']}), plain {t['plain_ms']:.2f}")
         out["configs"][name] = out[key] = t
         torch.cuda.empty_cache()
-    t = site_bound(MAIN_SHAPE, "bf16")
-    log(f"VK site pass {MAIN_SHAPE} bf16, the inlet hook's sites: {t['cells']} "
-        f"cells, {t['sites']} sites; bound {t['bound_ms']:.4f} ms "
-        f"({t['bound_by']})")
-    out["vk_site_bound"] = t
+    for key, shape in (("sites", MAIN_SHAPE), ("sites_nwp", NWP_SHAPE)):
+        t = time_site_pass(shape, "bf16")
+        name = f"VK site pass {shape} bf16, the inlet hook's sites"
+        log(f"{name}: {t['cells']} cells ({t['lane_cells']} on a lane face "
+            f"alone), {t['sites']} sites, {t['sectors']} DDF sectors; "
+            f"{t['ms']:.4f} ms alone; element "
+            f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}), sector bound "
+            f"{t['sector_bound_ms']:.4f} ms; plain {t['plain_ms']:.2f}")
+        out["configs"][name] = out[key] = t
     for key, variant in (("av", ""), ("av_wall", "wall+sides")):
         t = time_avg_kernel(MAIN_SHAPE, "bf16", variant)
         name = f"K-AVG {MAIN_SHAPE} bf16{' ' + variant if variant else ''}"
@@ -1385,6 +1580,12 @@ def phase_timing() -> dict:
             f"({t['bound_by']}), plain {t['plain_ms']:.2f}")
         out["configs"][name] = out[key] = t
         torch.cuda.empty_cache()
+    t = time_avg_kernel(NWP_SHAPE, "bf16")
+    name = f"K-AVG {NWP_SHAPE} bf16"
+    log(f"{name} (nwp-bf16-300's samples): {t['ms']:.3f} ms/sample, bound "
+        f"{t['bound_ms']:.3f} ms ({t['bound_by']}), plain {t['plain_ms']:.2f}")
+    out["configs"][name] = out["av_nwp"] = t
+    torch.cuda.empty_cache()
     # K-SC thermal: 256^3, then the NWP deck's grid with VK sites (the record)
     for storage in ("bf16", "f32"):
         t = time_step_kernel(cube, storage, True, thermal=True)
@@ -1646,7 +1847,8 @@ def run_example_deck(work: Path, tag: str, *, storage: str, steps: int,
     loop = step_loop_breakdown(seen["case"], r.state)
     log(f"[{tag}] step loop ({len(rt.sigma)} inlet points, {seen['cfg'].nmodes} "
         f"modes, stride {stride}), ms/step by events: K-SC without sites "
-        f"{loop['sc_novk_ms']:.4f}, with sites {loop['sc_vk_ms']:.4f}, whole "
+        f"{loop['sc_novk_ms']:.4f}, with sites {loop['sc_vk_ms']:.4f}, the "
+        f"site pass alone {loop['sites_ms']:.4f}, whole "
         f"step (refresh + K-SC) {loop['step_ms']:.4f}; host enqueue / device "
         f"ms per call: refresh {loop['refresh_host_ms']:.4f} / "
         f"{loop['refresh_device_ms']:.4f}, K-SC with sites "
@@ -1958,7 +2160,8 @@ def run_nwp_deck(work: Path, tag: str, *, steps: int, thermal: bool) -> dict:
         log(f"[{tag}] probe CSV: {len(rows) - 1} heights x {n_avg} samples")
     loop = step_loop_breakdown(seen["case"], r.state)
     log(f"[{tag}] step loop, ms/step by events: K-SC without sites "
-        f"{loop['sc_novk_ms']:.4f}, with sites {loop['sc_vk_ms']:.4f}, whole "
+        f"{loop['sc_novk_ms']:.4f}, with sites {loop['sc_vk_ms']:.4f}, the "
+        f"site pass alone {loop['sites_ms']:.4f}, whole "
         f"step (refresh + K-SC) {loop['step_ms']:.4f}; host enqueue / device "
         f"ms per call: refresh {loop['refresh_host_ms']:.4f} / "
         f"{loop['refresh_device_ms']:.4f}, whole step "
@@ -2077,14 +2280,35 @@ def main() -> int:
          "max_abs_err_by_config": errs["stream_collide"],
          "times_by_config": times("K-SC", False),
          "nwp_grid": timing["sc_nwp"],
-         # the site pass: K-SC with sites less without, on the decks' states
-         "vk_site_pass": dict(timing["vk_site_bound"], ms_by_path={
-             k: v["step_loop"]["sc_vk_ms"] - v["step_loop"]["sc_novk_ms"]
-             for k, v in paths.items() if "sc_vk_ms" in v.get("step_loop", {})
-             and not k.startswith(("wall", "nwp-t", "vk-bf16-sharded"))}),
          "step_loop_by_path": {k: v["step_loop"] for k, v in paths.items()
                                if "step_loop" in v
                                and not k.startswith(("wall", "nwp-t"))}},
+        {"name": "vk_sites", "route": "cuda",
+         "source": "latticeurbanwind_tpu_torch/csrc/stream_collide.cu",
+         "registers": {k: v for k, v in card["registers"].items()
+                       if k.startswith("vk_site")},
+         "replaces": "latticeurbanwind_tpu/ops/stream_collide.py:915",
+         # launched by stream_collide after every step with sites
+         "launches": main_sc["stream_collide_vk"],
+         "max_abs_err": max(v["max_abs"] for v in errs["vk_sites"].values()),
+         "differing_codes_by_config": errs["vk_sites"],
+         "ms": timing["sites"]["ms"], "plain_ms": timing["sites"]["plain_ms"],
+         "bound_ms": timing["sites"]["bound_ms"],
+         "bound_by": timing["sites"]["bound_by"],
+         "sector_bound_ms": timing["sites"]["sector_bound_ms"],
+         "library_ms": None,     # no one PyTorch call blends the sites
+         "nwp_grid": timing["sites_nwp"],
+         "launches_by_path": {k: v["stream_collide_vk"]
+                              for k, v in by_path.items()},
+         # K-SC with sites less without, and the pass alone, on the decks'
+         # own states
+         "ms_by_path": {
+             k: v["step_loop"]["sc_vk_ms"] - v["step_loop"]["sc_novk_ms"]
+             for k, v in paths.items() if "sc_vk_ms" in v.get("step_loop", {})
+             and not k.startswith(("wall", "nwp-t", "vk-bf16-sharded"))},
+         "alone_ms_by_path": {
+             k: v["step_loop"]["sites_ms"] for k, v in paths.items()
+             if "sites_ms" in v.get("step_loop", {})}},
         {"name": "stream_collide_wall", "route": "cuda",
          "source": "latticeurbanwind_tpu_torch/csrc/stream_collide_tiled.cuh",
          "unit": "latticeurbanwind_tpu_torch/csrc/stream_collide_wall.cu",
@@ -2151,8 +2375,14 @@ def main() -> int:
          "replaces": "latticeurbanwind_tpu/ops/avg_kernel.py:85",
          "launches": main_wall["avg_update"],
          "launches_wall": main_wall["avg_update_wall"],
-         "max_abs_err": max(errs["avg_update"].values()),
+         # phase 2's cases and the timed shapes' (main grids included)
+         "max_abs_err": max([*errs["avg_update"].values()] + [
+             v["max_abs_err"] for k, v in timing["configs"].items()
+             if k.startswith("K-AVG")]),
          **timed(timing["av_wall"]),
+         "registers": {k: v for k, v in card["registers"].items()
+                       if k.startswith("avg_update")},
+         "nwp_grid": timing["av_nwp"],
          "launches_by_path": {k: v["avg_update"] for k, v in by_path.items()},
          "max_abs_err_by_config": errs["avg_update"],
          "times_by_config": {k: v for k, v in timing["configs"].items()

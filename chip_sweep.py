@@ -1,12 +1,15 @@
 """Sweep the tiled body's compile-time shapes on one NVIDIA card.
 
     python3 chip_sweep.py [--parent OTHER_CHECKOUT]
-                          [--family plain|plain32|other] [--only NAME[;NAME...]]
+                          [--family plain|plain32|other|avg]
+                          [--only NAME[;NAME...]]
 
 The tiled body of the step kernel (`csrc/stream_collide_tiled.cuh`) takes one
 shape per family at compile time, `tile_shape`: threads along x and y,
 planes per block, the minimum resident blocks per SM (which caps the
-registers) and how many planes ahead the sources are prefetched into L2.
+registers) and how many planes ahead the sources are prefetched into L2;
+the averaging pass (K-AVG, `csrc/avg_update.cu`) marches the same way with
+its own shape, LUW_TILE_AVG.
 Each entry of a family's variants sets some families' shapes in a small
 header that the port's own build pre-includes
 (`LUW_NVCC_FLAGS="-include <header>"`, utils/cuda_build.py); "kept" is the
@@ -15,10 +18,11 @@ each runs in a process of its own, in turns (forward, then backward).  On
 its first turn a variant prints its tiled instances' registers and spill
 bytes in the family's storages and is held against the plain version
 (chip_smoke.compare_ragged: every storage and family at the ragged shape;
-for the plain family also chip_smoke.compare_halo's slabs; it raises on any
-disagreement); on every turn it times its family's cases by CUDA events
-(chip_smoke.time_step_kernel, time_halo_kernel), with nudge + sponge and VK
-hook sites unless said:
+for the plain family also chip_smoke.compare_halo's slabs; for avg
+chip_smoke.compare_avg_ragged; it raises on any disagreement); on every
+turn it times its family's cases by CUDA events (chip_smoke.time_step_kernel,
+time_halo_kernel, time_avg_kernel), with nudge + sponge and VK hook sites
+unless said:
 
   plain (default; LUW_TILE_PLAIN: no wall model, SRT, not thermal, bf16 and
       f16): K1-K3 in bf16 at the profile deck's grid (424x424x118) and at
@@ -27,7 +31,10 @@ hook sites unless said:
   plain32 (LUW_TILE_PLAIN_F32_FP16C: the same family in f32 and fp16c):
       K1-K3 at the profile deck's grid in fp16c (as `vk-fp16c-200` runs it)
       and f32, and the 256^3 flagship (no forcing, no sites) in both;
-  other: K7 (thermal, NWP grid) and K4 (`wall_sides`, profile grid), bf16.
+  other: K7 (thermal, NWP grid) and K4 (`wall_sides`, profile grid), bf16;
+  avg (LUW_TILE_AVG without a wall model, LUW_TILE_AVG_WALL with one; each
+      variant sets both): K-AVG in bf16 without a wall model and with
+      `wall_sides` at the profile deck's grid and at the NWP deck's grid.
 
 With `--parent`, the other checkout takes part in the turns as one more
 variant (first and last); `--only` keeps the named variants alone.  The last
@@ -68,9 +75,27 @@ VARIANTS = {
         "thermal 64x2x8, other 128x1x8": {"THERMAL": (64, 2, 8, 4, 0),
                                           "OTHER": (128, 1, 8, 5, 1)},
     },
+    "avg": {
+        "kept": None,
+        "avg 128x1x8, 7 blocks": {"AVG": (128, 1, 8, 7, 0),
+                                  "AVG_WALL": (128, 1, 8, 7, 0)},
+        "avg 128x1x8, 8 blocks": {"AVG": (128, 1, 8, 8, 0),
+                                  "AVG_WALL": (128, 1, 8, 8, 0)},
+        "avg 128x1x8, 5 blocks": {"AVG": (128, 1, 8, 5, 0),
+                                  "AVG_WALL": (128, 1, 8, 5, 0)},
+        "avg 64x2x8, 7 blocks": {"AVG": (64, 2, 8, 7, 0),
+                                 "AVG_WALL": (64, 2, 8, 7, 0)},
+        "avg 256x1x8, 3 blocks": {"AVG": (256, 1, 8, 3, 0),
+                                  "AVG_WALL": (256, 1, 8, 3, 0)},
+        "avg 128x1x16, 7 blocks": {"AVG": (128, 1, 16, 7, 0),
+                                   "AVG_WALL": (128, 1, 16, 7, 0)},
+        "avg 128x1x8, 6 blocks, prefetch 1": {"AVG": (128, 1, 8, 6, 1),
+                                              "AVG_WALL": (128, 1, 8, 6, 1)},
+    },
 }
 # the storages whose instances a variant's first turn lists
-CODECS = {"plain": ("BF16",), "plain32": ("F32", "FP16C"), "other": ("BF16",)}
+CODECS = {"plain": ("BF16",), "plain32": ("F32", "FP16C"), "other": ("BF16",),
+          "avg": ("F32", "BF16", "F16", "FP16C")}
 
 _TURN = r"""
 import json, torch
@@ -81,11 +106,15 @@ if CHECK:
     from latticeurbanwind_tpu_torch.utils import cuda_build
     _, log = cuda_build.build()
     regs, spills = c.kernel_registers(log)
+    kernel = "avg_update" if FAMILY == "avg" else "stream_collide_tiled"
     out["registers"] = {k: [v, list(spills.get(k, (0, 0)))]
                         for k, v in sorted(regs.items())
-                        if k.startswith("stream_collide_tiled")
+                        if k.startswith(kernel)
                         and k.split("<")[1].split(",")[0] in CODECS}
-    c.compare_ragged()
+    if FAMILY == "avg":
+        c.compare_avg_ragged()
+    else:
+        c.compare_ragged()
     if FAMILY == "plain":
         c.compare_halo((24, 72, 136))
 if FAMILY == "plain":
@@ -102,6 +131,13 @@ elif FAMILY == "plain32":
         torch.cuda.empty_cache()
         out[f"256^3 {storage} flagship"] = c.time_step_kernel(
             c.CUBE, storage, False, plain_reps=1)["ms"]
+        torch.cuda.empty_cache()
+elif FAMILY == "avg":
+    for key, shape, variant in (("main", c.MAIN_SHAPE, ""),
+                                ("main wall_sides", c.MAIN_SHAPE, "wall+sides"),
+                                ("NWP", c.NWP_SHAPE, ""),
+                                ("NWP wall_sides", c.NWP_SHAPE, "wall+sides")):
+        out[f"K-AVG {key}"] = c.time_avg_kernel(shape, "bf16", variant)["ms"]
         torch.cuda.empty_cache()
 else:
     for key, shape, variant, thermal in (("K7", c.NWP_SHAPE, "", True),

@@ -1,5 +1,4 @@
-// Fused moments + Welford averaging pass for Hopper (sm_90a), one thread per
-// cell.
+// Fused moments + Welford averaging pass (K-AVG) for Hopper (sm_90a).
 //
 // Replaces: latticeurbanwind_tpu/ops/avg_kernel.py::make_avg_update, the
 // Pallas TPU kernel run at every averaging sample.  It reproduces the moments
@@ -17,75 +16,98 @@
 // the `dec` of the Pallas kernel's _make_codec) in the (19, Z, Y, X) SoA
 // layout.
 //
-// Bound on the H100: device memory.  A sample reads 19 DDFs and the flags
-// (39 B for the 2-byte storages, 77 B for f32 with the neighbour reads served
-// by L1/L2) and reads and writes 5 f32 accumulators (40 B): ~80-120 B per
-// cell.
+// Bound on the H100: device memory.  A sample reads 19 DDFs (38 B in the
+// 2-byte storages, 76 B in f32) and the flags of a cell, and reads and
+// writes its 5 f32 accumulators (40 B): ~80-120 B per cell; ~150 flops.
 //
-// Design: the same coalesced x-fastest thread layout and pull as the
-// stream-collide kernel; fluid cells read only the pulled values (plus the
-// own opposite, or a wall mirror, where a source is solid), TYPE_E cells
-// only their own 19.  The wall model is a template argument (0 none, 1
-// wall_model, 2 wall_sides), so the instances without it are the plain pass.
+// Design: the march of the step's tiled body (stream_collide_tiled.cuh,
+// tiled_march): 2-D blocks of a compile-time shape (LUW_TILE_AVG,
+// LUW_TILE_AVG_WALL with a wall model) march over z with the flags of three planes in a shared-memory ring fetched by
+// cp.async; a cell folds its 3x3x3 neighbourhood into a 27-bit solid mask,
+// from which all 18 sources -- the wall models' mirror partners and the
+// stress's neighbours included (solid_source_pick, wall_stress_at) -- are
+// chosen before any load, and every DDF load is issued before any
+// arithmetic; cell offsets are 32-bit, only the channel stride d * N is
+// 64-bit, and no index is divided.  The arithmetic after the pull keeps
+// its order line for line (rho, the momentum sums, the Guo half-step with
+// the global force, Coriolis and the wall stress, clamp_cs, the Welford
+// update): chip_compare.py holds the accumulators bit for bit against the
+// parent checkout's.  The wall model is a template argument (0 none, 1
+// wall_model, 2 wall_sides), so the instances without it are the plain
+// pass.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 #include "codec.cuh"
 #include "lattice.cuh"
+#include "stream_collide_tiled.cuh"
 
 namespace {
 
 using luw::clamp_cs;
 using luw::kTypeE;
 using luw::kTypeS;
-using luw::wrap;
+using luw::TileShape;
 
-constexpr int kThreads = 128;
+// K-AVG's compile-time shapes (stream_collide_tiled.cuh): LUW_TILE_AVG
+// without a wall model, LUW_TILE_AVG_WALL with one.
+__host__ __device__ constexpr TileShape avg_shape(int wall) {
+  return wall ? TileShape{LUW_TILE_AVG_WALL} : TileShape{LUW_TILE_AVG};
+}
 
+// One cell's sample: fl its flags, nb the solid bits of its 3x3x3
+// neighbourhood (luw::nb_bit), n its offset in a channel, the o* the wrapped
+// offsets of its neighbours along each axis.
 template <class C, int kWall>
-__global__ void __launch_bounds__(kThreads)
-avg_update_kernel(const typename C::T* __restrict__ fi,
-                  const uint8_t* __restrict__ flags,
-                  const float* __restrict__ dyn, float inv_n,
-                  float* __restrict__ mean_u, float* __restrict__ m2_u,
-                  float* __restrict__ mean_rho, int Z, int Y, int X,
-                  float wall_cd, float wall_cd_sides) {
+__device__ __forceinline__ void avg_cell(
+    const typename C::T* __restrict__ fi, uint8_t fl, uint32_t nb, int n,
+    long long N, int ozm, int ozp, int oym, int oyp, int oxm, int oxp,
+    const float* __restrict__ dyn, float inv_n, float* __restrict__ mean_u,
+    float* __restrict__ m2_u, float* __restrict__ mean_rho, float wall_cd,
+    float wall_cd_sides) {
   const int CX[19] = {0, 1, -1, 0, 0, 1, -1, 1, -1, 0, 1, -1, 0, 0, 0, -1, 1, 0, 0};
   const int CY[19] = {0, 0, 0, 1, -1, 1, -1, -1, 1, 0, 0, 0, 1, -1, 0, 0, 0, -1, 1};
   const int CZ[19] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1, 1, 1, -1, -1, -1, -1, -1};
   const int OPP[19] = {0, 2, 1, 4, 3, 6, 5, 8, 7, 14, 15, 16, 17, 18, 9, 10, 11, 12, 13};
+  auto off = [&](int dz, int dy, int dx) {
+    return (dz < 0 ? ozm : dz > 0 ? ozp : 0) + (dy < 0 ? oym : dy > 0 ? oyp : 0) +
+           (dx < 0 ? oxm : dx > 0 ? oxp : 0);
+  };
+  auto solid = [&](int dz, int dy, int dx) -> bool {
+    return (nb >> luw::nb_bit(dz, dy, dx)) & 1u;
+  };
+  auto at = [&](int ch, int p, int) { return ch * N + p; };
 
-  const long long N = (long long)Z * Y * X;
-  const long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
-  const uint8_t fl = flags[n];
   if (fl & kTypeS) return;  // solids hold their accumulators
-  const int x = (int)(n % X);
-  const long long zy = n / X;
-  const int y = (int)(zy % Y);
-  const int z = (int)(zy / Y);
-
   const bool eq = (fl & kTypeE) != 0;
+  // ---- every load issued before any arithmetic: the accumulators, and
+  // ---- the pull, every element chosen from the mask
+  float mean[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) mean[a] = mean_u[a * N + n];
+  const float m2 = m2_u[n], mr = mean_rho[n];
   float f[19];
   f[0] = C::load(fi, n);
 #pragma unroll
   for (int d = 1; d < 19; ++d) {
-    if (eq) {  // TYPE_E: the cell's own frozen equilibria
-      f[d] = C::load(fi, (long long)d * N + n);
-    } else {
-      const int xs = wrap(x - CX[d], X);
-      const int ys = wrap(y - CY[d], Y);
-      const int zs = wrap(z - CZ[d], Z);
-      const long long src = ((long long)zs * Y + ys) * X + xs;
-      // one load of the selected element: 15% faster at 256^3 bf16 than
-      // selecting between two loads (chip_compare.py, PERF.md)
-      f[d] = C::load(fi, (flags[src] & kTypeS)
-                             ? luw::solid_source_index<kWall>(
-                                   flags, d, n, src, z, y, x, zs, ys, xs, X,
-                                   (long long)Y * X, N)
-                             : (long long)d * N + src);
+    long long idx = d * N + n;  // TYPE_E: the cell's own frozen equilibria
+    if (!eq) {
+      const int src = n + off(-CZ[d], -CY[d], -CX[d]);
+      idx = d * N + src;
+      if (solid(-CZ[d], -CY[d], -CX[d])) {
+        if (kWall == 0) {
+          idx = OPP[d] * N + n;
+        } else {
+          idx = luw::solid_source_pick<kWall>(
+              [&](int, int dz, int dy, int dx) { return solid(dz, dy, dx); },
+              at, d, n, src, -off(-CZ[d], 0, 0), -off(0, 0, -CX[d]),
+              -off(0, -CY[d], 0));
+        }
+      }
     }
+    f[d] = C::load(fi, idx);
   }
 
   float rho = f[0];
@@ -105,8 +127,12 @@ avg_update_kernel(const typename C::T* __restrict__ fi,
     float Fx = dyn[0] - 2.0f * rho * (oy * u[2] - oz * u[1]);
     float Fy = dyn[1] - 2.0f * rho * (oz * u[0] - ox * u[2]);
     float Fz = dyn[2] - 2.0f * rho * (ox * u[1] - oy * u[0]);
-    luw::wall_stress<kWall>(Fx, Fy, Fz, u[0], u[1], u[2], rho, flags, z, y, x,
-                            Z, Y, X, wall_cd, wall_cd_sides);
+    luw::wall_stress_at<kWall>(
+        Fx, Fy, Fz, u[0], u[1], u[2], rho,
+        [&](int dz, int dy, int dx) -> uint8_t {
+          return solid(dz, dy, dx) ? kTypeS : 0;
+        },
+        wall_cd, wall_cd_sides);
     const float half = 0.5f / rho;
     u[0] = clamp_cs(u[0] + Fx * half);
     u[1] = clamp_cs(u[1] + Fy * half);
@@ -116,16 +142,53 @@ avg_update_kernel(const typename C::T* __restrict__ fi,
   float m2_acc = 0.0f;
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
-    const long long i = a * N + n;
-    const float mean = mean_u[i];
-    const float delta = u[a] - mean;
-    const float mean_new = mean + delta * inv_n;
+    const float delta = u[a] - mean[a];
+    const float mean_new = mean[a] + delta * inv_n;
     m2_acc += delta * (u[a] - mean_new);
-    mean_u[i] = mean_new;
+    mean_u[a * N + n] = mean_new;
   }
-  m2_u[n] += m2_acc;
-  const float mr = mean_rho[n];
+  m2_u[n] = m2 + m2_acc;
   mean_rho[n] = mr + (rho - mr) * inv_n;
+}
+
+// Block (tx, ty) of avg_shape(kWall) and kz planes per block, grid (x tiles, y tiles,
+// z chunks), at least min_blocks blocks per SM; the wrap is periodic on all
+// three axes.
+template <class C, int kWall>
+__global__ void __launch_bounds__(avg_shape(kWall).tx * avg_shape(kWall).ty,
+                                  avg_shape(kWall).min_blocks)
+avg_update_kernel(const typename C::T* __restrict__ fi,
+                  const uint8_t* __restrict__ flags,
+                  const float* __restrict__ dyn, float inv_n,
+                  float* __restrict__ mean_u, float* __restrict__ m2_u,
+                  float* __restrict__ mean_rho, int Z, int Y, int X,
+                  float wall_cd, float wall_cd_sides) {
+  constexpr TileShape kShape = avg_shape(kWall);
+  constexpr int TX = kShape.tx, TY = kShape.ty, kAhead = kShape.prefetch;
+  const int x = blockIdx.x * TX + threadIdx.x, y = blockIdx.y * TY + threadIdx.y;
+  const int z0 = blockIdx.z * kShape.kz, z1 = min(z0 + kShape.kz, Z);
+  const int plane = Y * X;
+  const long long N = (long long)Z * plane;
+  const int oxm = x == 0 ? X - 1 : -1, oxp = x == X - 1 ? 1 - X : 1;
+  const int oym = y == 0 ? (Y - 1) * X : -X, oyp = y == Y - 1 ? (1 - Y) * X : X;
+  luw::tiled_march<TX, TY>(
+      flags, z0, z1, Z, Y, X,
+      [&](int z, bool live, uint8_t fl, uint32_t nb) {
+        if (kAhead > 0 && live && z + kAhead < z1) {
+          const int zq = z + kAhead;
+          luw::prefetch_cell<C>(fi, (zq * Y + y) * X + x, N,
+                                zq == 0 ? (Z - 1) * plane : -plane,
+                                zq == Z - 1 ? (1 - Z) * plane : plane, oym,
+                                oyp, oxm, oxp);
+        }
+        if (live) {
+          avg_cell<C, kWall>(fi, fl, nb, (z * Y + y) * X + x, N,
+                             z == 0 ? (Z - 1) * plane : -plane,
+                             z == Z - 1 ? (1 - Z) * plane : plane, oym, oyp,
+                             oxm, oxp, dyn, inv_n, mean_u, m2_u, mean_rho,
+                             wall_cd, wall_cd_sides);
+        }
+      });
 }
 
 template <class C, int kWall>
@@ -133,9 +196,11 @@ cudaError_t launch_wall(const void* fi, const uint8_t* flags, const float* dyn,
                         float inv_n, float* mean_u, float* m2_u,
                         float* mean_rho, int Z, int Y, int X, float wall_cd,
                         float wall_cd_sides, cudaStream_t stream) {
-  const long long cells = (long long)Z * Y * X;
-  const unsigned int blocks = (unsigned int)((cells + kThreads - 1) / kThreads);
-  avg_update_kernel<C, kWall><<<blocks, kThreads, 0, stream>>>(
+  constexpr TileShape t = avg_shape(kWall);
+  if ((long long)Z * Y * X > INT_MAX) return cudaErrorInvalidValue;
+  const dim3 grid((X + t.tx - 1) / t.tx, (Y + t.ty - 1) / t.ty,
+                  (Z + t.kz - 1) / t.kz);
+  avg_update_kernel<C, kWall><<<grid, dim3(t.tx, t.ty), 0, stream>>>(
       static_cast<const typename C::T*>(fi), flags, dyn, inv_n, mean_u, m2_u,
       mean_rho, Z, Y, X, wall_cd, wall_cd_sides);
   return cudaGetLastError();

@@ -13,29 +13,41 @@
 // domain (K8) to stream_collide_halo.cu, each family with its compile-time
 // shape.
 //
-// VK inlet sites (the Pallas kernel's `vk` spec, make_pallas_step
-// :915-978): at the boundary faces that carry a site mask, the cell's
-// encoded outputs are overwritten by enc(m * feq_vk(u_face) + (1 - m) *
-// dec(out)), where feq_vk is the DDF-shifted equilibrium at rho = 1 of the
-// FaceBC velocity at that face cell and m the site's 0/1 mask.  Sites apply
-// in the Pallas order -- planes (ut at z = Z-1, ub at z = 0), then rows (us
-// at y = 0, un at y = Y-1), then lanes (uw at x = 0, ue at x = X-1) -- each
-// reading back the output the earlier ones left, so the west and east lanes
-// own the corners.  The Pallas kernel applies them in its epilogue; here
-// they are a face pass launched right after the step on the same stream,
-// one thread per cell of the domain's boundary shell, which reads the
+// The VK inlet site pass (K6; the Pallas kernel's `vk` spec,
+// make_pallas_step :915-978): at the boundary faces that carry a site mask,
+// the cell's encoded outputs are overwritten by enc(m * feq_vk(u_face) +
+// (1 - m) * dec(out)), where feq_vk is the DDF-shifted equilibrium at rho =
+// 1 of the FaceBC velocity at that face cell and m the site's 0/1 mask.
+// Sites apply in the Pallas order -- planes (ut at z = Z-1, ub at z = 0),
+// then rows (us at y = 0, un at y = Y-1), then lanes (uw at x = 0, ue at x =
+// X-1) -- each reading back the output the earlier ones left, so the west
+// and east lanes own the corners.  The Pallas kernel applies them in its
+// epilogue; here they are a pass launched right after the step on the same
+// stream (luw_stream_collide), or alone (luw_vk_sites), which reads the
 // step's stored outputs and overwrites them -- the same values, since the
-// epilogue too reads back encoded outputs.  The pass leaves the step kernel
-// as it is and costs ~0.21 ms per step at 21.2M cells in every storage
-// (+11% fp16c to +16% bf16 on the H100; the x = 0 and x = X-1 lanes touch
-// one element per 32-byte sector).  Inside the step the sites cost +14%
-// (bf16) to +72% (fp16c) fused (96 and more registers against 72, and the
-// fp16c blend's code crowding the instruction cache), and +2% (f32) to
-// +64% (fp16c) as a __noinline__ tail call.  The VK site pass touches only
-// the boundary shell, O(N^(2/3)) cells.  In a halo-mode slab the faces lie
-// inside the ghost layers: the pass covers the shell of the box without them
-// (offsets gy / gx, 0 outside halo mode), and the runner gives a slab only
-// the sites of the faces it owns.
+// epilogue too reads back encoded outputs.  Fused into the step the sites
+// cost +14% (bf16) to +72% (fp16c), and +2% to +64% as a __noinline__ tail
+// call (PERF.md), so the step kernel stays as it is.  In a halo-mode slab
+// the faces lie inside the ghost layers: the pass covers the faces of the
+// box without them (offsets gy / gx, 0 outside halo mode), and the runner
+// gives a slab only the sites of the faces it owns.
+//
+// Bound on the H100: device memory.  The pass reads and writes the 19 DDFs
+// of every cell on a masked face and reads a mask value and 3 velocities
+// per site: O(N^(2/3)) elements.  On a row or plane face a warp's elements
+// are neighbours along x; on a lane face (x = 0, x = X-1) consecutive cells
+// lie X elements apart in the SoA layout, so every element read or written
+// there costs a 32-byte sector: the lanes are bound by sectors, not by
+// elements (chip_smoke.py states both bounds).  Design: one thread per
+// (masked-face cell, direction) element, the direction the block's y index,
+// over the masked faces' cells only (each once: planes, then the rows
+// without the planes' cells, then the lanes without either's); each
+// element's blend chain is independent of the other directions, so a
+// thread decodes one value and computes one feq_vk term per site, in the
+// Pallas evaluation order.  The lanes' cells are listed with the lane
+// fastest, so the east cell of row y and the west cell of row y + 1, which
+// lie side by side in memory, share a warp and often a sector; a lane warp
+// keeps 32 sectors in flight per load.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -46,12 +58,27 @@
 
 namespace luw {
 
-// One VK site: o <- enc(m * feq_vk(u) + (1 - m) * dec(o)).  feq_vk is the
-// DDF-shifted D3Q19 equilibrium at rho = 1 in the Pallas evaluation order
-// (c.u over nonzero terms, opposite pairs sharing b +- w*cu).
-template <class C>
-__device__ __forceinline__ void vk_blend(typename C::T (&o)[19], float m,
-                                         float ux, float uy, float uz) {
+// The site pass's threads per block.
+constexpr int kVkThreads = 256;
+
+// c.v over the nonzero components of c, in x, y, z order, each rounding
+// spelt out (the plain version's _cdot).
+__device__ __forceinline__ float cdot_rn(int cx, int cy, int cz, float a,
+                                         float b, float c) {
+  float s = 0.0f;
+  bool any = false;
+  if (cx) { s = cx > 0 ? a : -a; any = true; }
+  if (cy) { const float t = cy > 0 ? b : -b; s = any ? __fadd_rn(s, t) : t; any = true; }
+  if (cz) { const float t = cz > 0 ? c : -c; s = any ? __fadd_rn(s, t) : t; }
+  return s;
+}
+
+// feq_vk of direction d alone: the DDF-shifted D3Q19 equilibrium at rho = 1
+// in the Pallas evaluation order (c3, then for an opposite pair b +- w*cu
+// from the pair's odd member), with every rounding spelt out as a separate
+// multiply or add (__fmul_rn / __fadd_rn, which nvcc never fuses), so each
+// term is the plain version's (ops/stream_collide.py::feq_vk) to the bit.
+__device__ __forceinline__ float feq_vk(int d, float ux, float uy, float uz) {
   const int CX[19] = {0, 1, -1, 0, 0, 1, -1, 1, -1, 0, 1, -1, 0, 0, 0, -1, 1, 0, 0};
   const int CY[19] = {0, 0, 0, 1, -1, 1, -1, -1, 1, 0, 0, 0, 1, -1, 0, 0, 0, -1, 1};
   const int CZ[19] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1, 1, 1, -1, -1, -1, -1, -1};
@@ -60,112 +87,137 @@ __device__ __forceinline__ void vk_blend(typename C::T (&o)[19], float m,
                        1.f / 36.f, 1.f / 36.f, 1.f / 36.f, 1.f / 36.f, 1.f / 18.f,
                        1.f / 36.f, 1.f / 36.f, 1.f / 36.f, 1.f / 36.f, 1.f / 18.f,
                        1.f / 36.f, 1.f / 36.f, 1.f / 36.f, 1.f / 36.f};
-  const float c3 = -3.0f * (ux * ux + uy * uy + uz * uz);
-  float fe[19];
-  fe[0] = (1.0f / 3.0f) * (0.5f * c3);
+  // c3 = -3 ((ux ux + uy uy) + uz uz)
+  const float c3 = __fmul_rn(
+      -3.0f, __fadd_rn(__fadd_rn(__fmul_rn(ux, ux), __fmul_rn(uy, uy)),
+                       __fmul_rn(uz, uz)));
+  float fe = __fmul_rn(1.0f / 3.0f, __fmul_rn(0.5f, c3));
 #pragma unroll
-  for (int d = 1; d < 19; d += 2) {
-    const float cu = 3.0f * cdot(CX[d], CY[d], CZ[d], ux, uy, uz);
-    const float b = W[d] * (0.5f * (cu * cu + c3));
-    fe[d] = b + W[d] * cu;
-    fe[OPP[d]] = b - W[d] * cu;
+  for (int p = 1; p < 19; p += 2) {
+    if (d == p || d == OPP[p]) {
+      // cu = 3 c.u, b = w ((cu cu + c3) / 2), fe = b +- w cu
+      const float cu = __fmul_rn(3.0f, cdot_rn(CX[p], CY[p], CZ[p], ux, uy, uz));
+      const float b = __fmul_rn(
+          W[p], __fmul_rn(0.5f, __fadd_rn(__fmul_rn(cu, cu), c3)));
+      const float wcu = __fmul_rn(W[p], cu);
+      fe = d == p ? __fadd_rn(b, wcu) : __fsub_rn(b, wcu);
+    }
   }
-  const float om = 1.0f - m;
-#pragma unroll
-  for (int d = 0; d < 19; ++d) o[d] = C::enc(m * fe[d] + om * C::dec(o[d]));
+  return fe;
 }
 
-// Whether the cell (z, y, x) of the (Z, Y, X) box lies on a masked face, the
-// row and lane faces gy / gx inside the y / x edges.
-__device__ __forceinline__ bool vk_on_site(const VkMasks& vm, int z, int y,
-                                           int x, int Z, int Y, int X, int gy,
-                                           int gx) {
-  return (z == Z - 1 && vm.ut) || (z == 0 && vm.ub) || (y == gy && vm.us) ||
-         (y == Y - 1 - gy && vm.un) || (x == gx && vm.uw) ||
-         (x == X - 1 - gx && vm.ue);
-}
-
-// Every site of the cell in the Pallas order: planes, rows, lanes; the row
-// and lane faces gy / gx inside the y / x edges.
+// One VK site on one element: o <- enc(m * feq_vk(u)_d + (1 - m) * dec(o)),
+// rounded as the plain version's apply_vk_sites.
 template <class C>
-__device__ __forceinline__ void vk_sites(
-    typename C::T (&o)[19], const VkMasks& vm, int z, int y, int x, int Z,
-    int Y, int X, int gy, int gx, const float* __restrict__ uw,
-    const float* __restrict__ ue, const float* __restrict__ us,
-    const float* __restrict__ un, const float* __restrict__ ut,
-    const float* __restrict__ ub) {
-  const long long plane = (long long)Y * X;
-  const long long yx = (long long)y * X + x;
-  if (z == Z - 1 && vm.ut)
-    vk_blend<C>(o, vm.ut[yx], ut[yx], ut[plane + yx], ut[2 * plane + yx]);
-  if (z == 0 && vm.ub)
-    vk_blend<C>(o, vm.ub[yx], ub[yx], ub[plane + yx], ub[2 * plane + yx]);
-  const long long zx = (long long)z * X + x;
-  const long long rx = (long long)z * 3 * X + x;
-  if (y == gy && vm.us)
-    vk_blend<C>(o, vm.us[zx], us[rx], us[rx + X], us[rx + 2 * X]);
-  if (y == Y - 1 - gy && vm.un)
-    vk_blend<C>(o, vm.un[zx], un[rx], un[rx + X], un[rx + 2 * X]);
-  const long long zy = (long long)z * Y + y;
-  const long long ry = (long long)z * 3 * Y + y;
-  if (x == gx && vm.uw)
-    vk_blend<C>(o, vm.uw[zy], uw[ry], uw[ry + Y], uw[ry + 2 * Y]);
-  if (x == X - 1 - gx && vm.ue)
-    vk_blend<C>(o, vm.ue[zy], ue[ry], ue[ry + Y], ue[ry + 2 * Y]);
+__device__ __forceinline__ typename C::T vk_blend(typename C::T o, int d,
+                                                  float m, float ux, float uy,
+                                                  float uz) {
+  return C::enc(__fadd_rn(__fmul_rn(m, feq_vk(d, ux, uy, uz)),
+                          __fmul_rn(__fsub_rn(1.0f, m), C::dec(o))));
 }
 
-// The VK site pass over the boundary shell of the (Z, Y, X) box, one thread
-// per cell: the z = 0 and z = Z-1 planes, then the y = 0 and y = Y-1 rows of
-// the interior z, then the x = 0 and x = X-1 lanes of the interior z and y
-// (a box thinner than 3 cells lists each of its cells once).  A cell on a
-// masked face gets all of its sites, in order, from the step's outputs.
-// The box is the (Z, Y - 2 gy, X - 2 gx) one inside the ghost layers of a
-// halo-mode slab (gy = gx = 0 otherwise).
+// The cells of the masked faces of the (Z, Y - 2 gy, X - 2 gx) box, each
+// once, in three runs: the masked planes' cells (plane, y, x); the masked
+// rows' cells that lie on no masked plane (row, z, x); the masked lanes'
+// cells that lie on neither (z, y, lane).  A face that coincides with its
+// opposite one (a box one cell thin) counts once.  tests/test_torch_vk_inlet.py
+// mirrors this map.
+struct VkFaces {
+  int nplanes, nrows, nlanes;  // distinct masked planes, rows, lanes
+  int zlo, nz;                 // the rows' and lanes' z range
+  int ylo, ny;                 // the lanes' y range
+  int plane_cells, row_cells, cells;
+};
+
+__host__ inline VkFaces vk_faces(const VkMasks& vm, int Z, int Y, int X,
+                                 int gy, int gx) {
+  const int Yb = Y - 2 * gy, Xb = X - 2 * gx;
+  VkFaces f;
+  f.nplanes = (vm.ub ? 1 : 0) + (vm.ut && (Z > 1 || !vm.ub) ? 1 : 0);
+  f.nrows = (vm.us ? 1 : 0) + (vm.un && (Yb > 1 || !vm.us) ? 1 : 0);
+  f.nlanes = (vm.uw ? 1 : 0) + (vm.ue && (Xb > 1 || !vm.uw) ? 1 : 0);
+  const int zhi = vm.ut ? Z - 1 : Z, yhi = vm.un ? Y - gy - 1 : Y - gy;
+  f.zlo = vm.ub ? 1 : 0;
+  f.nz = zhi > f.zlo ? zhi - f.zlo : 0;
+  f.ylo = gy + (vm.us ? 1 : 0);
+  f.ny = yhi > f.ylo ? yhi - f.ylo : 0;
+  f.plane_cells = f.nplanes * Yb * Xb;
+  f.row_cells = f.nrows * f.nz * Xb;
+  f.cells = f.plane_cells + f.row_cells + f.nz * f.ny * f.nlanes;
+  return f;
+}
+
+// The site pass: thread (i, d) takes direction d = blockIdx.y of the i-th
+// masked-face cell (VkFaces) and applies every site of that cell to it, in
+// order, from the step's outputs fb.  The row and lane faces lie gy / gx
+// inside the y / x edges of a halo-mode slab's plane (0 otherwise).
 template <class C>
-__global__ void __launch_bounds__(kScThreads)
+__global__ void __launch_bounds__(kVkThreads)
 vk_site_kernel(typename C::T* __restrict__ fb, VkMasks vm,
                const float* __restrict__ uw, const float* __restrict__ ue,
                const float* __restrict__ us, const float* __restrict__ un,
                const float* __restrict__ ut, const float* __restrict__ ub,
-               int Z, int Y, int X, int gy, int gx) {
-  using T = typename C::T;
-  const int Yb = Y - 2 * gy, Xb = X - 2 * gx;  // the box inside the ghosts
-  const int Zi = max(Z - 2, 0), Yi = max(Yb - 2, 0);
-  const long long nP = (long long)Yb * Xb, nR = (long long)Zi * Xb,
-                  nL = (long long)Zi * Yi;
-  const long long sP = min(Z, 2) * nP, sR = min(Yb, 2) * nR,
-                  sL = min(Xb, 2) * nL;
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+               VkFaces f, int Z, int Y, int X, int gy, int gx) {
+  int i = blockIdx.x * kVkThreads + threadIdx.x;
+  if (i >= f.cells) return;
+  const int d = blockIdx.y;
+  const int Yb = Y - 2 * gy, Xb = X - 2 * gx;
   int z, y, x;
-  if (i < sP) {
-    z = i < nP ? 0 : Z - 1;
-    i %= nP;
-    y = (int)(i / Xb);
-    x = (int)(i % Xb);
-  } else if ((i -= sP) < sR) {
-    y = i < nR ? 0 : Yb - 1;
-    i %= nR;
-    z = 1 + (int)(i / Xb);
-    x = (int)(i % Xb);
-  } else if ((i -= sR) < sL) {
-    x = i < nL ? 0 : Xb - 1;
-    i %= nL;
-    z = 1 + (int)(i / Yi);
-    y = 1 + (int)(i % Yi);
+  if (i < f.plane_cells) {
+    const int k = i / (Yb * Xb), r = i - k * (Yb * Xb);
+    z = k == 0 && vm.ub ? 0 : Z - 1;
+    y = gy + r / Xb;
+    x = gx + r % Xb;
+  } else if ((i -= f.plane_cells) < f.row_cells) {
+    const int k = i / (f.nz * Xb), r = i - k * (f.nz * Xb);
+    y = k == 0 && vm.us ? gy : Y - 1 - gy;
+    z = f.zlo + r / Xb;
+    x = gx + r % Xb;
   } else {
-    return;
+    i -= f.row_cells;
+    const int k = i % f.nlanes, t = i / f.nlanes;
+    x = k == 0 && vm.uw ? gx : X - 1 - gx;
+    y = f.ylo + t % f.ny;
+    z = f.zlo + t / f.ny;
   }
-  y += gy;
-  x += gx;
-  if (!vk_on_site(vm, z, y, x, Z, Y, X, gy, gx)) return;
-  const long long N = (long long)Z * Y * X;
-  const long long n = ((long long)z * Y + y) * X + x;
-  T o[19];
-#pragma unroll
-  for (int d = 0; d < 19; ++d) o[d] = fb[d * N + n];
-  vk_sites<C>(o, vm, z, y, x, Z, Y, X, gy, gx, uw, ue, us, un, ut, ub);
-#pragma unroll
-  for (int d = 0; d < 19; ++d) fb[d * N + n] = o[d];
+  const int plane = Y * X;
+  typename C::T* __restrict__ p =
+      fb + ((long long)d * Z * plane + (z * plane + y * X + x));
+  typename C::T o = *p;
+  const int yx = y * X + x;
+  if (z == Z - 1 && vm.ut)
+    o = vk_blend<C>(o, d, vm.ut[yx], ut[yx], ut[plane + yx], ut[2 * plane + yx]);
+  if (z == 0 && vm.ub)
+    o = vk_blend<C>(o, d, vm.ub[yx], ub[yx], ub[plane + yx], ub[2 * plane + yx]);
+  const int zx = z * X + x, rx = z * 3 * X + x;
+  if (y == gy && vm.us)
+    o = vk_blend<C>(o, d, vm.us[zx], us[rx], us[rx + X], us[rx + 2 * X]);
+  if (y == Y - 1 - gy && vm.un)
+    o = vk_blend<C>(o, d, vm.un[zx], un[rx], un[rx + X], un[rx + 2 * X]);
+  const int zy = z * Y + y, ry = z * 3 * Y + y;
+  if (x == gx && vm.uw)
+    o = vk_blend<C>(o, d, vm.uw[zy], uw[ry], uw[ry + Y], uw[ry + 2 * Y]);
+  if (x == X - 1 - gx && vm.ue)
+    o = vk_blend<C>(o, d, vm.ue[zy], ue[ry], ue[ry + Y], ue[ry + 2 * Y]);
+  *p = o;
+}
+
+// Launch the site pass over fb's masked faces (none: no launch).
+template <class C>
+cudaError_t vk_launch(void* fb, const VkMasks& vm, const float* uw,
+                      const float* ue, const float* us, const float* un,
+                      const float* ut, const float* ub, int Z, int Y, int X,
+                      int gy, int gx, cudaStream_t stream) {
+  if ((long long)Z * Y * X > INT_MAX || 2 * gy >= Y || 2 * gx >= X || gy < 0 ||
+      gx < 0)
+    return cudaErrorInvalidValue;
+  const VkFaces f = vk_faces(vm, Z, Y, X, gy, gx);
+  if (f.cells == 0) return cudaSuccess;
+  const dim3 grid((f.cells + kVkThreads - 1) / kVkThreads, 19);
+  vk_site_kernel<C><<<grid, kVkThreads, 0, stream>>>(
+      static_cast<typename C::T*>(fb), vm, uw, ue, us, un, ut, ub, f, Z, Y, X,
+      gy, gx);
+  return cudaGetLastError();
 }
 
 // One SRT step without a wall model (the plain family: nudging and the
@@ -196,17 +248,8 @@ cudaError_t sc_dispatch(const ScArgs& a, int gy, int gx, cudaStream_t stream) {
   if (err != cudaSuccess || !(m.uw || m.ue || m.us || m.un || m.ut || m.ub))
     return err;
   if (!halo) gy = gx = 0;
-  const long long Yb = a.Y - 2 * gy, Xb = a.X - 2 * gx;
-  const long long Zi = a.Z > 2 ? a.Z - 2 : 0, Yi = Yb > 2 ? Yb - 2 : 0;
-  const long long shell = (a.Z > 1 ? 2 : 1) * Yb * Xb +
-                          (Yb > 1 ? 2 : 1) * Zi * Xb +
-                          (Xb > 1 ? 2 : 1) * Zi * Yi;
-  const unsigned int blocks =
-      (unsigned int)((shell + kScThreads - 1) / kScThreads);
-  vk_site_kernel<C><<<blocks, kScThreads, 0, stream>>>(
-      static_cast<typename C::T*>(a.fb), a.vm, a.uw, a.ue, a.us, a.un, a.ut,
-      a.ub, a.Z, a.Y, a.X, gy, gx);
-  return cudaGetLastError();
+  return vk_launch<C>(a.fb, a.vm, a.uw, a.ue, a.us, a.un, a.ut, a.ub, a.Z, a.Y,
+                      a.X, gy, gx, stream);
 }
 
 }  // namespace luw
@@ -287,5 +330,38 @@ extern "C" int luw_stream_collide(
     case 3: err = luw::sc_dispatch<luw::CodecFP16C>(a, gy, gx, st); break;
     default: err = cudaErrorInvalidValue;
   }
+  return (int)err;
+}
+
+// The VK site pass alone on the encoded DDFs fb (19, Z, Y, X) in storage
+// codec `storage`, in place: mask_* as luw_stream_collide's (null where a
+// face carries no site), uw .. ub the FaceBC velocities, the row and lane
+// faces gy / gx inside the y / x edges.  Launches on `stream`, does not
+// synchronise, and returns cudaGetLastError() after the launch (0 on
+// success, so 0 means one launch); no mask at all is refused.
+extern "C" int luw_vk_sites(void* fb, const void* mask_uw, const void* mask_ue,
+                            const void* mask_us, const void* mask_un,
+                            const void* mask_ut, const void* mask_ub,
+                            const void* uw, const void* ue, const void* us,
+                            const void* un, const void* ut, const void* ub,
+                            int Z, int Y, int X, int gy, int gx, int storage,
+                            void* stream) {
+  auto F = [](const void* p) { return static_cast<const float*>(p); };
+  const luw::VkMasks vm = {F(mask_uw), F(mask_ue), F(mask_us),
+                           F(mask_un), F(mask_ut), F(mask_ub)};
+  if (!(vm.uw || vm.ue || vm.us || vm.un || vm.ut || vm.ub))
+    return (int)cudaErrorInvalidValue;
+  const auto st = static_cast<cudaStream_t>(stream);
+#define LUW_VK_ARGS \
+  fb, vm, F(uw), F(ue), F(us), F(un), F(ut), F(ub), Z, Y, X, gy, gx, st
+  cudaError_t err;
+  switch (storage) {
+    case 0: err = luw::vk_launch<luw::CodecF32>(LUW_VK_ARGS); break;
+    case 1: err = luw::vk_launch<luw::CodecBF16>(LUW_VK_ARGS); break;
+    case 2: err = luw::vk_launch<luw::CodecF16>(LUW_VK_ARGS); break;
+    case 3: err = luw::vk_launch<luw::CodecFP16C>(LUW_VK_ARGS); break;
+    default: err = cudaErrorInvalidValue;
+  }
+#undef LUW_VK_ARGS
   return (int)err;
 }

@@ -40,7 +40,6 @@
 namespace luw {
 
 constexpr float kSmagorinsky = 0.76421222f;
-constexpr int kScThreads = 128;
 
 // c.v for a lattice direction, summing only its nonzero components in x, y,
 // z order (the reference kernels' evaluation order)

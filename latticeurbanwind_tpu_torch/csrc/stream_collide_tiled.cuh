@@ -3,7 +3,9 @@
 // for the configurations without a wall model under SRT, stream_collide_wall.cu
 // for the wall models and TRT, stream_collide_thermal.cu for D3Q7, and
 // stream_collide_halo.cu with stream_collide_halo_thermal.cu for the halo
-// mode (K8) of a domain split over devices.
+// mode (K8) of a domain split over devices.  The same march over a block's
+// planes with the flag ring (tiled_march) carries the averaging pass (K-AVG,
+// avg_update.cu), with shapes of its own.
 //
 // Replaces: latticeurbanwind_tpu/ops/stream_collide.py::make_pallas_step,
 // every branch: SRT + LES, force, nudging, sponge (:674-730, :882-889), the
@@ -116,6 +118,18 @@ struct TileShape {
 #ifndef LUW_TILE_PLAIN_F32_FP16C
 #define LUW_TILE_PLAIN_F32_FP16C 64, 2, 8, 6, 0
 #endif
+// The averaging pass (K-AVG, avg_update.cu) marches the same way with
+// shapes of its own, chosen on the card (chip_sweep.py --family avg;
+// PERF.md): without a wall model 128 x 1 x 16 with 7 blocks (72
+// registers; 128 x 1 x 8 was 1.5-2.5% slower, 8 blocks spill), with one
+// 64 x 2 x 8 with 7 blocks (9% faster there than 128 x 1 x 8, 7% than
+// 128 x 1 x 16), set as LUW_TILE_AVG and LUW_TILE_AVG_WALL.
+#ifndef LUW_TILE_AVG
+#define LUW_TILE_AVG 128, 1, 16, 7, 0
+#endif
+#ifndef LUW_TILE_AVG_WALL
+#define LUW_TILE_AVG_WALL 64, 2, 8, 7, 0
+#endif
 // f32: the storage takes 4 bytes per value; plain: no wall model, SRT;
 // fp16c: the storage is the software-decoded 1-4-11 float.
 __host__ __device__ constexpr TileShape tile_shape(bool thermal, bool f32,
@@ -155,7 +169,9 @@ static_assert(tile_ok(tile_shape(true, false)) &&
                   tile_ok(tile_shape(true, true)) &&
                   tile_ok(tile_shape(false, false)) &&
                   tile_ok(tile_shape(false, false, true)) &&
-                  tile_ok(tile_shape(false, true, true)),
+                  tile_ok(tile_shape(false, true, true)) &&
+                  tile_ok(TileShape{LUW_TILE_AVG}) &&
+                  tile_ok(TileShape{LUW_TILE_AVG_WALL}),
               "a tiled body shape the ring does not take");
 // The neighbourhood mask takes each flag's kTypeS bit by masking and shifting.
 static_assert(kTypeS == 1, "the neighbourhood mask needs kTypeS in bit 0");
@@ -433,6 +449,85 @@ __device__ __forceinline__ const uint8_t* flag_plane(
   }
   zi = wrap(zz, Z);
   return flags;
+}
+
+// A block's march over its planes z0 .. z1 - 1, for K-AVG (avg_update.cu):
+// its TX x TY threads cover the tile at (blockIdx.x TX, blockIdx.y TY) of
+// each plane in turn, with the flags of the planes z - 1, z, z + 1
+// (wrapped) in a ring in shared memory, fetched a plane ahead.  For each
+// plane z every thread
+// calls cell(z, live, fl, nb): live whether its cell lies inside the
+// grid's ragged edge, fl the cell's flags and nb the solid bits of its
+// 3x3x3 neighbourhood (nb_bit; both 0 where not live).  The fetch of the
+// ring's next plane is in flight during the call.  The step kernel below
+// runs the same march written out in its own body: taking it through this
+// helper changed 9 of its 112 instances by up to 8 SASS instructions or 3
+// registers (chip_compare.py, PERF.md).
+template <int TX, int TY, class Cell>
+__device__ __forceinline__ void tiled_march(const uint8_t* __restrict__ flags,
+                                            int z0, int z1, int Z, int Y,
+                                            int X, const Cell& cell) {
+  const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * TX + tx;
+  const int x0 = blockIdx.x * TX, y0 = blockIdx.y * TY;
+  const int txn = min(TX, X - x0), tyn = min(TY, Y - y0);
+  const int R = TX + 8;
+  const bool live = tx < txn && ty < tyn;
+
+  __shared__ __align__(16) uint8_t ring[3][ring_plane_bytes(TileShape{TX, TY, 1, 1, 0})];
+  __shared__ uint8_t shift[3][TY + 2];
+
+  // the ring's first three planes: z0 - 1, z0, z0 + 1 (wrapped)
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    uint8_t v;
+    const int pos = ring_fetch(ring[j], shift[j], flags, wrap(z0 - 1 + j, Z),
+                               tid, x0, y0, txn, tyn, TX, X, Y, v);
+    if (pos >= 0) ring[j][pos] = v;
+  }
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncthreads();
+
+  int sm = 0, s0 = 1, sp = 2;  // ring planes of z - 1, z, z + 1
+  for (int z = z0; z < z1; ++z) {
+    uint8_t fl = 0;
+    uint32_t nb = 0;
+    if (live) {
+      const int sl[3] = {sm, s0, sp};
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+#pragma unroll
+        for (int b = 0; b < 3; ++b) {
+          const int row = ty + b;
+          const uint8_t* p = ring[sl[a]] + row * R + shift[sl[a]][row] + tx;
+          const int bit = a * 9 + b * 3;
+          nb |= ((uint32_t)(p[0] & kTypeS) << bit) |
+                ((uint32_t)(p[1] & kTypeS) << (bit + 1)) |
+                ((uint32_t)(p[2] & kTypeS) << (bit + 2));
+          if (a == 1 && b == 1) fl = p[1];
+        }
+      }
+    }
+    __syncthreads();  // the plane of z - 1 is free: fetch z + 2 into it
+    const bool more = z + 1 < z1;
+    int pos = -1;
+    uint8_t v = 0;
+    if (more) {
+      pos = ring_fetch(ring[sm], shift[sm], flags, wrap(z + 2, Z), tid, x0,
+                       y0, txn, tyn, TX, X, Y, v);
+      __pipeline_commit();
+    }
+    cell(z, live, fl, nb);
+    if (more) {
+      if (pos >= 0) ring[sm][pos] = v;
+      __pipeline_wait_prior(0);
+    }
+    __syncthreads();
+    const int t = sm;
+    sm = s0;
+    s0 = sp;
+    sp = t;
+  }
 }
 
 // kNudge / kSponge: 0 off, 1 on, 2 on where the pointer is not null (every

@@ -6,8 +6,10 @@ step: the kernel streams DDFs and flags only, TYPE_E cells freeze their
 stored equilibria, TYPE_S cells go to zero, and the nudge / sponge targets
 come from the static `FaceBC` built once from the initial velocity field.
 
-`stream_collide` is the entry point.  A tensor on the CPU goes to
-`stream_collide_plain` (torch ops with `torch.roll` pulls); a CUDA tensor
+`stream_collide` is the entry point; `vk_sites` runs the VK site pass
+alone (K6, the pass a step with sites launches after the step).  A
+tensor on the CPU goes to `stream_collide_plain` (torch ops with
+`torch.roll` pulls); a CUDA tensor
 launches an instance of the tiled body `csrc/stream_collide_tiled.cuh`
 (`csrc/stream_collide.cu`: no wall model, SRT; `csrc/stream_collide_wall.cu`:
 the wall models or TRT) or raises.
@@ -134,17 +136,25 @@ def build_face_bc(u: torch.Tensor, T: Optional[torch.Tensor] = None) -> FaceBC:
     )
 
 
+def _check_storage(storage: str) -> None:
+    if storage not in _STORAGE_CODE:
+        raise ValueError(f"unknown storage {storage!r}")
+
+
+def _check_vk(vk) -> None:
+    for kind, field in vk["sites"]:
+        if VK_SITES.get(kind, (None,))[0] != field:
+            raise ValueError(f"VK site ({kind!r}, {field!r}) is not one "
+                             f"of {sorted(VK_SITES.items())}")
+        if field not in vk["masks"]:
+            raise ValueError(f"VK site {kind!r} has no mask {field!r}")
+
+
 def check_config(config: StepConfig, forcing: Forcing, vk=None) -> None:
     """Raise for a configuration K-SC (and its plain version) does not take."""
-    if config.storage not in _STORAGE_CODE:
-        raise ValueError(f"unknown storage {config.storage!r}")
+    _check_storage(config.storage)
     if vk is not None:
-        for kind, field in vk["sites"]:
-            if VK_SITES.get(kind, (None,))[0] != field:
-                raise ValueError(f"VK site ({kind!r}, {field!r}) is not one "
-                                 f"of {sorted(VK_SITES.items())}")
-            if field not in vk["masks"]:
-                raise ValueError(f"VK site {kind!r} has no mask {field!r}")
+        _check_vk(vk)
     has_forcing = (forcing.nudge_sigma is not None
                    or forcing.sponge_sigma_z is not None)
     if not config.volume_force and (has_forcing or config.thermal):
@@ -562,22 +572,9 @@ def stream_collide(fi: torch.Tensor, flags: torch.Tensor, dyn: torch.Tensor,
                       (Z,), dev)
         ptr["sz"] = forcing.sponge_sigma_z.data_ptr()
     if has_nudge or has_sponge or vk is not None:
-        if fbc is None:
-            raise ValueError("nudging, sponge and VK sites need the FaceBC "
-                             "targets (fbc)")
-        for k, shp in (("uw", (Z, 3, Y)), ("ue", (Z, 3, Y)), ("us", (Z, 3, X)),
-                       ("un", (Z, 3, X)), ("ut", (3, Y, X)), ("ub", (3, Y, X))):
-            t = getattr(fbc, k)
-            _check_tensor(f"fbc.{k}", t, torch.float32, shp, dev)
-            ptr[k] = t.data_ptr()
+        ptr.update(_face_pointers(fbc, (Z, Y, X), dev))
     if vk is not None:
-        mshape = {"uw": (Z, 1, Y), "ue": (Z, 1, Y), "us": (Z, 1, X),
-                  "un": (Z, 1, X), "ut": (Y, X), "ub": (Y, X)}
-        for _kind, field in vk["sites"]:
-            m = vk["masks"][field]
-            _check_tensor(f"vk mask {field}", m, torch.float32, mshape[field],
-                          dev)
-            mptr[field] = m.data_ptr()
+        mptr = _mask_pointers(vk, (Z, Y, X), dev)
     tt_ptr = None
     if thermal:
         _check_tensor("gi", gi, fi.dtype, (7, Z, Y, X), dev)
@@ -623,6 +620,79 @@ def stream_collide(fi: torch.Tensor, flags: torch.Tensor, dyn: torch.Tensor,
     return out
 
 
+def _face_pointers(fbc: Optional[FaceBC], shape, dev) -> dict:
+    """{field: pointer} of the FaceBC velocity targets, checked."""
+    if fbc is None:
+        raise ValueError("nudging, sponge and VK sites need the FaceBC "
+                         "targets (fbc)")
+    Z, Y, X = shape
+    out = {}
+    for k, shp in (("uw", (Z, 3, Y)), ("ue", (Z, 3, Y)), ("us", (Z, 3, X)),
+                   ("un", (Z, 3, X)), ("ut", (3, Y, X)), ("ub", (3, Y, X))):
+        t = getattr(fbc, k)
+        _check_tensor(f"fbc.{k}", t, torch.float32, shp, dev)
+        out[k] = t.data_ptr()
+    return out
+
+
+def _mask_pointers(vk, shape, dev) -> dict:
+    """{field: pointer} of the VK site masks (None where a face carries no
+    site), checked."""
+    Z, Y, X = shape
+    mshape = {"uw": (Z, 1, Y), "ue": (Z, 1, Y), "us": (Z, 1, X),
+              "un": (Z, 1, X), "ut": (Y, X), "ub": (Y, X)}
+    out = dict.fromkeys(_FACE_FIELDS)
+    for _kind, field in vk["sites"]:
+        m = vk["masks"][field]
+        _check_tensor(f"vk mask {field}", m, torch.float32, mshape[field], dev)
+        out[field] = m.data_ptr()
+    return out
+
+
+def vk_sites(out: torch.Tensor, fbc: FaceBC, vk, storage: str, *,
+             gy: int = 0, gx: int = 0) -> torch.Tensor:
+    """The VK site pass alone, in place on the encoded step output `out`
+    (19,Z,Y,X): the sites of `vk` from the FaceBC velocities `fbc`, on the
+    faces of the box gy / gx inside the y / x edges (a halo-mode slab's
+    ghost widths; 0 otherwise); returns `out`.  The step with sites is the
+    step without them, then this pass.  CPU tensors run `apply_vk_sites`;
+    CUDA tensors launch `vk_site_kernel` (`csrc/stream_collide.cu`, the
+    kernel `stream_collide` launches after a step with sites) and count
+    the launch in `vk_sites.launches`.  A `vk` without sites is refused."""
+    _check_storage(storage)
+    _check_vk(vk)
+    if not vk["sites"]:
+        raise ValueError("vk carries no site: the pass has nothing to do")
+    Y, X = (int(v) for v in out.shape[-2:])
+    if not (0 <= 2 * gy < Y and 0 <= 2 * gx < X):
+        raise ValueError(f"ghost widths ({gy}, {gx}) leave no box in a "
+                         f"({Y}, {X}) plane")
+    if out.device.type == "cpu":
+        apply_vk_sites(*_inner_box(out, fbc, vk, gy, gx), storage)
+        return out
+    if out.device.type != "cuda":
+        raise NotImplementedError(f"no VK site kernel for {out.device}")
+    dev = out.device
+    Z = int(out.shape[1])
+    _check_tensor("out", out, storage_dtype(storage), (19, Z, Y, X), dev)
+    fp = _face_pointers(fbc, (Z, Y, X), dev)
+    mp = _mask_pointers(vk, (Z, Y, X), dev)
+
+    from ..utils.cuda_build import load_library
+
+    lib = load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.luw_vk_sites(
+            out.data_ptr(), *(mp[k] for k in _FACE_FIELDS),
+            *(fp[k] for k in _FACE_FIELDS), Z, Y, X, gy, gx,
+            _STORAGE_CODE[storage], stream)
+    if rc != 0:
+        raise RuntimeError(f"luw_vk_sites launch failed: CUDA error {rc}")
+    vk_sites.launches += 1
+    return out
+
+
 def _halo_pointers(halo: Optional[ZHalo], dtype, plane, dev, thermal) -> tuple:
     """The entry point's halo arguments (fp, fm, fp channel stride, fm channel
     stride, flb, fla, gp, gm, gy, gx), all null / 0 without a halo."""
@@ -656,3 +726,4 @@ stream_collide.launches_vk = 0
 stream_collide.launches_wall = 0
 stream_collide.launches_thermal = 0
 stream_collide.launches_halo = 0
+vk_sites.launches = 0

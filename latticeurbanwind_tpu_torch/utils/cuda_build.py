@@ -59,6 +59,9 @@ SIGNATURES = {
     "luw_stream_collide": [_P] * 22 + [_I] * 9 + [_F] * 3 + [_I] * 2
                           + [_F] * 2 + [_I] + [_F] * 3 + [_P, _P, _L, _L]
                           + [_P] * 4 + [_I, _I, _P],
+    # fb, mask_uw, mask_ue, mask_us, mask_un, mask_ut, mask_ub, uw, ue, us,
+    # un, ut, ub, Z, Y, X, gy, gx, storage, stream
+    "luw_vk_sites": [_P] * 13 + [_I] * 6 + [_P],
     # fi, flags, dyn, inv_n, mean_u, m2_u, mean_rho, Z, Y, X, storage, wall,
     # wall_cd, wall_cd_sides, stream
     "luw_avg_update": [_P, _P, _P, _F, _P, _P, _P, _I, _I, _I, _I, _I, _F,

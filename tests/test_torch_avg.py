@@ -166,3 +166,50 @@ def test_plain_passes_decode_through_the_state_codec(storage, monkeypatch):
     fields.update_fields(ts, tcfg, convert.dyn_from_jax(dyn))
     assert len(seen) > n and set(seen) == {storage}
     assert bool(torch.isfinite(avg.mean_u).all())
+
+
+def _avg_shapes() -> dict:
+    """K-AVG's compile-time shapes {name: (tx, ty, kz, min_blocks,
+    prefetch)}: LUW_TILE_AVG and LUW_TILE_AVG_WALL of
+    csrc/stream_collide_tiled.cuh."""
+    import re
+
+    from latticeurbanwind_tpu_torch.utils import cuda_build
+
+    text = (cuda_build.CSRC_DIR / "stream_collide_tiled.cuh").read_text()
+    return {m.group(1): tuple(int(v) for v in m.group(2).split(","))
+            for m in re.finditer(r"#define LUW_TILE_(AVG\w*) ([\d, ]+)\n", text)}
+
+
+def _tile_walk(shape, tile) -> np.ndarray:
+    """How often K-AVG's march (avg_update_kernel's grid and tiled_march)
+    visits each cell of `shape` with a block of tile = (tx, ty, kz):
+    block (bx, by, bz) covers x0 = bx tx .. + tx, y0 = by ty .. + ty and
+    the planes bz kz .. min(+ kz, Z); a thread is live where its cell lies
+    inside the grid's ragged edge."""
+    Z, Y, X = shape
+    tx, ty, kz = tile[:3]
+    seen = np.zeros(shape, np.int64)
+    for bz in range(-(-Z // kz)):
+        for by in range(-(-Y // ty)):
+            for bx in range(-(-X // tx)):
+                x0, y0, z0 = bx * tx, by * ty, bz * kz
+                txn, tyn = min(tx, X - x0), min(ty, Y - y0)
+                for z in range(z0, min(z0 + kz, Z)):
+                    for t in range(tx * ty):
+                        if t % tx < txn and t // tx < tyn:
+                            seen[z, y0 + t // tx, x0 + t % tx] += 1
+    return seen
+
+
+@pytest.mark.parametrize("tile", ["AVG", "AVG_WALL", (128, 1, 8),
+                                  (256, 1, 8)], ids=str)
+@pytest.mark.parametrize("shape", [(7, 21, 45), (13, 37, 141), (1, 1, 1),
+                                   (9, 3, 130)], ids=str)
+def test_avg_tile_walk_visits_every_cell_once(shape, tile):
+    """K-AVG's blocks, marching over their planes, visit every cell of a
+    ragged grid exactly once, at the committed shapes (without and with a
+    wall model) and at other shapes `chip_sweep.py --family avg` builds."""
+    if isinstance(tile, str):
+        tile = _avg_shapes()[tile]
+    assert (_tile_walk(shape, tile) == 1).all()

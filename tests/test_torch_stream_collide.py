@@ -438,9 +438,9 @@ def _lattice_table(name: str) -> list:
 @pytest.mark.parametrize("table", _TABLES)
 def test_every_copy_of_a_direction_table_matches_the_lattice(table):
     """Each copy of a direction table in csrc/ -- the velocities, the
-    opposites and the wall models' mirrors, which solid_source_index (K-AVG)
-    and solid_source_pick (the tiled body) each hold -- equals
-    lbm/lattice.py's, so the copies cannot drift apart."""
+    opposites and the wall models' mirrors, which solid_source_pick (the
+    tiled body and K-AVG) holds -- equals lbm/lattice.py's, so the copies
+    cannot drift apart."""
     copies = _csrc_tables()[table]
     want = _lattice_table(table)
     assert copies
@@ -466,50 +466,117 @@ def _function_body(name: str) -> str:
     raise AssertionError(name)
 
 
+def _plain_source(fn) -> str:
+    import inspect
+
+    return inspect.getsource(fn)
+
+
 @pytest.mark.parametrize("pair", [
-    ("solid_source_index", "solid_source_pick"),
-    ("solid_source_index", "solid_source_pick", "planes"),
+    ("pull", "solid_source_pick"),
+    ("pull", "solid_source_pick", "planes"),
     ("wall_stress", "wall_stress_at")])
 def test_wall_model_helpers_take_the_same_choices(pair):
-    """The wall models' helpers come in a device-memory form (K-AVG) and an
-    accessor form (the tiled body): each pair takes its mirrors under the
-    same conditions in the same priority, or applies the same stress
-    arithmetic under the same conditions.  "planes": the halo form -- a
-    halo-mode slab (K8) reads a partner that lies beyond the slab from the
-    halo planes through the accessor form's `at(channel, cell, plane)` --
-    names each partner's plane as the device-memory form reaches it: the
-    ground partner and the bounce-back element in the cell's own plane (0),
-    the face partners in the source's (-cz), and the tiled body's halo
-    instances pass it their halo accessor."""
+    """The kernels' wall-model helpers (csrc/lattice.cuh, taken by the tiled
+    body and K-AVG) make the choices of the plain version
+    (lbm/fields.py): solid_source_pick takes the mirrors of `pull` under the
+    same conditions (the wall mode, and the direction having that mirror)
+    in the same priority (`pull`'s later select wins), each partner's
+    solidity tested at the cell `pull` rolls it from; wall_stress_at applies
+    `wall_stress`'s arithmetic under the same conditions at the same
+    neighbours.  "planes": each partner's plane as `at(channel, cell,
+    plane)` names it -- the ground partner and the bounce-back element in
+    the cell's own plane (0), the face partners in the source's (-cz), which
+    in a halo-mode slab (K8) may be a halo plane -- and the tiled body's
+    halo instances pass it their halo accessor, K-AVG the plain one."""
     import re
 
+    from latticeurbanwind_tpu_torch.lbm import fields
+    from latticeurbanwind_tpu_torch.lbm import lattice as L
     from latticeurbanwind_tpu_torch.utils import cuda_build
 
-    def choices(name):
-        body = _function_body(name)
-        if name.startswith("wall_stress"):
-            return ([" ".join(m.split()) for m in re.findall(
-                        r"(?:const float cw\w*|F[xyz]) -?= [^;]*;", body)],
-                    re.findall(r"kWall [=>]= \d(?: && cd_sides > 0.0f)?", body))
-        return (re.findall(r"\b(MZ|MX|MY|OPP)\[d\]", body),
-                re.findall(r"kWall [=>]= \d && C[XYZ]\[d\] [!=]= 1|"
-                           r"kWall [=>]= \d && C[XYZ]\[d\] != 0", body))
+    plain = _plain_source(getattr(fields, pair[0]))
+    body = _function_body(pair[1])
+    # the plain version's roll shift (cx, cy, cz) reads the cell at
+    # (dz, dy, dx) = (-cz, -cy, -cx), as the kernels name it
+    neg = {"0": "0", "cx": "-CX[d]", "cy": "-CY[d]", "cz": "-CZ[d]",
+           "1": "-1", "-1": "1"}
 
-    a, b = (choices(n) for n in pair[:2])
-    assert a[0] and a[1]
-    assert a == b
-    if pair[2:] == ("planes",):
-        index = _function_body("solid_source_index")
-        want = [(m, "0" if "plane" in step else "-CZ[d]") for step, m in
-                re.findall(r"const long long p = src \+ ([^;]*);\s*"
-                           r"if \([^)]*\)+ return (MZ|MX|MY)\[d\]", index)]
-        want.append(("OPP", "0"))
-        got = re.findall(r"at\((MZ|MX|MY|OPP)\[d\], \w+, ([^)]*)\)",
-                         _function_body("solid_source_pick"))
-        assert len(want) == 4 and got == want
-        tiled = (cuda_build.CSRC_DIR / "stream_collide_tiled.cuh").read_text()
-        assert re.search(r"solid_source_pick<kWall>\(\s*\[&\]\([^)]*\) "
-                         r"\{[^}]*\},\s*at_halo, d,", tiled)
+    def cell(shift):
+        x, y, z = (v.strip() for v in shift.split(","))
+        return ", ".join(neg[v] for v in (z, y, x))
+
+    if pair[0] == "pull":
+        # (mirror, wall condition, partner cell) in pull's order of selects
+        sel = re.findall(r"\(MIR_([XYZ])\[d\], \(([^)]*)\), wall ([=>]=) (\d)\)",
+                         plain)
+        assert len(sel) == 3
+        want = [(f"M{m}", f"kWall {op} {k}", cell(sh))
+                for m, sh, op, k in reversed(sel)] + [("OPP", None, None)]
+        tests = re.findall(r"if \((kWall [=>]= \d) && C[XYZ]\[d\] [!=]= \d+\) "
+                           r"\{\s*const I p = src \+ \w+;\s*"
+                           r"if \(!solid\(p, ([^)]*)\)\) return "
+                           r"at\((M[XYZ])\[d\]", body)
+        got = [(m, cond, where) for cond, where, m in tests]
+        got.append(("OPP", None, None) if re.search(
+            r"return at\(OPP\[d\], n, 0\);\s*\}$", body) else None)
+        assert got == want
+        # the direction tests: a direction has the mirror exactly where the
+        # helper's test on its velocity lets it look
+        dir_tests = {m: t for t, m in re.findall(
+            r"&& (C[XYZ]\[d\] [!=]= \d+)\) \{\s*const I p = src \+ \w+;"
+            r"\s*if \([^)]*\)\) return at\((M[XYZ])\[d\]", body)}
+        for m, mirror in (("MX", L.MIR_X), ("MY", L.MIR_Y), ("MZ", L.MIR_Z)):
+            axis, op, val = re.fullmatch(r"C([XYZ])\[d\] ([!=]=) (\d+)",
+                                         dir_tests[m]).groups()
+            c = [int(v) for v in L.C19[:, "XYZ".index(axis)]]
+            admits = [(v != int(val)) if op == "!=" else (v == int(val))
+                      for v in c]
+            assert admits == [mm is not None for mm in mirror], m
+        if pair[2:] == ("planes",):
+            got = re.findall(r"at\((MZ|MX|MY|OPP)\[d\], \w+, ([^)]*)\)", body)
+            want = [(f"M{m}", cell(sh).split(", ")[0])
+                    for m, sh, _, _ in reversed(sel)] + [("OPP", "0")]
+            assert len(got) == 4 and got == want
+            tiled = (cuda_build.CSRC_DIR / "stream_collide_tiled.cuh").read_text()
+            assert re.search(r"solid_source_pick<kWall>\(\s*\[&\]\([^)]*\) "
+                             r"\{[^}]*\},\s*at_halo, d,", tiled)
+            avg = (cuda_build.CSRC_DIR / "avg_update.cu").read_text()
+            assert re.search(r"solid_source_pick<kWall>\(\s*\[&\]\([^)]*\) "
+                             r"\{[^}]*\},\s*at, d,", avg)
+        return
+
+    # wall_stress: the neighbours read, in order
+    want = [cell(sh) for sh in re.findall(r"_roll\(solid, \(([^)]*)\)\)", plain)]
+    got = re.findall(r"flag_at\(([^)]*)\)", body)
+    assert len(want) == 5 and got == want
+    # the conditions: the ground stress with any wall model, the side stress
+    # with wall_sides and a positive Cd_sides
+    assert re.findall(r"if (config\.\w+(?: and config\.wall_cd_sides > 0\.0)?):",
+                      plain) == ["config.wall_model",
+                                 "config.wall_sides and config.wall_cd_sides > 0.0"]
+    assert re.findall(r"if \((kWall [=>]= \d(?: && cd_sides > 0\.0f)?)\)",
+                      body) == ["kWall == 0", "kWall == 2 && cd_sides > 0.0f"]
+
+    def py(expr):
+        for i, a in enumerate("xyz"):
+            expr = expr.replace(f"u[{i}]", f"u{a}")
+        return expr
+
+    roots = {k: py(v) for k, v in
+             re.findall(r"(\w+) = torch\.sqrt\(([^)]*)\)", plain)}
+    # the stress coefficients: (name, Cd, |u_t|'s squares)
+    want = [(n, cd.replace("wall_", ""), roots[r]) for n, cd, r in
+            re.findall(r"(cw\w*) = config\.(wall_cd\w*) \* g\w \* rho \* (\w+)",
+                       plain)]
+    got = re.findall(r"const float (cw\w*) = (?:g\w \? )?(cd\w*) \* rho \* "
+                     r"sqrtf\(([^)]*)\)", body)
+    assert len(want) == 3 and got == want
+    # the force updates
+    want = [(f"F{'xyz'[int(i)]}", py(e)) for i, e in
+            re.findall(r"F\[(\d)\] = F\[\d\] - ([^\n]*)", plain)]
+    got = re.findall(r"(F[xyz]) -= ([^;]*);", body)
+    assert len(want) == 5 and got == want
 
 
 def _tile_shapes() -> dict:
@@ -528,17 +595,18 @@ def _tile_shapes() -> dict:
 
 
 @pytest.mark.parametrize("family", ["THERMAL", "THERMAL_F32", "OTHER", "PLAIN",
-                                    "PLAIN_F32_FP16C"])
+                                    "PLAIN_F32_FP16C", "AVG", "AVG_WALL"])
 def test_every_tile_shape_fits_its_rings_and_the_sm(family):
     """Each family's compile-time shape (stream_collide_tiled.cuh's
-    LUW_TILE_*) keeps tile_ok's rules -- the flag ring's words and plain
-    bytes each have a thread -- and its flag ring of three planes with
-    their row shifts (static shared memory) fits a block's 48 KB, and
-    min_blocks blocks of it, with the 1 KB each that the system keeps, fit
-    the SM's 228 KB."""
+    LUW_TILE_*; AVG, AVG_WALL: K-AVG's without and with a wall model,
+    avg_update.cu) keeps tile_ok's rules -- the
+    flag ring's words and plain bytes each have a thread -- and its flag
+    ring of three planes with their row shifts (static shared memory) fits
+    a block's 48 KB, and min_blocks blocks of it, with the 1 KB each that
+    the system keeps, fit the SM's 228 KB."""
     shapes, consts = _tile_shapes()
     assert set(shapes) == {"THERMAL", "THERMAL_F32", "OTHER", "PLAIN",
-                           "PLAIN_F32_FP16C"}
+                           "PLAIN_F32_FP16C", "AVG", "AVG_WALL"}
     assert consts == {"kSmemStatic": 49152, "kSmemPerSm": 233472,
                       "kSmemReserved": 1024}
     tx, ty, kz, min_blocks, prefetch = shapes[family]
@@ -569,7 +637,9 @@ def test_wrappers_refuse_devices_without_a_kernel():
     """Only CPU (plain version) and CUDA (kernel) tensors are taken."""
     from latticeurbanwind_tpu_torch.lbm.state import Forcing, StepConfig
     from latticeurbanwind_tpu_torch.ops.avg_kernel import avg_update
-    from latticeurbanwind_tpu_torch.ops.stream_collide import stream_collide
+    from latticeurbanwind_tpu_torch.ops.stream_collide import (
+        FaceBC, stream_collide, vk_sites,
+    )
     from latticeurbanwind_tpu_torch.run.welford import init_avg
 
     cfg = StepConfig(omega=1.5, volume_force=False)
@@ -581,3 +651,10 @@ def test_wrappers_refuse_devices_without_a_kernel():
         stream_collide(fi, flags, row, cfg, Forcing())
     with pytest.raises(NotImplementedError, match="meta"):
         avg_update(fi, flags, row, 1.0, init_avg(shape, False, "meta"), cfg)
+    Z, Y, X = shape
+    face = torch.zeros((Z, 3, Y), device="meta")
+    fbc = FaceBC(uw=face, ue=face, us=face, un=face, ut=face, ub=face)
+    vk = {"sites": (("lane0", "uw"),),
+          "masks": {"uw": torch.zeros((Z, 1, Y), device="meta")}}
+    with pytest.raises(NotImplementedError, match="meta"):
+        vk_sites(fi, fbc, vk, "f32")

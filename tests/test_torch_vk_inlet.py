@@ -441,3 +441,195 @@ def test_runner_with_the_hook_matches_the_plain_loop():
     with pytest.raises(NotImplementedError, match="pure-DDF"):
         make_runner(tcfg, tf, shape=tuple(ts.flags.shape), device="cpu",
                     pre_step=lambda s, t: s)
+
+
+# ------------------------------------------- the site pass alone (vk_sites)
+
+
+def _port_site_case(storage, halo=False, seed=4):
+    """`_site_case` in the port, with random 0/1 masks on all six faces;
+    with `halo` also random z-halo planes and ghost widths (1, 1), as a
+    halo-mode slab (K8) of a split domain has them."""
+    from latticeurbanwind_tpu_torch.lbm.state import (
+        StepConfig, TYPE_S, ZHalo, dyn_row, encode_ddf,
+    )
+    from latticeurbanwind_tpu_torch.ops.stream_collide import build_face_bc
+
+    cfg, state, forcing, dyn = _site_case(storage)
+    ts = convert.state_from_jax(state)
+    Z, Y, X = ts.flags.shape
+    sites, masks = _random_spec((Z, Y, X), seed)
+    rng = np.random.default_rng(seed)
+    masks["ub"] = (rng.random((Y, X)) < .5).astype(np.float32)
+    spec = {"sites": sites + (("plane0", "ub"),),
+            "masks": {k: torch.from_numpy(v) for k, v in masks.items()}}
+    zh = None
+    if halo:
+        def ddf():
+            v = (0.01 * rng.standard_normal((5, Y, X))).astype(np.float32)
+            return encode_ddf(torch.from_numpy(v), storage)
+
+        def flag():
+            return torch.from_numpy(
+                np.where(rng.random((Y, X)) < .15, TYPE_S, 0).astype(np.uint8))
+
+        zh = ZHalo(fp=ddf(), fm=ddf(), flb=flag(), fla=flag(), gy=1, gx=1)
+    return (StepConfig(**dataclasses.asdict(cfg)), ts,
+            convert.forcing_from_jax(forcing),
+            dyn_row(convert.dyn_from_jax(dyn), "cpu"), build_face_bc(ts.u),
+            spec, zh)
+
+
+@pytest.mark.parametrize("halo", [False, True], ids=["box", "halo"])
+@pytest.mark.parametrize("storage", ["f32", "bf16", "f16", "fp16c"])
+def test_vk_sites_is_the_step_with_sites(storage, halo):
+    """The step with the sites is the step without them and then
+    `vk_sites` on its output, code for code, in every storage, with the
+    sites on all six faces -- and in a halo-mode slab on the box inside its
+    ghost layers (gy = gx = 1)."""
+    from latticeurbanwind_tpu_torch.lbm.state import raw_bits
+    from latticeurbanwind_tpu_torch.ops.stream_collide import (
+        stream_collide, vk_sites,
+    )
+
+    cfg, ts, frc, row, fbc, spec, zh = _port_site_case(storage, halo)
+    want = stream_collide(ts.fi, ts.flags, row, cfg, frc, fbc, vk=spec,
+                          halo=zh)
+    out = stream_collide(ts.fi, ts.flags, row, cfg, frc, fbc, halo=zh)
+    before = raw_bits(out).clone()
+    got = vk_sites(out, fbc, spec, storage, gy=zh.gy if halo else 0,
+                   gx=zh.gx if halo else 0)
+    assert got is out
+    assert torch.equal(raw_bits(got), raw_bits(want))
+    changed = raw_bits(got) != before
+    assert changed.any()
+    if halo:   # the ghost rows and columns keep the step's codes
+        assert not changed[:, :, [0, -1]].any()
+        assert not changed[:, :, :, [0, -1]].any()
+
+
+def test_vk_sites_refuses_a_spec_without_sites():
+    """A `vk` without sites is refused on every device before anything runs,
+    so each CUDA call that returns is one launch of the pass."""
+    from latticeurbanwind_tpu_torch.ops.stream_collide import vk_sites
+
+    cfg, ts, frc, row, fbc, spec, zh = _port_site_case("bf16", False)
+    out = ts.fi.clone()
+    with pytest.raises(ValueError, match="no site"):
+        vk_sites(out, fbc, {"sites": (), "masks": {}}, "bf16")
+    assert torch.equal(out.view(torch.int16), ts.fi.view(torch.int16))
+
+
+@pytest.mark.parametrize("storage,atol", [("f32", 6e-6), ("bf16", 2e-4)])
+def test_vk_sites_after_the_step_match_pallas(storage, atol):
+    """4 steps without sites, each followed by `vk_sites`, against
+    `make_pallas_step(vk=...)` (interpret mode) with random masks on five
+    faces over static targets, at the tolerances of
+    `test_plain_step_with_sites_matches_pallas`."""
+    import jax
+    import jax.numpy as jnp
+
+    from latticeurbanwind_tpu.lbm.state import decode_ddf as jdecode
+    from latticeurbanwind_tpu.ops.stream_collide import (
+        make_pallas_step, merge_state, split_state,
+    )
+    from latticeurbanwind_tpu_torch.lbm.state import StepConfig, dyn_row
+    from latticeurbanwind_tpu_torch.ops.stream_collide import (
+        build_face_bc, stream_collide_plain, vk_sites,
+    )
+
+    cfg, state, forcing, dyn = _site_case(storage)
+    shape = state.rho.shape
+    sites, m = _random_spec(shape)
+    spec_j = {"sites": sites, "masks": {k: jnp.asarray(v) for k, v in m.items()}}
+    spec_t = {"sites": sites, "masks": {k: torch.from_numpy(v) for k, v in m.items()}}
+    pstep = make_pallas_step(cfg, forcing, shape, vk=spec_j)
+
+    def advance(st, d):
+        s = split_state(st, with_fbc=True)
+        for _ in range(4):
+            s = pstep(s, d)
+        return merge_state(s)
+
+    want = np.asarray(jdecode(jax.jit(advance)(state, dyn).fi, storage))
+    ts = convert.state_from_jax(state)
+    tf = convert.forcing_from_jax(forcing)
+    row = dyn_row(convert.dyn_from_jax(dyn), "cpu")
+    tcfg = StepConfig(**dataclasses.asdict(cfg))
+    fbc = build_face_bc(ts.u)
+    fi = ts.fi
+    for _ in range(4):
+        fi = vk_sites(stream_collide_plain(fi, ts.flags, row, tcfg, tf, fbc),
+                      fbc, spec_t, storage)
+    got = convert.to_numpy(fi).astype(np.float32)
+    np.testing.assert_allclose(got, want.astype(np.float32), atol=atol)
+
+
+def _site_pass_cells(Z, Y, X, faces, gy=0, gx=0) -> list:
+    """The site pass's map from a thread's index along x to its cell, as
+    `vk_site_kernel` and `vk_faces` (csrc/stream_collide.cu) compute it for
+    the masked `faces` (FaceBC field names); each of the 19 directions
+    (the grid's y) runs over this list."""
+    m = {k: k in faces for k in ("uw", "ue", "us", "un", "ut", "ub")}
+    Yb, Xb = Y - 2 * gy, X - 2 * gx
+    nplanes = int(m["ub"]) + int(m["ut"] and (Z > 1 or not m["ub"]))
+    nrows = int(m["us"]) + int(m["un"] and (Yb > 1 or not m["us"]))
+    nlanes = int(m["uw"]) + int(m["ue"] and (Xb > 1 or not m["uw"]))
+    zlo, zhi = int(m["ub"]), Z - 1 if m["ut"] else Z
+    ylo, yhi = gy + int(m["us"]), Y - gy - 1 if m["un"] else Y - gy
+    nz, ny = max(zhi - zlo, 0), max(yhi - ylo, 0)
+    plane_cells, row_cells = nplanes * Yb * Xb, nrows * nz * Xb
+    cells = []
+    for i in range(plane_cells + row_cells + nz * ny * nlanes):
+        if i < plane_cells:
+            k, r = divmod(i, Yb * Xb)
+            cells.append((0 if k == 0 and m["ub"] else Z - 1, gy + r // Xb,
+                          gx + r % Xb))
+        elif i - plane_cells < row_cells:
+            k, r = divmod(i - plane_cells, nz * Xb)
+            cells.append((zlo + r // Xb, gy if k == 0 and m["us"] else Y - 1 - gy,
+                           gx + r % Xb))
+        else:
+            t, k = divmod(i - plane_cells - row_cells, nlanes)
+            cells.append((zlo + t // ny, ylo + t % ny,
+                          gx if k == 0 and m["uw"] else X - 1 - gx))
+    return cells
+
+
+@pytest.mark.parametrize("shape,gy,gx", [
+    ((1, 1, 1), 0, 0), ((1, 4, 5), 0, 0), ((2, 2, 2), 0, 0), ((3, 1, 4), 0, 0),
+    ((3, 4, 1), 0, 0), ((5, 6, 7), 0, 0), ((4, 5, 7), 1, 1), ((3, 3, 5), 1, 0),
+    ((3, 6, 5), 0, 2)])
+def test_site_pass_visits_every_masked_face_element_once(shape, gy, gx):
+    """For every set of masked faces, the site pass's threads (the list
+    `_site_pass_cells` mirrors, once per direction) take every cell of the
+    masked faces of the box gy / gx inside the y / x edges exactly once and
+    no other cell -- boxes thinner than 3 cells, where faces share or
+    coincide, included -- and the lanes' cells come in memory order (the
+    east cell of row y next to the west cell of row y + 1)."""
+    import itertools
+
+    Z, Y, X = shape
+    names = ("uw", "ue", "us", "un", "ut", "ub")
+    for r in range(1, 7):
+        for faces in itertools.combinations(names, r):
+            want = set()
+            for z, y, x in itertools.product(range(Z), range(gy, Y - gy),
+                                             range(gx, X - gx)):
+                if (("ub" in faces and z == 0) or ("ut" in faces and z == Z - 1)
+                        or ("us" in faces and y == gy)
+                        or ("un" in faces and y == Y - 1 - gy)
+                        or ("uw" in faces and x == gx)
+                        or ("ue" in faces and x == X - 1 - gx)):
+                    want.add((z, y, x))
+            got = _site_pass_cells(Z, Y, X, faces, gy, gx)
+            assert len(got) == len(set(got)), faces
+            assert set(got) == want, faces
+            # the lanes' cells (the last run) in memory order: the east
+            # cell of row y beside the west cell of row y + 1
+            lane_run = [c for c in got if c[0] not in (0, Z - 1)
+                        or not {"ub", "ut"} & set(faces)]
+            lane_run = [c for c in lane_run if c[1] not in (gy, Y - 1 - gy)
+                        or not {"us", "un"} & set(faces)]
+            flat = [(z * Y + y) * X + x for z, y, x in lane_run]
+            assert flat == sorted(flat), faces

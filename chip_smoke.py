@@ -6,6 +6,7 @@ Builds the port's CUDA kernels from `latticeurbanwind_tpu_torch/csrc/` (one
 nvcc per source, in parallel), then:
 
   1. prints the card (nvidia-smi name and power limit), torch/CUDA versions,
+     whether `import matplotlib` and `import PIL` work on the machine,
      the build time (each nvcc and the whole build + load) and every kernel
      instance's register count and spill bytes (the tiled body's families
      -- plain, wall models and TRT, thermal, each single-device and halo
@@ -98,16 +99,31 @@ nvcc per source, in parallel), then:
      final DDFs and raw VTKs equal to the unsplit run's, its averages within
      the K-AVG tolerance at cells that are not solid; on a machine with four
      cards also spread over them with `device="cuda"`, else one line says it
-     was not run), with its split step timed on the run's own state; then
+     was not run), with its split step timed on the run's own state; every
+     one of these runs writes its PNG snapshots at t = steps / 2 and steps
+     (the unsplit runs on the card's device path, the split ones on the host
+     path from the gathered fields), each timed, each with its `_3d.png`,
+     their sizes read from the PNG headers, and the solver seconds given
+     with and without them; then the resume phase (`resume-bf16-400`): the
+     same deck in two legs with a checkpoint every 200 steps, leg 1 split
+     [1, 2, 2] on card 0 for 200 steps without averaging (800 K8 launches,
+     a checkpoint of one block per shard), leg 2 unsplit resumed to 400
+     with no further save (200 K-SC, 50 K-AVG launches), its final DDF
+     codes, u, rho and VTKs
+     equal to `vk-bf16-400`'s (0 differing codes), with the save and load
+     seconds and the file's size; then
      the inlet-off deck for 100 steps and the inlet-on deck in fp16c for 200
      steps; then the same bf16 400-step deck with the wall models
      (`ground_z0 = 0.055`, `building_z0 = 0.01`: 400 K-SC launches, all
      with sites and all of the wall instances, 50 K-AVG, all wall; its raw u
      at t = 400 off the no-wall run's in the first fluid layer above open
-     ground by a mean |du| > 1e-3 m/s); then the dataset-generation example
+     ground by a mean |du| > 1e-3 m/s) and `frame_output = 200` (two
+     960x720 video frames, each timed); then the dataset-generation example
      `.luwdg` as it ships (`case_parallel = true`) at 2 m cells with its
-     first two cases, 300 steps each (600 K-SC, 60 K-AVG launches, the
-     serial-dispatch line, both cases' `DG_<u>_<a>_` outputs); then the
+     first two cases, 300 steps each, through the case-parallel batch
+     runner (one case per card, in turn on one card: 600 K-SC, 60 K-AVG
+     launches, its lines, both cases' `DG_<u>_<a>_` outputs, byte for byte
+     those of the same cases run serially on card 0); then the
      prepared NWP-coupled standard deck (`.luw`) at 3 m cells (1017x887x79 =
      71.3M cells) in bf16 as it ships, 300 steps (`nwp-t-bf16-300`: patch-2d
      boundary route, T on, VK inlet on, 300 K-SC launches, all thermal and
@@ -404,6 +420,12 @@ def phase_card() -> dict:
         raise AssertionError("float32 matmuls would run in TF32: the VK mode "
                              "sum needs full float32")
     log("float32 matmul precision: highest, allow_tf32 False")
+    # the snapshots are composed without matplotlib or PIL either way
+    # (io/png.py); whether this machine has them is recorded
+    for mod in ("matplotlib", "PIL"):
+        found = subprocess.run([sys.executable, "-c", f"import {mod}"],
+                               capture_output=True, timeout=120).returncode == 0
+        log(f"import {mod}: {'works' if found else 'fails'} on this machine")
     from latticeurbanwind_tpu_torch.utils import cuda_build
 
     t0 = time.perf_counter()
@@ -1678,15 +1700,93 @@ def read_launches() -> dict:
             "avg_update_wall": avg_update.launches_wall}
 
 
+@contextlib.contextmanager
+def timed_renders():
+    """Spies on the driver's snapshot and frame writers for the run inside:
+    each call's seconds on the host clock between two synchronisations of
+    the card, its file and its path ("device": the fields on the card;
+    "host": a split run's fields gathered to the host)."""
+    import latticeurbanwind_tpu_torch.run.driver as driver
+
+    renders = []
+    real = {"snapshot": driver.write_snapshot, "frame": driver.write_frame}
+
+    def spy(kind):
+        def call(state, out_path, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            path = real[kind](state, out_path, **kw)
+            torch.cuda.synchronize()
+            renders.append({"kind": kind, "file": Path(path).name,
+                            "seconds": time.perf_counter() - t0,
+                            "path": ("device" if state.u.device.type == "cuda"
+                                     else "host")})
+            return path
+        return call
+
+    driver.write_snapshot, driver.write_frame = spy("snapshot"), spy("frame")
+    try:
+        yield renders
+    finally:
+        driver.write_snapshot, driver.write_frame = real["snapshot"], real["frame"]
+
+
+def check_renders(tag: str, files: dict, renders: list, shape, nz_out: int,
+                  snaps=(), frames=(), frame_every: int = 0,
+                  path: str = "device") -> None:
+    """Every snapshot PNG (at the steps `snaps`) with its `_3d.png` beside
+    it, and every frame (at the steps `frames`) is among the run's files
+    (`files`: name -> path), written on
+    `path`, with the size its header gives: the panels 2 X + the Q
+    projection's X + two gaps wide and as high as the tallest panel, the
+    3-D images and the frames the camera's 960x720."""
+    from latticeurbanwind_tpu_torch.io.png import png_size
+    from latticeurbanwind_tpu_torch.run import snapshots
+
+    Z, Y, X = shape
+    cells = Z * Y * X
+    qs = (int(np.ceil((cells / snapshots.Q_MAX_CELLS) ** (1.0 / 3.0)))
+          if cells > snapshots.Q_MAX_CELLS else 1)
+    panels = (2 * X + -(-X // qs) + 2 * snapshots.PANEL_GAP,
+              max(Y, nz_out or Z, -(-Y // qs)))
+    want = {}
+    for t in snaps:
+        want[f"{DATETIME}_{t:09d}.png"] = panels
+        want[f"{DATETIME}_{t:09d}_3d.png"] = (960, 720)
+    for t in frames:
+        want[f"{DATETIME}_{t // frame_every:06d}.png"] = (960, 720)
+    # the driver lists a snapshot's PNG; its `_3d.png` lies beside it
+    files = dict(files)
+    for t in snaps:
+        base = files.get(f"{DATETIME}_{t:09d}.png")
+        third = base and base.with_name(f"{DATETIME}_{t:09d}_3d.png")
+        if third and third.exists():
+            files[third.name] = third
+    got = {name: png_size(files[name]) for name in want if name in files}
+    timed = sorted(r["file"] for r in renders)
+    paths = {r["path"] for r in renders}
+    log(f"[{tag}] renders: " + ", ".join(
+        f"{r['kind']} {r['file']} {r['seconds']:.3f} s ({r['path']})"
+        for r in renders) + "; PNG sizes " + ", ".join(
+        f"{k} {w}x{h}" for k, (w, h) in sorted(got.items())))
+    if got != want:
+        raise AssertionError(f"[{tag}] PNGs {got} != {want}")
+    if timed != sorted(k for k in want if not k.endswith("_3d.png")) or \
+            paths - {path}:
+        raise AssertionError(f"[{tag}] renders {renders} (want {path} path)")
+
+
 def run_example_deck(work: Path, tag: str, *, storage: str, steps: int,
                      vk: bool, walls=None, n_gpu=None, device=None,
-                     keep=False) -> dict:
+                     keep=False, frames=0) -> dict:
     """The example deck at 1.5 m, angle 0, through run_deck on the card,
     with the launch counts zeroed just before and read just after; `walls`
     are deck settings of the wall models (`ground_z0`, `building_z0`);
     `n_gpu` a split [Dx, Dy, Dz] (Dx = 1: every shard then owns inlet
-    sites), run on `device`; `keep` returns the final DDFs on the host and
-    the output files too."""
+    sites), run on `device`; `keep` returns the final DDFs, u and rho on the
+    host and the output files too; `frames` sets `frame_output`.  The
+    snapshots at steps / 2 and steps (and the frames) are checked and each
+    is timed (`timed_renders`)."""
     import latticeurbanwind_tpu_torch.run.modes as modes
     from latticeurbanwind_tpu_torch.deck import load_deck
     from latticeurbanwind_tpu_torch.io.vtk import read_structured_points
@@ -1710,6 +1810,8 @@ def run_example_deck(work: Path, tag: str, *, storage: str, steps: int,
     deck.set_int("run_nstep", steps)
     deck.set_int("unsteady_output", steps // 2)
     deck.set_int("purge_avg", purge)
+    if frames:
+        deck.set_int("frame_output", frames)
     deck.save()
 
     # record what the run builds for its inlet (configuration and runtime)
@@ -1737,8 +1839,9 @@ def run_example_deck(work: Path, tag: str, *, storage: str, steps: int,
         torch.cuda.reset_peak_memory_stats()
         zero_launches()
         t0 = time.perf_counter()
-        results = modes.run_deck(case / "conf.luwpf", device=device,
-                                 quiet=False)
+        with timed_renders() as renders:
+            results = modes.run_deck(case / "conf.luwpf", device=device,
+                                     quiet=False)
         wall = time.perf_counter() - t0
         launches = read_launches()
     finally:
@@ -1797,11 +1900,25 @@ def run_example_deck(work: Path, tag: str, *, storage: str, steps: int,
     log(f"[{tag}] _avg VTK: fields {sorted(fields)}, shape {u_avg.shape}, "
         f"finite at fluid cells, mean v = {float(u_avg[1][fluid].mean()):.3f} m/s")
 
+    frame_steps = range(frames, steps + 1, frames) if frames else ()
+    check_renders(tag, files, renders, shape, seen["case"].nz_out,
+                  snaps=(half, steps), frames=frame_steps, frame_every=frames,
+                  path="host" if n_gpu else "device")
+    render_s = sum(r.timing.get(f"{k}_seconds", 0.0) for k in ("snapshot", "frame"))
+    log(f"[{tag}] solver {r.solver_seconds:.2f} s with its snapshots and frames "
+        f"({r.timing.get('snapshot_seconds', 0.0):.2f} s snapshots, "
+        f"{r.timing.get('frame_seconds', 0.0):.2f} s frames), "
+        f"{r.solver_seconds - render_s:.2f} s without")
     out = {"launches": launches, "solver_seconds": r.solver_seconds,
+           "solver_seconds_without_renders": r.solver_seconds - render_s,
+           "snapshot_seconds": r.timing.get("snapshot_seconds", 0.0),
+           "frame_seconds": r.timing.get("frame_seconds", 0.0),
+           "renders": renders,
            "mlups": r.timing["mlups"], "wall": wall, "peak_gib": peak / 2**30,
            "raw_u": files[want[1]], "flags": r.state.flags.cpu()}
     if keep:
-        out.update(fi=r.state.fi.cpu(), files=files,
+        out.update(fi=r.state.fi.cpu(), u=r.state.u.cpu(), rho=r.state.rho.cpu(),
+                   files=files,
                    u_factor=seen["units"].si_u(1.0),
                    rho_factor=seen["units"].si_rho(1.0))
     if not vk:
@@ -1909,7 +2026,8 @@ def compare_split_deck(split: dict, main: dict, tag: str) -> dict:
 
     fi_same = torch.equal(split["fi"].view(torch.int16),
                           main["fi"].view(torch.int16))
-    a, b = split["files"], main["files"]        # name -> path
+    a, b = ({k: v for k, v in d["files"].items() if k.endswith(".vtk")}
+            for d in (split, main))             # name -> path
     if sorted(a) != sorted(b):
         raise AssertionError(f"[{tag}] outputs {sorted(a)} != {sorted(b)}")
     # the averages back in lattice units, where the tolerance is stated
@@ -1939,6 +2057,124 @@ def compare_split_deck(split: dict, main: dict, tag: str) -> dict:
     return {"fi_equal": fi_same, "raw_equal": raw_same, "avg_max_abs": avg_err}
 
 
+def run_resume_phase(work: Path, main: dict, tag: str = "resume-bf16-400") -> dict:
+    """The example deck at 1.5 m in bf16 as it ships, in two legs through
+    `run_deck` (`checkpoint_interval` is a `RunSettings` field, not a deck
+    key: set on the case the port builds, as the JAX package's tests set
+    it).  Leg 1: split n_gpu = SHARD_SPLIT on SHARD_DEVICE, 200 steps, no
+    averaging, a checkpoint every 200 steps; its checkpoint holds one block
+    per shard.  Leg 2: unsplit on DEVICE, resumed to 400 with the deck's own
+    settings and the interval past its end: one-thread `savez_compressed`
+    of the state with its accumulators at 400 would take this script
+    another two minutes.  Its final DDF codes, u and rho and every VTK (leg
+    1's raw u at 200 included) equal vk-bf16-400's (`main`)."""
+    import latticeurbanwind_tpu_torch.run.modes as modes
+    from latticeurbanwind_tpu_torch.deck import load_deck
+    from latticeurbanwind_tpu_torch.run.checkpoint import checkpoint_path
+
+    case = work / tag
+    shutil.copytree(EXAMPLE, case)
+    deck_path = case / "conf.luwpf"
+    ckpt = checkpoint_path(case, DATETIME)
+    real_run = modes.run_case
+    seen = {}
+
+    def run_spy(case_, **kw):
+        case_.settings.checkpoint_interval = seen["every"]
+        seen["case"] = case_
+        return real_run(case_, **kw)
+
+    legs = {}
+    modes.run_case = run_spy
+    try:
+        for leg, n_gpu, steps, purge, device, every in (
+                ("leg 1", SHARD_SPLIT, 200, 0, SHARD_DEVICE, 200),
+                ("leg 2", (1, 1, 1), 400, 100, DEVICE, 1000)):
+            seen["every"] = every
+            deck = load_deck(deck_path)
+            deck.set_float("cell_size", MAIN_CELL_M)
+            deck.set_text("lbm_storage", "bf16")
+            deck.set_list("angle", [0.0])
+            deck.set_raw("n_gpu", str(list(n_gpu)))
+            deck.set_int("run_nstep", steps)
+            deck.set_int("purge_avg", purge)
+            deck.save()
+            zero_launches()
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with timed_renders() as renders, contextlib.redirect_stdout(buf):
+                (r,) = modes.run_deck(deck_path, device=device, quiet=False)
+            wall = time.perf_counter() - t0
+            legs[leg] = {"r": r, "launches": read_launches(), "wall": wall,
+                         "printed": buf.getvalue(), "renders": renders,
+                         "nz_out": seen["case"].nz_out}
+            if leg == "leg 1":
+                with np.load(ckpt) as z:
+                    keys = list(z.files)
+                legs[leg]["ckpt_bytes"] = ckpt.stat().st_size
+                legs[leg]["fi_blocks"] = sum(k.startswith("fi@") for k in keys)
+                legs[leg]["fi_plain"] = "fi" in keys
+    finally:
+        modes.run_case = real_run
+
+    one, two = legs["leg 1"], legs["leg 2"]
+    r = two["r"]
+    log(one["printed"].rstrip())
+    log(two["printed"].rstrip())
+    shards = int(np.prod(SHARD_SPLIT))
+    expect = {
+        "leg 1": {"stream_collide": 200 * shards, "stream_collide_vk": 200 * shards,
+                  "stream_collide_wall": 0, "stream_collide_thermal": 0,
+                  "stream_collide_halo": 200 * shards, "avg_update": 0,
+                  "avg_update_wall": 0},
+        "leg 2": {"stream_collide": 200, "stream_collide_vk": 200,
+                  "stream_collide_wall": 0, "stream_collide_thermal": 0,
+                  "stream_collide_halo": 0, "avg_update": 50,
+                  "avg_update_wall": 0}}
+    for leg in legs:
+        if legs[leg]["launches"] != expect[leg]:
+            raise AssertionError(f"[{tag}] {leg} launches "
+                                 f"{legs[leg]['launches']} != {expect[leg]}")
+    if (one["fi_blocks"], one["fi_plain"]) != (shards, False):
+        raise AssertionError(f"[{tag}] leg 1's checkpoint: {one['fi_blocks']} fi "
+                             f"blocks, plain fi {one['fi_plain']}")
+    if "| Checkpoint      | resumed from step 200" not in two["printed"] or \
+            r.total_steps != 400:
+        raise AssertionError(f"[{tag}] leg 2 did not resume from step 200")
+    files = {f.name: f for f in [*one["r"].files, *r.files]}
+    for leg, snap in (("leg 1", 200), ("leg 2", 400)):
+        check_renders(f"{tag} {leg}", files, legs[leg]["renders"], MAIN_SHAPE,
+                      legs[leg]["nz_out"], snaps=(snap,),
+                      path="host" if leg == "leg 1" else "device")
+    differing = int((r.state.fi.cpu().view(torch.int16)
+                     != main["fi"].view(torch.int16)).sum())
+    same = {"u": torch.equal(r.state.u.cpu(), main["u"]),
+            "rho": torch.equal(r.state.rho.cpu(), main["rho"])}
+    vtks = sorted(k for k in main["files"] if k.endswith(".vtk"))
+    same.update({k: files[k].read_bytes() == main["files"][k].read_bytes()
+                 for k in vtks})
+    t1, t2 = one["r"].timing, r.timing
+    log(f"[{tag}] leg 1 ({list(SHARD_SPLIT)} on {SHARD_DEVICE}, 200 steps): "
+        f"checkpoint {one['ckpt_bytes'] / 2**20:.1f} MiB ({one['fi_blocks']} fi "
+        f"blocks), saved in {t1['checkpoint_save_seconds']:.2f} s; solver "
+        f"{one['r'].solver_seconds:.2f} s, whole run_deck {one['wall']:.1f} s. "
+        f"Leg 2 (unsplit, 200 -> 400): loaded in "
+        f"{t2['checkpoint_load_seconds']:.2f} s; solver {r.solver_seconds:.2f} s, "
+        f"whole run_deck {two['wall']:.1f} s. Against vk-bf16-400: "
+        f"{differing} differing DDF codes; " + ", ".join(
+            f"{k} {'equal' if v else 'DIFFER'}" for k, v in same.items()))
+    if differing or not all(same.values()):
+        raise AssertionError(f"[{tag}] the resumed run differs from vk-bf16-400")
+    return {"launches": {leg: legs[leg]["launches"] for leg in legs},
+            "checkpoint_bytes": one["ckpt_bytes"],
+            "save_seconds": t1["checkpoint_save_seconds"],
+            "load_seconds": t2["checkpoint_load_seconds"],
+            "solver_seconds": [one["r"].solver_seconds, r.solver_seconds],
+            "wall": [one["wall"], two["wall"]],
+            "renders": one["renders"] + two["renders"],
+            "differing_codes": differing, "equal": same}
+
+
 def first_layer_du(a: Path, b: Path, flags: torch.Tensor) -> float:
     """Mean |u_a - u_b| (m/s) of two raw u VTKs over the first fluid layer
     above open ground: the lowest fluid cell of every interior column whose
@@ -1961,67 +2197,103 @@ def first_layer_du(a: Path, b: Path, flags: torch.Tensor) -> float:
 
 
 def run_datagen_deck(work: Path, tag: str, *, storage: str, steps: int,
-                     cases: int) -> dict:
+                     cases: int, device=None, angles=None) -> dict:
     """The example `.luwdg` deck as it ships (`case_parallel = true`) at
-    2 m cells with its first `cases` cases, through run_deck on the card,
-    with the launch counts zeroed just before and read just after."""
+    2 m cells with its first `cases` cases, through run_deck on the card:
+    the case-parallel batch runner, one case per card (`device` "cuda": every
+    visible card), with the launch counts zeroed just before and read just
+    after; then the same cases with `case_parallel = false` through the
+    serial driver on card 0, whose files the batch's equal byte for byte.
+    `angles` replaces the deck's angles and keeps its first inflow."""
     import latticeurbanwind_tpu_torch.run.modes as modes
     from latticeurbanwind_tpu_torch.deck import load_deck
     from latticeurbanwind_tpu_torch.io.vtk import read_structured_points
+    from latticeurbanwind_tpu_torch.run.batch import case_devices
 
-    case = work / tag
-    shutil.copytree(EXAMPLE_DG, case)
-    deck = load_deck(case / "conf.luwdg")
-    if not deck.get_bool("case_parallel", False):
-        raise AssertionError("the example .luwdg deck does not set case_parallel")
-    deck.set_float("cell_size", DG_CELL_M)
-    deck.set_text("lbm_storage", storage)
-    deck.set_int("run_nstep", steps)
-    deck.save()
+    device = device or DEVICE
+    out = {}
+    for kind in ("case-parallel", "serial"):
+        case = work / f"{tag}-{kind}"
+        shutil.copytree(EXAMPLE_DG, case)
+        deck = load_deck(case / "conf.luwdg")
+        if not deck.get_bool("case_parallel", False):
+            raise AssertionError("the example .luwdg deck does not set case_parallel")
+        deck.set_float("cell_size", DG_CELL_M)
+        deck.set_text("lbm_storage", storage)
+        deck.set_int("run_nstep", steps)
+        if angles is not None:
+            deck.set_list("angle", list(angles))
+            deck.set_list("inflow", deck.get_float_list("inflow")[:1])
+        if kind == "serial":
+            deck.set_bool("case_parallel", False)
+        deck.save()
+        zero_launches()
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            results = modes.run_deck(
+                case / "conf.luwdg", quiet=False, max_cases=cases,
+                device=device if kind == "case-parallel"
+                else case_devices(device)[0])
+        out[kind] = {"results": results, "wall": time.perf_counter() - t0,
+                     "launches": read_launches(), "printed": buf.getvalue()}
+    par, serial = out["case-parallel"], out["serial"]
+    results, launches, printed = par["results"], par["launches"], par["printed"]
     purge = deck.get_int("purge_avg", 0)
-    zero_launches()
-    t0 = time.perf_counter()
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        results = modes.run_deck(case / "conf.luwdg", device=DEVICE, quiet=False,
-                                 max_cases=cases)
-    wall = time.perf_counter() - t0
-    launches = read_launches()
-    printed = buf.getvalue()
     log(printed.rstrip())
     shape = tuple(results[-1].state.rho.shape)
     log(f"[{tag}] {len(results)} cases, grid (Z, Y, X) = {shape}, "
         f"{np.prod(shape) / 1e6:.2f}M cells; launches {launches}; solver "
         + ", ".join(f"{r.solver_seconds:.2f} s ({r.timing['mlups']:.0f} MLUPs)"
-                    for r in results) + f"; whole run_deck {wall:.1f} s")
-    if "| Case-parallel   | one device: the cases run one after another" not in printed:
-        raise AssertionError(f"[{tag}] no serial-dispatch line")
+                    for r in results) + f"; whole run_deck {par['wall']:.1f} s "
+        f"(serial on {case_devices(device)[0]}: {serial['wall']:.1f} s)")
+    D = min(len(case_devices(device)), cases)
+    tier = "cuda" if torch.device(device).type == "cuda" else "plain"
+    line = (f"| Case-parallel   | {cases} cases over {D} device(s), tier={tier}, "
+            f"{steps} steps (avg window {purge} @ stride 2)")
+    if line not in printed or printed.count("| Case-parallel   | batch of ") \
+            != -(-cases // D):
+        raise AssertionError(f"[{tag}] no batch-runner lines ({line!r})")
     n_avg = purge // 2
     expect = {"stream_collide": cases * steps, "stream_collide_vk": 0,
               "stream_collide_wall": 0, "stream_collide_thermal": 0,
               "stream_collide_halo": 0,
               "avg_update": cases * n_avg, "avg_update_wall": 0}
-    if launches != expect:
-        raise AssertionError(f"[{tag}] launch counts {launches} != {expect}")
+    if D == 1 and launches != expect:     # threads on several cards may
+        raise AssertionError(                # lose counts to one another
+            f"[{tag}] launch counts {launches} != {expect}")
+    if serial["launches"] != expect:
+        raise AssertionError(f"[{tag}] serial launch counts "
+                             f"{serial['launches']} != {expect}")
     inflows = deck.get_float_list("inflow")
     angles = deck.get_float_list("angle")
     prefixes = [f"DG_{modes._format_tag(u)}_{modes._format_tag(a)}_"
                 for u in inflows for a in angles][:cases]
-    for r, prefix in zip(results, prefixes):
+    same = {}
+    for r, rs, prefix in zip(results, serial["results"], prefixes):
         names = sorted(f.name for f in r.files)
         want = [f"{prefix}{DATETIME}_{k}-{steps:09d}.vtk"
                 for k in ("avg", "raw_rho", "raw_u")]
-        if names != want:
+        if names != want or sorted(f.name for f in rs.files) != want:
             raise AssertionError(f"[{tag}] outputs {names} != {want}")
         _, fields = read_structured_points(r.files[-1])
         fluid = fields["fluid"] > 0.5
         if not all(np.isfinite(v[..., fluid]).all() for v in fields.values()):
             raise AssertionError(f"[{tag}] non-finite {prefix} averages")
+        theirs = {f.name: f for f in rs.files}
+        same.update({f.name: f.read_bytes() == theirs[f.name].read_bytes()
+                     for f in r.files})
     log(f"[{tag}] outputs of {prefixes}: raw u, raw rho and _avg each, "
-        "finite at fluid cells")
-    return {"launches": launches, "wall": wall,
+        "finite at fluid cells; against the serial run: " + ", ".join(
+            f"{k} {'equal' if v else 'DIFFER'}" for k, v in same.items()))
+    if not all(same.values()):
+        raise AssertionError(f"[{tag}] the case-parallel outputs differ from "
+                             "the serial run's")
+    return {"launches": launches, "wall": par["wall"],
+            "serial_wall": serial["wall"], "devices": D,
             "solver_seconds": [r.solver_seconds for r in results],
-            "mlups": [r.timing["mlups"] for r in results]}
+            "mlups": [r.timing["mlups"] for r in results],
+            "equal_to_serial": same}
 
 
 def run_nwp_deck(work: Path, tag: str, *, steps: int, thermal: bool) -> dict:
@@ -2194,8 +2466,10 @@ def phase_main_path(work: Path) -> dict:
         log(f"[vk-bf16-sharded-4cards] not run: {torch.cuda.device_count()} "
             f"card(s) visible, n_gpu={list(SHARD_SPLIT)} on device=\"cuda\" "
             f"needs {int(np.prod(SHARD_SPLIT))}")
+    torch.cuda.empty_cache()
+    resume = run_resume_phase(work, main)
     for p in (main, *paths.values()):
-        for k in ("fi", "files"):
+        for k in ("fi", "u", "rho", "files"):
             p.pop(k, None)
     torch.cuda.empty_cache()
     off = run_example_deck(work, "novk-bf16-100", storage="bf16", steps=100, vk=False)
@@ -2203,7 +2477,7 @@ def phase_main_path(work: Path) -> dict:
                              vk=True)
     wall = run_example_deck(work, "wall-vk-bf16-400", storage="bf16", steps=400,
                             vk=True, walls={"ground_z0": 0.055,
-                                            "building_z0": 0.01})
+                                            "building_z0": 0.01}, frames=200)
     du = first_layer_du(wall["raw_u"], main["raw_u"], wall["flags"])
     log(f"[wall-vk-bf16-400] raw u at t=400 against vk-bf16-400's in the first "
         f"fluid layer above open ground: mean |du| = {du:.4f} m/s")
@@ -2223,7 +2497,7 @@ def phase_main_path(work: Path) -> dict:
     for p in paths.values():
         p.pop("raw_u", None)
         p.pop("flags", None)
-    return {"paths": paths}
+    return {"paths": paths, "resume": resume}
 
 
 def main() -> int:
@@ -2388,7 +2662,12 @@ def main() -> int:
          "times_by_config": {k: v for k, v in timing["configs"].items()
                              if k.startswith("K-AVG")}},
     ], "build_s": card["build_s"], "nvcc_s": card["nvcc_s"],
-        "copy_gbps": timing["copy_gbps"]}
+        "copy_gbps": timing["copy_gbps"], "resume_phase": deck["resume"],
+        "renders": {k: {"renders": p["renders"],
+                        "solver_seconds": p["solver_seconds"],
+                        "solver_seconds_without_renders":
+                            p["solver_seconds_without_renders"]}
+                    for k, p in paths.items() if "renders" in p}}
     log(card["smi"])
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -90,6 +90,14 @@ def raw_bits(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.int16) if t.dtype == torch.uint16 else t
 
 
+def to_device(t: Optional[torch.Tensor], device) -> Optional[torch.Tensor]:
+    """An exact copy of `t` on `device` (fp16c codes through int16); None
+    and non-tensors pass through."""
+    if not isinstance(t, torch.Tensor):
+        return t
+    return raw_bits(t).to(device).view(t.dtype)
+
+
 def encode_ddf(x: torch.Tensor, storage: str) -> torch.Tensor:
     """fp32 DDF -> storage representation."""
     if storage == "f32":

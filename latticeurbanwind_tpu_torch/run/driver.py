@@ -13,7 +13,19 @@ loop, setup.cpp:4117-4911), with the same event schedule and outputs:
     JAX package) and accumulates `mean_T` too;
   * probe columns sampled over the averaging window at the averaging
     stride, all columns in one device-to-host readback per sample;
-  * unsteady raw u VTKs every `unsteady_output` steps;
+  * unsteady raw u VTKs every `unsteady_output` steps, each with a PNG
+    snapshot and its 3-D companion (`run/snapshots.py`,
+    `proj_temp/snapshots/<prefix><datetime>_<t:09d>[_3d].png`), and a
+    perspective video frame every `frame_output` steps
+    (`proj_temp/frames/<prefix><datetime>_<t // frame_output:06d>.png`);
+    both render on the fields' CUDA device, a split run's from its fields
+    gathered to the host;
+  * a checkpoint every `checkpoint_interval` steps
+    (`proj_temp/checkpoints/<prefix><datetime>.ckpt.npz`, `run/checkpoint.py`)
+    with the fields refreshed first; with `resume` an existing checkpoint
+    is loaded, the run goes on from its step (no calibration pair, no event
+    at or before it) with the saved accumulators, probe buffers and face
+    targets, and the VK hook's carried anchors follow from the step;
   * finalize: raw u/rho[/T] VTKs and `<prefix><datetime>_avg-<t>.vtk` with
     u_avg/rho_avg[/T_avg]/fluid + tke/TI/TLS (temperatures through the
     affine map back to Kelvin), the probe CSVs, and transform.info.
@@ -29,10 +41,8 @@ averaging pass is not taken (JAX `run_case` :346); probes read their columns
 from the shards that own them; outputs gather the fields to the host.
 MLUPs count the grid's cells, not the ghosts.  A split that does not divide
 the grid gives shards whose sizes differ by one cell (`DomainMesh.edges`,
-numpy.array_split's cuts).
-
-Not ported: checkpoints and video frames each raise when a case asks for
-them; PNG snapshots are left out with one printed line.
+numpy.array_split's cuts).  A checkpoint of a split run holds one block per
+shard and resumes under any split or none.
 """
 
 from __future__ import annotations
@@ -48,19 +58,24 @@ import torch
 from ..io.progress import ProgressEmitter
 from ..io.vtk import write_structured_points
 from ..lbm.fields import update_fields
-from ..lbm.state import DynParams, Forcing, LBMState, StepConfig, dyn_row
+from ..lbm.state import (
+    DynParams, Forcing, LBMState, StepConfig, dyn_row, to_device,
+)
 from ..lbm.stepper import make_runner
 from ..ops.avg_kernel import avg_update
+from ..ops.stream_collide import FaceBC
 from ..parallel.halo import make_sharded_runner, update_fields_sharded
 from ..parallel.mesh import (
     DomainMesh, ShardedState, column_reader, domain_mesh, gather_state,
-    gather_tensors, shard_state, sync,
+    gather_tensors, shard_state, shard_tensor, sync,
 )
 from ..units import Units
+from .checkpoint import checkpoint_path, load_checkpoint, load_fbc, save_checkpoint
 from .derived import derived_turbulence_fields
 from .info import RunInfo
 from .probes import GridProbe
 from .sizing import effective_ngpu
+from .snapshots import write_frame, write_snapshot
 from .welford import AvgState, init_avg, variance_sum_u, welford_update
 
 DEFAULT_RUN_STEPS = 20001
@@ -80,9 +95,10 @@ class RunSettings:
     purge_avg_stride: int = 1
     output_fields: Tuple[str, ...] = ("tke", "ti", "tls")
     chunk: int = 50                    # max steps between host checks
-    checkpoint_interval: int = 0       # not ported: must stay 0
-    snapshots: bool = True             # PNG snapshots: not ported, announced
-    frame_output: int = 0              # not ported: must stay 0
+    checkpoint_interval: int = 0       # save state every N steps (0 = off)
+    resume: bool = True                # resume from an existing checkpoint
+    snapshots: bool = True             # render PNG snapshots at unsteady events
+    frame_output: int = 0              # perspective video frame every N steps
 
 
 @dataclass
@@ -146,24 +162,14 @@ def _gather_avg(avgs: Tuple[AvgState, ...], mesh: DomainMesh) -> AvgState:
     return AvgState(avgs[0].count, *(part(k) for k in AvgState._fields[1:]))
 
 
-def _check_supported(case: SolverCase) -> None:
-    s = case.settings
-    if s.checkpoint_interval > 0:
-        raise NotImplementedError(
-            "checkpoints are not ported yet (ROADMAP module item 9)")
-    if s.frame_output > 0:
-        raise NotImplementedError(
-            "video frames are not ported yet (ROADMAP module item 10)")
-
-
 def run_case(case: SolverCase, *, quiet: bool = False) -> RunResult:
-    _check_supported(case)
     s = case.settings
     total_steps = (s.run_nstep if s.run_nstep > 0 else DEFAULT_RUN_STEPS) + max(s.research_output, 0)
     avg_window = min(s.purge_avg, total_steps) if s.purge_avg > 0 else 0
     avg_stride = max(1, s.purge_avg_stride)
     avg_start = total_steps - avg_window + 1 if avg_window else total_steps + 1
     unsteady = max(0, s.unsteady_output)
+    frames = max(0, s.frame_output)
     probe_window = avg_window if case.probes else 0
     probe_start = total_steps - probe_window + 1 if probe_window else total_steps + 1
 
@@ -172,6 +178,29 @@ def run_case(case: SolverCase, *, quiet: bool = False) -> RunResult:
     shape = tuple(state.rho.shape)
     progress = ProgressEmitter("solve")
     files: List[Path] = []
+
+    spent = {"checkpoint_load": 0.0, "checkpoint_save": 0.0,
+             "snapshot": 0.0, "frame": 0.0}
+    avg_samples = 0
+    resume_t = 0
+    avg_loaded = fbc_saved = None
+    ckpt_path = None
+    if s.checkpoint_interval > 0:
+        ckpt_path = checkpoint_path(case.parent, case.datetime, case.vtk_prefix)
+        if s.resume and ckpt_path.exists():
+            t_load = time.perf_counter()
+            try:
+                # host tensors: placed below on the run's device or split
+                # over its mesh, whatever mesh they were saved under
+                loaded, resume_t, avg_loaded, avg_samples, _ = load_checkpoint(
+                    ckpt_path, expect_shape=shape, probes=case.probes)
+                fbc_saved = load_fbc(ckpt_path)
+                state = loaded
+            except (ValueError, KeyError, OSError) as e:
+                print(f"| Checkpoint      | ignoring unreadable checkpoint: {e}")
+                resume_t = avg_samples = 0
+                avg_loaded = fbc_saved = None
+            spent["checkpoint_load"] = time.perf_counter() - t_load
 
     asked = case.device if case.device is not None else device
     split = effective_ngpu(case.ngpu, asked)
@@ -192,12 +221,25 @@ def run_case(case: SolverCase, *, quiet: bool = False) -> RunResult:
             print(f"| Device mesh     | n_gpu={list(case.ngpu)} requested, "
                   f"{torch.cuda.device_count()} device(s) visible — "
                   "single-device run")
+        if resume_t:
+            state = LBMState(*(to_device(a, device) for a in state))
         advance, impl_name = make_runner(case.config, case.forcing,
                                          shape=shape, device=device,
                                          pre_step=case.pre_step)
-    if unsteady and s.snapshots and not quiet:
-        print("| Snapshots       | PNG snapshots are not written by the "
-              "PyTorch port (ROADMAP module item 10)")
+    if fbc_saved is not None:
+        # the carried nudge/sponge face targets, so a VK run continues
+        # bit-exactly; a JAX checkpoint of a split run holds them padded
+        # with the JAX runner's ghosts, which this runner refuses: they then
+        # refresh at the next VK anchor, as in the JAX package after a
+        # change of mesh
+        home = mesh.devices[0] if mesh is not None else device
+        try:
+            advance.set_fbc(FaceBC(*(to_device(v, home) for v in fbc_saved)))
+        except ValueError as e:
+            print("| Checkpoint      | face targets not restored "
+                  f"({e}); they refresh at the next VK anchor")
+    if resume_t and not quiet:
+        print(f"| Checkpoint      | resumed from step {resume_t}")
 
     def refresh(st):
         if mesh is not None:
@@ -209,23 +251,52 @@ def run_case(case: SolverCase, *, quiet: bool = False) -> RunResult:
             return st.u.cpu()
         return gather_tensors([sh.u for sh in st.shards], mesh)
 
+    def render_view(st) -> LBMState:
+        """What the renderers read: the state itself, or a split run's u
+        and flags gathered to the host."""
+        if mesh is None:
+            return st
+        return LBMState(fi=None, rho=None, u=host_u(st), flags=gather_tensors(
+            [sh.flags for sh in st.shards], mesh))
+
+    def timed(kind: str, fn):
+        """fn()'s result, its host seconds (after the queued steps) added
+        to `spent[kind]`."""
+        _sync(state)
+        t_ev = time.perf_counter()
+        out = fn()
+        spent[kind] += time.perf_counter() - t_ev
+        return out
+
     events = set()
     if unsteady:
         events.update(range(unsteady, total_steps + 1, unsteady))
+    if frames:
+        events.update(range(frames, total_steps + 1, frames))
     if avg_window:
         events.update(range(avg_start, total_steps + 1, avg_stride))
     if probe_window:
         events.update(range(probe_start, total_steps + 1, avg_stride))
+    if ckpt_path is not None:
+        events.update(range(s.checkpoint_interval, total_steps + 1,
+                            s.checkpoint_interval))
     events.add(total_steps)
     event_list = sorted(events)
 
     avg = None       # under a mesh: one AvgState per shard, ghosts included
-    if avg_window:
+    if avg_loaded is not None:
+        if mesh is not None:
+            avg = tuple(AvgState(avg_loaded.count, *(
+                None if v is None else shard_tensor(v, mesh, i)
+                for v in avg_loaded[1:])) for i in range(mesh.n))
+        else:
+            avg = AvgState(avg_loaded.count, *(
+                to_device(v, device) for v in avg_loaded[1:]))
+    elif avg_window:
         avg = (tuple(init_avg(tuple(sh.rho.shape), case.thermal_output,
                               sh.rho.device) for sh in state.shards)
                if mesh is not None
                else init_avg(shape, case.thermal_output, device))
-    avg_samples = 0
     dyn_dev = dyn_row(case.dyn, device)
     # the fused averaging pass is non-thermal: a thermal run refreshes the
     # fields at every sample, and so does a sharded one (no K-AVG under a
@@ -260,10 +331,11 @@ def run_case(case: SolverCase, *, quiet: bool = False) -> RunResult:
                    storage=case.config.storage,
                    thermal=case.config.thermal)
 
-    t = 0
+    t = resume_t
     t0 = time.perf_counter()
-    avail = (event_list[0] if event_list else total_steps) - t
-    bench_steps = min(16, avail // 2, total_steps)
+    next_events = [e for e in event_list if e > t]
+    avail = (next_events[0] if next_events else total_steps) - t
+    bench_steps = 0 if t else min(16, avail // 2, total_steps)
     info.start(t)
     calibrated = False
     if bench_steps > 0:
@@ -290,6 +362,8 @@ def run_case(case: SolverCase, *, quiet: bool = False) -> RunResult:
     last_unsteady_t = -1
 
     for ev in event_list:
+        if ev <= resume_t:
+            continue   # handled before the interruption
         while t < ev:
             n = min(s.chunk, ev - t)
             state = advance(state, case.dyn, t, n)
@@ -309,9 +383,13 @@ def run_case(case: SolverCase, *, quiet: bool = False) -> RunResult:
                      and (t - avg_start) % avg_stride == 0)
         fires_probe = bool(case.probes and t >= probe_start
                            and (t - probe_start) % avg_stride == 0)
+        fires_unsteady = bool(unsteady and t % unsteady == 0 and t > 0
+                              and t != last_unsteady_t)
+        fires_frame = bool(frames and t % frames == 0 and t > 0)
+        fires_ckpt = bool(ckpt_path is not None
+                          and t % s.checkpoint_interval == 0 and t > resume_t)
         wants_fields = (
-            fires_probe
-            or (unsteady and t % unsteady == 0 and t > 0 and t != last_unsteady_t)
+            fires_probe or fires_unsteady or fires_frame or fires_ckpt
             or t == total_steps
             or (fires_avg and not avg_fused))
         if wants_fields:
@@ -334,9 +412,28 @@ def run_case(case: SolverCase, *, quiet: bool = False) -> RunResult:
             cols = read_columns(state)
             for pi, p in enumerate(case.probes):
                 p.sample_column(cols[:, :, pi], t * dt_si, u_factor)
-        if unsteady and t % unsteady == 0 and t > 0 and t != last_unsteady_t:
+        title = f"{case.vtk_prefix}{case.datetime} step {t}"
+        if fires_frame:
+            # per-event video frame (reference setup.cpp:4843-4861): PNG
+            # only, ffmpeg-ready numbering, perspective camera
+            frame = case.parent / "proj_temp" / "frames" / (
+                f"{case.vtk_prefix}{case.datetime}_{t // frames:06d}.png")
+            files.append(timed("frame", lambda: write_frame(
+                render_view(state), frame, nz_out=case.nz_out, title=title)))
+        if fires_unsteady:
             write_raw("u", host_u(state).numpy() * u_factor, t)
             last_unsteady_t = t
+            if s.snapshots:
+                snap = case.parent / "proj_temp" / "snapshots" / (
+                    f"{case.vtk_prefix}{case.datetime}_{t:09d}.png")
+                files.append(timed("snapshot", lambda: write_snapshot(
+                    render_view(state), snap, u_factor=u_factor,
+                    nz_out=case.nz_out, title=title)))
+        if fires_ckpt:
+            timed("checkpoint_save", lambda: save_checkpoint(
+                ckpt_path, state, step=t, avg=avg, avg_samples=avg_samples,
+                probes=case.probes, meta={"total_steps": total_steps},
+                fbc=advance.get_fbc()))
 
     _sync(state)
     solver_seconds = time.perf_counter() - t0
@@ -345,6 +442,13 @@ def run_case(case: SolverCase, *, quiet: bool = False) -> RunResult:
             time.perf_counter() - avg_phase_t0, 1e-9)
     timing["solver_seconds"] = solver_seconds
     timing["mlups"] = info.mlups()
+    # seconds of the solver's that went to writing snapshots, frames and
+    # checkpoints (host clock); the load precedes the solver's clock
+    for kind, on in (("snapshot", unsteady and s.snapshots), ("frame", frames),
+                     ("checkpoint_save", ckpt_path is not None),
+                     ("checkpoint_load", resume_t)):
+        if on:
+            timing[f"{kind}_seconds"] = spent[kind]
 
     if mesh is not None:
         state = gather_state(state)

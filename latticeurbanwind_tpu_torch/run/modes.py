@@ -20,10 +20,11 @@ splits each case over a mesh under the device rule of
 `parallel/mesh.py::domain_mesh`: `device="cuda"` puts shard i on card i
 (with fewer cards than Dx*Dy*Dz the case runs on one card, with the JAX
 package's "single-device run" line), `device="cuda:k"` puts every shard on
-card k, `device="cpu"` every shard on the CPU.  `case_parallel = true` runs
-the cases one after another on the devices the run has, as the JAX package
-does on one device; the case-parallel batch runner is ROADMAP module item
-10.  The wall models follow the deck's `ground_z0` / `building_z0`.
+card k, `device="cpu"` every shard on the CPU.  `case_parallel = true`
+collects the cases and runs them one per card (`run/batch.py`; "cuda"
+spreads them over every visible card, in turn on one), or, when the batch
+is not eligible, through the serial driver with the JAX package's printed
+reason.  The wall models follow the deck's `ground_z0` / `building_z0`.
 """
 
 from __future__ import annotations
@@ -167,11 +168,27 @@ def run_device(device: torch.device | str = "cuda") -> torch.device:
     return dev
 
 
-def _announce_serial_cases(deck, quiet: bool) -> None:
-    """`case_parallel` on the run's one device: the cases run in turn."""
-    if deck.get_bool("case_parallel", False) and not quiet:
-        print("| Case-parallel   | one device: the cases run one after another "
-              "(the case-parallel batch runner is ROADMAP module item 10)")
+def _flush_case_parallel(pending: List[SolverCase], results: List[RunResult],
+                         *, quiet: bool) -> List[RunResult]:
+    """Run the collected cases through the case-parallel batch runner, or
+    through the serial driver (with the reason) when the batch is not
+    eligible."""
+    if not pending:
+        return results
+    from .batch import case_parallel_unsupported, run_cases_case_parallel
+
+    reason = case_parallel_unsupported(pending)
+    if reason is None:
+        results.extend(run_cases_case_parallel(pending, quiet=quiet))
+    else:
+        if not quiet:
+            print(f"| Case-parallel   | falling back to serial: {reason}")
+        for case in pending:
+            if results:   # free the previous case's device memory first
+                results[-1].release_device_state()
+            results.append(run_case(case, quiet=quiet))
+    pending.clear()
+    return results
 
 
 def run_profile_mode(deck_path: Path | str, *,
@@ -185,7 +202,6 @@ def run_profile_mode(deck_path: Path | str, *,
     parent = deck_path.parent
     progress = ProgressEmitter("interface_interpolation")
 
-    _announce_serial_cases(deck, quiet)
     angles = deck.get_float_list("angle")
     if not angles:
         raise ValueError("profile mode requires angle=[...] in the deck")
@@ -249,6 +265,8 @@ def run_profile_mode(deck_path: Path | str, *,
     shape = (plan.nz, plan.ny, plan.nx)
     state_dev = setup_device(ngpu, dev)
     single = len(angles) == 1
+    case_parallel = deck.get_bool("case_parallel", False)
+    pending: List[SolverCase] = []
     results: List[RunResult] = []
     for idx, angle in enumerate(angles):
         if max_cases and idx >= max_cases:
@@ -316,8 +334,13 @@ def run_profile_mode(deck_path: Path | str, *,
             print(f"| Profile case    | {idx + 1}/{len(angles)} angle={angle} deg "
                   f"downstream={downstream} grid={plan.nx}x{plan.ny}x{plan.nz} "
                   f"cell={plan.cell_m:.2f} m device={dev}")
-        results.append(run_case(case, quiet=quiet))
-        results[-1].timing["voxelize_seconds"] = voxelize_seconds
+        if case_parallel:
+            pending.append(case)
+        else:
+            results.append(run_case(case, quiet=quiet))
+    results = _flush_case_parallel(pending, results, quiet=quiet)
+    for r in results:
+        r.timing["voxelize_seconds"] = voxelize_seconds
     return results
 
 
@@ -337,7 +360,6 @@ def run_datagen_mode(deck_path: Path | str, *,
     angles = deck.get_float_list("angle")
     if not inflows or not angles:
         raise ValueError("dataset generation requires inflow=[...] and angle=[...]")
-    _announce_serial_cases(deck, quiet)
     casename = deck.get_text("casename", "case")
     datetime_tag = deck.get_text("datetime", "00000000000000")
     si_size = si_size_from_deck(deck)
@@ -374,6 +396,8 @@ def run_datagen_mode(deck_path: Path | str, *,
     cases = [(inflow, angle) for inflow in inflows for angle in angles]
     if max_cases:
         cases = cases[:max_cases]
+    case_parallel = deck.get_bool("case_parallel", False)
+    pending: List[SolverCase] = []
     results: List[RunResult] = []
     for inflow, angle in cases:
         if results:   # free the previous case's device memory first
@@ -415,8 +439,13 @@ def run_datagen_mode(deck_path: Path | str, *,
             print(f"| DG case         | inflow={inflow} angle={angle} "
                   f"downstream={downstream} grid={plan.nx}x{plan.ny}x{plan.nz} "
                   f"device={dev}")
-        results.append(run_case(case, quiet=quiet))
-        results[-1].timing["voxelize_seconds"] = voxelize_seconds
+        if case_parallel:
+            pending.append(case)
+        else:
+            results.append(run_case(case, quiet=quiet))
+    results = _flush_case_parallel(pending, results, quiet=quiet)
+    for r in results:
+        r.timing["voxelize_seconds"] = voxelize_seconds
     return results
 
 

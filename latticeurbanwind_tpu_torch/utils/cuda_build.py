@@ -31,6 +31,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -151,11 +152,17 @@ def build() -> tuple[Path, str]:
     return lib, out
 
 
+_BUILD_LOCK = threading.Lock()
+
+
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """The kernels' shared library, built on first use, with every entry
-    point's argument types declared."""
-    path, _ = build()
+    point's argument types declared.  Threads that first use it together
+    (a case-parallel batch, one thread per card) build it once: the build
+    directory's object and temporary names are per process."""
+    with _BUILD_LOCK:
+        path, _ = build()
     lib = ctypes.CDLL(str(path))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)

@@ -11,8 +11,9 @@ kernels in interpret mode, as its own tests run them on the CPU, with
 port does.  Tolerances are those of tests/test_torch_vk_deck.py: u and u_avg
 1e-4 m/s, rho fields 1e-5 kg/m3, tke 1e-5 m2/s2, TI and TLS 1e-3 relative.
 
-With the deck's own `case_parallel = true` the port runs the same cases in
-turn on its one device, and its files are the serial run's bit for bit.
+With the deck's own `case_parallel = true` the port's batch runner runs the
+same cases on its one device in turn (batches of one), and its files are the
+serial run's bit for bit.
 """
 
 import shutil
@@ -88,14 +89,16 @@ def test_datagen_deck_matches_jax_pallas_tier(tmp_path, capsys):
             np.testing.assert_allclose(fg["data"], fw["data"], rtol=0, atol=tol,
                                        err_msg=name)
 
-    # case_parallel = true on one device: the same cases in turn, the same
-    # files bit for bit, and one line that says so
+    # case_parallel = true on one device: the batch runner's batches of one,
+    # the same files bit for bit, and its lines
     capsys.readouterr()
     batch = run_deck(_deck_copy(tmp_path / "batch", True), device="cpu",
                      quiet=False, max_cases=2)
     out = capsys.readouterr().out
-    assert "| Case-parallel   | one device: the cases run one after another" in out
-    assert "ROADMAP module item 10" in out
+    assert ("| Case-parallel   | 2 cases over 1 device(s), tier=plain, 40 steps "
+            "(avg window 10 @ stride 2)") in out
+    assert out.count("| Case-parallel   | batch of 1: ") == 2
+    assert [r.timing["case_parallel_batch"] for r in batch] == [1.0, 1.0]
     files = _vtks(batch)
     assert sorted(files) == sorted(got)
     for name, path in got.items():

@@ -89,6 +89,24 @@ nvcc per source, in parallel), then:
      single-device step, with its parts (the four K8 launches, the ghost
      exchange, the FaceBC refresh with its per-shard slices) by device time
      and host enqueue time;
+  4a. runs the pre-processing pipeline on this machine (`phase_pipeline`):
+     the port's `dispatch makeluw` on a copy of `examples/example_NWP-LBM`,
+     each stage timed, the made deck's values equal to
+     `examples/example_NWP-LBM_prepared/`'s, its SurfData CSV within 1e-6 of
+     each column's largest magnitude and its STL's vertices within 1e-4 m
+     (whether the bytes are equal too is printed); the made deck as it
+     ships (16 m cells, 300 steps, T on, VK inlet, one probe) through
+     `dispatch runluw` on the card (300 K-SC launches, all thermal and with
+     sites, counts zeroed just before and read just after), then `dispatch
+     vtk2nc` (every NetCDF finite, lon/lat inside the deck's cut box);
+     3,000 seeded footprints, a third of them overlapping, through luwcut
+     and luwvox, each timed; a seeded DEM of 5,000 lon/lat points through
+     luwdem and luwvox with `kriging_gpu`, the card's solve held to the
+     CPU's within 1e-3 m; `kriging_interpolate` alone at 100,489 targets
+     from 5,000 points, the host KNN and the card's solve timed apart, held
+     to the CPU solve within 1e-3 m; `luwenv`'s report; and `luwval`'s
+     `gpu_memory` writeback on a deck without `mesh_control`, 85% of the
+     card's memory;
   4. runs the example profile deck at 1.5 m cells (424x424x118 = 21.2M
      cells, one angle) through the port's `run_deck` as it ships, with the
      VK inlet on: bf16 for 400 steps (K-SC 400 launches with sites, K-AVG
@@ -124,7 +142,8 @@ nvcc per source, in parallel), then:
      runner (one case per card, in turn on one card: 600 K-SC, 60 K-AVG
      launches, its lines, both cases' `DG_<u>_<a>_` outputs, byte for byte
      those of the same cases run serially on card 0); then the
-     prepared NWP-coupled standard deck (`.luw`) at 3 m cells (1017x887x79 =
+     NWP-coupled standard deck (`.luw`) that phase 4a made, at 3 m cells
+     (1017x887x79 =
      71.3M cells) in bf16 as it ships, 300 steps (`nwp-t-bf16-300`: patch-2d
      boundary route, T on, VK inlet on, 300 K-SC launches, all thermal and
      all with sites, no K-AVG launch, `_raw_T` and `T_avg` finite and in the
@@ -162,6 +181,15 @@ REPO = Path(__file__).resolve().parent
 EXAMPLE = REPO / "examples" / "example_ProfileResearch_noDEM"
 EXAMPLE_DG = REPO / "examples" / "example_DatasetGen"
 EXAMPLE_NWP = REPO / "examples" / "example_NWP-LBM_prepared"
+EXAMPLE_NWP_RAW = REPO / "examples" / "example_NWP-LBM"   # makeluw's inputs
+NWP_PREPARED_FILES = ("conf.luw", "proj_temp/SurfData_20260101120000.csv",
+                      "proj_temp/NwpDemo_DG.stl")
+MADE_CSV_RTOL = 1e-6          # of each CSV column's largest magnitude
+MADE_STL_TOL_M = 1e-4
+DISTRICT_FOOTPRINTS = 3000
+DEM_POINTS = 5000
+KRIGING_SIDE = 317            # 317^2 = 100,489 kriging targets
+KRIGING_TOL_M = 1e-3          # card solve against the CPU solve, both float32
 STORAGES = ("f32", "bf16", "f16", "fp16c")
 # the JAX kernel's own tolerances against its reference
 # (tests/test_pallas_kernel.py), on decoded values
@@ -2296,8 +2324,10 @@ def run_datagen_deck(work: Path, tag: str, *, storage: str, steps: int,
             "equal_to_serial": same}
 
 
-def run_nwp_deck(work: Path, tag: str, *, steps: int, thermal: bool) -> dict:
-    """The prepared NWP-coupled standard deck (`.luw`) at 3 m cells in bf16,
+def run_nwp_deck(work: Path, tag: str, *, steps: int, thermal: bool,
+                 source: Path) -> dict:
+    """The prepared NWP-coupled standard deck (`.luw`, the case in `source`:
+    the pipeline phase's own makeluw output) at 3 m cells in bf16,
     otherwise as it ships (patch-2d boundary samples with a T column, VK
     inlet, Coriolis, nudging, top sponge, one probe column), through
     run_deck on the card with the launch counts zeroed just before and read
@@ -2312,7 +2342,7 @@ def run_nwp_deck(work: Path, tag: str, *, steps: int, thermal: bool) -> dict:
     from latticeurbanwind_tpu_torch.run.sizing import bytes_per_cell
 
     case = work / tag
-    shutil.copytree(EXAMPLE_NWP, case)
+    shutil.copytree(source, case)
     deck = load_deck(case / "conf.luw")
     if deck.get_int("run_nstep") != steps or deck.get_raw("probes") != "[center]":
         raise AssertionError("the prepared deck is not the one this phase expects")
@@ -2445,7 +2475,335 @@ def run_nwp_deck(work: Path, tag: str, *, steps: int, thermal: bool) -> dict:
     return out
 
 
-def phase_main_path(work: Path) -> dict:
+def run_dispatch(args) -> tuple:
+    """(exit code, printed text, wall seconds) of one command of the port's
+    dispatcher, run in this process with its output captured."""
+    from latticeurbanwind_tpu_torch.cli.dispatch import main as dispatch
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = dispatch(list(args))
+    return rc, buf.getvalue(), time.perf_counter() - t0
+
+
+def stage_seconds(printed: str) -> dict:
+    return {k: float(v) for k, v in
+            re.findall(r"\[(\w+)\] stage seconds: ([\d.]+)", printed)}
+
+
+def hold_made_files(made: Path) -> dict:
+    """The made deck's values equal the prepared example's; its SurfData
+    CSV's columns within MADE_CSV_RTOL of each column's largest magnitude;
+    its STL's vertices within MADE_STL_TOL_M.  Whether the bytes are equal
+    too is recorded (this machine's numpy and scipy may print a last digit
+    apart)."""
+    from latticeurbanwind_tpu_torch.deck import load_deck
+    from latticeurbanwind_tpu_torch.geometry import read_stl
+
+    same_bytes = {name: (made / name).read_bytes()
+                  == (EXAMPLE_NWP / name).read_bytes()
+                  for name in NWP_PREPARED_FILES}
+    got, want = load_deck(made / "conf.luw").to_dict(), \
+        load_deck(EXAMPLE_NWP / "conf.luw").to_dict()
+    if got != want:
+        diff = {k: (got.get(k), want.get(k)) for k in set(got) | set(want)
+                if got.get(k) != want.get(k)}
+        raise AssertionError(f"the made deck's values differ: {diff}")
+    csv = NWP_PREPARED_FILES[1]
+    heads = [(d / csv).read_text().split("\n", 1)[0] for d in (made, EXAMPLE_NWP)]
+    a = np.loadtxt(made / csv, delimiter=",", skiprows=1)
+    b = np.loadtxt(EXAMPLE_NWP / csv, delimiter=",", skiprows=1)
+    if heads[0] != heads[1] or a.shape != b.shape:
+        raise AssertionError(f"made CSV {heads[0]!r} {a.shape} against "
+                             f"{heads[1]!r} {b.shape}")
+    csv_rel = float((np.abs(a - b) / np.maximum(np.abs(b).max(axis=0), 1e-30)).max())
+    ta = read_stl(made / NWP_PREPARED_FILES[2]).tris.astype(np.float64)
+    tb = read_stl(EXAMPLE_NWP / NWP_PREPARED_FILES[2]).tris.astype(np.float64)
+    if ta.shape != tb.shape:
+        raise AssertionError(f"made STL {ta.shape} against {tb.shape}")
+    stl_m = float(np.abs(ta - tb).max())
+    log(f"[makeluw] made against examples/example_NWP-LBM_prepared: deck values "
+        f"equal; CSV {a.shape}, largest difference {csv_rel:.3g} of its "
+        f"column's scale (limit {MADE_CSV_RTOL}); STL {ta.shape[0]} triangles, "
+        f"vertices within {stl_m:.3g} m (limit {MADE_STL_TOL_M}); bytes equal: "
+        f"{same_bytes}")
+    if not (csv_rel <= MADE_CSV_RTOL and stl_m <= MADE_STL_TOL_M):
+        raise AssertionError("the made CSV or STL is off the prepared example")
+    return {"csv_rel_err": csv_rel, "stl_max_m": stl_m, "bytes_equal": same_bytes}
+
+
+def make_example(work: Path) -> tuple:
+    """(a) `dispatch makeluw` on a copy of examples/example_NWP-LBM, each
+    stage timed, the made files held to the prepared example."""
+    made = work / "nwp-made"
+    shutil.copytree(EXAMPLE_NWP_RAW, made)
+    rc, printed, wall = run_dispatch(["makeluw", str(made / "conf.luw"),
+                                      "--device", DEVICE])
+    log(printed.rstrip())
+    stages = stage_seconds(printed)
+    log(f"[makeluw] exit {rc}, {wall:.2f} s; seconds by stage {stages}")
+    if rc != 0 or len(stages) != 6:
+        raise AssertionError(f"makeluw failed: exit {rc}, stages {stages}")
+    return made, {"seconds": wall, "stage_seconds": stages,
+                  **hold_made_files(made)}
+
+
+def read_nc(path: Path) -> dict:
+    from scipy.io import netcdf_file
+
+    with netcdf_file(str(path), "r", mmap=False) as nc:
+        return {k: np.array(v[:]) for k, v in nc.variables.items()}
+
+
+def run_made_route(work: Path, made: Path) -> dict:
+    """(b) the made deck as it ships (16 m cells, 300 steps, T on, VK inlet,
+    one probe) through `dispatch runluw` on the card, the launch counts
+    zeroed just before and read just after, then `dispatch vtk2nc`: every
+    NetCDF parses back finite with its lon/lat inside the deck's cut box."""
+    from latticeurbanwind_tpu_torch.deck import load_deck
+
+    tag = "nwp-made-16m"
+    case = work / tag
+    shutil.copytree(made, case)
+    deck = load_deck(case / "conf.luw")
+    steps = deck.get_int("run_nstep")
+    zero_launches()
+    rc, printed, wall = run_dispatch(["runluw", str(case / "conf.luw"),
+                                      "--device", DEVICE])
+    launches = read_launches()
+    log(printed.rstrip())
+    expect = {"stream_collide": steps, "stream_collide_vk": steps,
+              "stream_collide_wall": 0, "stream_collide_thermal": steps,
+              "stream_collide_halo": 0, "avg_update": 0, "avg_update_wall": 0}
+    log(f"[{tag}] runluw exit {rc}, {wall:.2f} s, launches {launches}")
+    if rc != 0 or launches != expect:
+        raise AssertionError(f"[{tag}] runluw exit {rc}, launches {launches} "
+                             f"!= {expect}")
+    rc, printed, nc_wall = run_dispatch(["vtk2nc", str(case / "conf.luw")])
+    log(printed.rstrip())
+    ncs = sorted((case / "RESULTS").glob("*.nc"))
+    vtks = sorted((case / "RESULTS" / "vtk").glob("*.vtk"))
+    if rc != 0 or len(ncs) != len(vtks) or not ncs:
+        raise AssertionError(f"[{tag}] vtk2nc exit {rc}: {len(ncs)} NetCDF "
+                             f"for {len(vtks)} VTK")
+    lon_box, lat_box = deck.get_pair("cut_lon_manual"), deck.get_pair("cut_lat_manual")
+    shapes = {}
+    for path in ncs:
+        nc = read_nc(path)
+        for name, arr in nc.items():
+            if not np.isfinite(arr).all():
+                raise AssertionError(f"[{tag}] {path.name}: non-finite {name}")
+        if not (lon_box[0] <= nc["lon"].min() and nc["lon"].max() <= lon_box[1]
+                and lat_box[0] <= nc["lat"].min() and nc["lat"].max() <= lat_box[1]):
+            raise AssertionError(f"[{tag}] {path.name}: lon/lat outside the cut box")
+        shapes[path.name] = {k: list(v.shape) for k, v in nc.items()
+                             if k not in ("lon", "lat", "z")}
+    log(f"[{tag}] vtk2nc {nc_wall:.2f} s: {len(ncs)} NetCDF files, finite, "
+        f"lon/lat inside the cut box; variables {shapes}")
+    return {"launches": launches, "runluw_seconds": wall,
+            "vtk2nc_seconds": nc_wall, "netcdf": shapes}
+
+
+def district_rings(n: int, lon_box, lat_box, seed: int = 0):
+    """n seeded footprints (star-shaped rings of 4-8 vertices, ~6-12 m
+    across) inside the cut box; every third overlaps the one before it.
+    Returns (rings, heights)."""
+    rng = np.random.default_rng(seed)
+    size = 6e-5
+    rings, heights = [], []
+    for i in range(n):
+        if i % 3 == 2:
+            cx, cy = rings[-1].mean(axis=0) + rng.uniform(-0.8, 0.8, 2) * size
+        else:
+            cx = rng.uniform(lon_box[0] + 3 * size, lon_box[1] - 3 * size)
+            cy = rng.uniform(lat_box[0] + 3 * size, lat_box[1] - 3 * size)
+        k = int(rng.integers(4, 9))
+        ang = np.sort(rng.uniform(0, 2 * np.pi, k))
+        rad = size * rng.uniform(0.5, 1.0, k)
+        rings.append(np.stack([cx + rad * np.cos(ang), cy + rad * np.sin(ang)], 1))
+        heights.append(float(rng.uniform(8.0, 80.0)))
+    return rings, heights
+
+
+def hill(xy: np.ndarray, rng) -> np.ndarray:
+    """A 100 m Gaussian hill over the NWP example's box with 1 m of noise."""
+    return (100.0 * np.exp(-(((xy[:, 0] - 1500.0) / 700.0) ** 2
+                             + ((xy[:, 1] - 1300.0) / 600.0) ** 2))
+            + rng.normal(0.0, 1.0, len(xy)))
+
+
+def run_district(work: Path, made: Path) -> dict:
+    """(c) on another copy of the made case: DISTRICT_FOOTPRINTS seeded
+    footprints through luwcut and luwvox, each timed; a seeded DEM of
+    DEM_POINTS lon/lat points through luwdem and luwvox with `kriging_gpu`,
+    its card solve held to the CPU solve within KRIGING_TOL_M; and
+    kriging_interpolate alone at KRIGING_SIDE^2 targets from DEM_POINTS
+    points, the KNN and the solve timed apart."""
+    from latticeurbanwind_tpu_torch.deck import load_deck
+    from latticeurbanwind_tpu_torch.pre import terrain
+    from latticeurbanwind_tpu_torch.pre.shp_reader import write_polygon_shp
+
+    case = work / "district"
+    shutil.copytree(made, case)
+    deck_path = case / "conf.luw"
+    deck = load_deck(deck_path)
+    lon_box, lat_box = deck.get_pair("cut_lon_manual"), deck.get_pair("cut_lat_manual")
+    shutil.rmtree(case / "building_db")
+    for old in (case / "proj_temp").glob("*buildings*"):
+        old.unlink()                       # luwcut keeps a buildings.csv it finds
+    rings, heights = district_rings(DISTRICT_FOOTPRINTS, lon_box, lat_box)
+    (case / "building_db").mkdir()
+    write_polygon_shp(case / "building_db" / "district.shp", rings, heights=heights)
+    out, printed = {}, {}
+    for cmd, extra in (("luwcut", []), ("luwvox", ["--device", DEVICE])):
+        rc, printed[cmd], secs = run_dispatch([cmd, str(deck_path), *extra])
+        log(printed[cmd].rstrip())
+        log(f"[district] {cmd}: exit {rc}, {secs:.3f} s")
+        if rc != 0:
+            raise AssertionError(f"[district] {cmd} failed")
+        out[f"{cmd}_seconds"] = secs
+    cut = re.search(r"buildings\.csv: (\d+) footprints, (\d+) merged",
+                    printed["luwcut"])
+    if not cut or int(cut[1]) != DISTRICT_FOOTPRINTS or int(cut[2]) == 0:
+        raise AssertionError(f"[district] luwcut kept or merged too few: {cut}")
+    out["merged_into_clusters"] = int(cut[2])
+
+    rng = np.random.default_rng(7)
+    lon = rng.uniform(lon_box[0] - 0.002, lon_box[1] + 0.002, DEM_POINTS)
+    lat = rng.uniform(lat_box[0] - 0.002, lat_box[1] + 0.002, DEM_POINTS)
+    span = np.stack([(lon - lon.min()) / (lon.max() - lon.min()) * 3052.0,
+                     (lat - lat.min()) / (lat.max() - lat.min()) * 2660.0], 1)
+    (case / "database").mkdir()
+    np.savetxt(case / "database" / "hill_dem.csv",
+               np.column_stack([lon, lat, hill(span, rng)]), delimiter=",",
+               header="lon,lat,elev", comments="", fmt="%.8f")
+    deck.set_text("terr_voxel_approach", "kriging_gpu", quoted=True)
+    deck.save()
+    rc, text, secs = run_dispatch(["luwdem", str(deck_path)])
+    log(text.rstrip())
+    if rc != 0:
+        raise AssertionError("[district] luwdem failed")
+    out["luwdem_seconds"] = secs
+    dem = {}
+    for dev in (DEVICE, "cpu"):
+        rc, text, secs = run_dispatch(["luwvox", str(deck_path), "--device", dev])
+        log(text.rstrip())
+        if rc != 0 or "terrain: kriging_gpu" not in text:
+            raise AssertionError(f"[district] luwvox kriging_gpu on {dev} failed")
+        dem[dev] = np.loadtxt(case / "proj_temp" / "interpolated_dem.csv",
+                              delimiter=",", skiprows=1)
+        out[f"luwvox_kriging_gpu_{dev}_seconds"] = secs
+    dem_err = float(np.abs(dem[DEVICE] - dem["cpu"]).max())
+    log(f"[district] luwvox kriging_gpu: {len(dem['cpu'])} grid points, the "
+        f"{DEVICE} solve against the cpu solve within {dem_err:.3g} m (limit "
+        f"{KRIGING_TOL_M}); seconds {out}")
+    if not dem_err <= KRIGING_TOL_M:
+        raise AssertionError("[district] the card's kriging is off the CPU's")
+    out["dem_max_err_m"] = dem_err
+
+    # kriging_interpolate alone: the host KNN and the device solve apart
+    pts = np.random.default_rng(3).uniform(0, [3052.0, 2660.0], (DEM_POINTS, 2))
+    z = hill(pts, np.random.default_rng(4))
+    gx, gy = np.meshgrid(np.linspace(0, 3052.0, KRIGING_SIDE),
+                         np.linspace(0, 2660.0, KRIGING_SIDE))
+    targets = np.stack([gx.ravel(), gy.ravel()], axis=1)
+    spent, kept = {}, {}
+    real_knn, real_solve = terrain._knn, terrain.solve_systems
+
+    def knn_spy(*a, **kw):
+        t0 = time.perf_counter()
+        kept["knn"] = real_knn(*a, **kw)
+        spent["knn_s"] = time.perf_counter() - t0
+        return kept["knn"]
+
+    def solve_spy(A, b, device):
+        t0 = time.perf_counter()
+        sol = real_solve(A, b, device)      # returns on the host: synchronised
+        kind = torch.device(device).type
+        spent[f"solve_{kind}_s"] = time.perf_counter() - t0
+        kept["Ab"], kept[f"sol_{kind}"] = (A, b), sol
+        return sol
+
+    terrain._knn, terrain.solve_systems = knn_spy, solve_spy
+    try:
+        t0 = time.perf_counter()
+        est = terrain.kriging_interpolate(pts, z, targets, device=DEVICE)
+        spent["whole_s"] = time.perf_counter() - t0
+        terrain._knn = lambda *a, **kw: kept["knn"]      # the same neighbours
+        est_cpu = terrain.kriging_interpolate(pts, z, targets, device="cpu")
+    finally:
+        terrain._knn, terrain.solve_systems = real_knn, real_solve
+    A, b = kept["Ab"]
+    At = torch.as_tensor(A, dtype=torch.float32, device=DEVICE)
+    bt = torch.as_tensor(b, dtype=torch.float32, device=DEVICE).unsqueeze(-1)
+    spent["solve_events_ms"] = (cuda_ms(lambda: torch.linalg.solve_ex(At, bt), 5)
+                                if At.is_cuda else None)
+    err = float(np.abs(est - est_cpu).max())
+    sols = [kept[f"sol_{torch.device(d).type}"] for d in (DEVICE, "cpu")]
+    spent["weights_max_diff"] = float(np.abs(sols[0] - sols[1]).max())
+    spent["weights_differing"] = int((sols[0] != sols[1]).sum())
+    log(f"[kriging] {len(targets)} targets from {DEM_POINTS} points, "
+        f"{A.shape[1]}x{A.shape[2]} systems: KNN (host numpy) "
+        f"{spent['knn_s']:.3f} s, solve on {DEVICE} {spent.get('solve_cuda_s', spent.get('solve_cpu_s')):.3f} s "
+        f"with the copies (by events, solve_ex alone: {spent['solve_events_ms']} ms), "
+        f"whole call {spent['whole_s']:.3f} s; the same solve on the cpu "
+        f"{spent['solve_cpu_s']:.3f} s; estimates within {err:.3g} m of the cpu "
+        f"solve's (limit {KRIGING_TOL_M}); the weights {spent['weights_differing']} "
+        f"of {sols[0].size} apart, by at most {spent['weights_max_diff']:.3g}")
+    if not (np.isfinite(est).all() and err <= KRIGING_TOL_M):
+        raise AssertionError("[kriging] the card's solve is off the CPU's")
+    out["kriging"] = {"targets": len(targets), "points": DEM_POINTS, **spent,
+                      "max_err_m": err}
+    shutil.rmtree(case, ignore_errors=True)
+    return out
+
+
+def run_probes(work: Path, made: Path) -> dict:
+    """(d) luwenv's report, and luwval's gpu_memory writeback on a deck
+    without mesh_control beside the card's total memory."""
+    from latticeurbanwind_tpu_torch.deck import load_deck
+    from latticeurbanwind_tpu_torch.utils.accelerator import probe_cuda_environment
+
+    env = probe_cuda_environment()
+    log(f"[luwenv] {json.dumps(env)}")
+    case = work / "val"
+    shutil.copytree(made, case)
+    deck_path = case / "conf.luw"
+    deck_path.write_text(deck_path.read_text().replace('mesh_control = "cell_size"\n', ""))
+    rc, printed, _ = run_dispatch(["luwval", str(deck_path)])
+    log(printed.rstrip())
+    deck = load_deck(deck_path)
+    mib = deck.get_int("gpu_memory")
+    total = torch.cuda.get_device_properties(0).total_memory
+    want = int(total * 0.85 / 2**20)
+    log(f"[luwval] gpu_memory written {mib} MiB; the card's total "
+        f"{total / 2**20:.0f} MiB, 85% = {want} MiB; validation = "
+        f"{deck.get_text('validation')}")
+    if rc != 0 or mib != want or deck.get_text("validation") != "pass":
+        raise AssertionError("[luwval] the gpu_memory writeback or the gate failed")
+    shutil.rmtree(case, ignore_errors=True)
+    return {"luwenv": env, "gpu_memory_mib": mib, "total_mib": total / 2**20}
+
+
+def phase_pipeline(work: Path) -> tuple:
+    """The pre-processing pipeline on the card's machine: (made case,
+    results of (a)-(d))."""
+    log("== phase 4a: the pre-processing pipeline (makeluw -> runluw -> vtk2nc)")
+    t0 = time.perf_counter()
+    made, out = make_example(work)
+    out = {"makeluw": out}
+    out["route"] = run_made_route(work, made)
+    out["district"] = run_district(work, made)
+    out["probes"] = run_probes(work, made)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[pipeline] phase seconds {out['seconds']:.1f}")
+    return made, out
+
+
+def phase_main_path(work: Path, made: Path) -> dict:
+    """The decks through run_deck; the NWP decks from `made`, the pipeline
+    phase's makeluw output."""
     log("== phase 4: the example decks through run_deck")
     main = run_example_deck(work, "vk-bf16-400", storage="bf16", steps=400,
                             vk=True, keep=True)
@@ -2487,9 +2845,11 @@ def phase_main_path(work: Path) -> dict:
     wall["near_ground_du"] = du
     dg = run_datagen_deck(work, "dg-bf16-300", storage="bf16", steps=300, cases=2)
     torch.cuda.empty_cache()
-    nwp_t = run_nwp_deck(work, "nwp-t-bf16-300", steps=300, thermal=True)
+    nwp_t = run_nwp_deck(work, "nwp-t-bf16-300", steps=300, thermal=True,
+                         source=made)
     torch.cuda.empty_cache()
-    nwp = run_nwp_deck(work, "nwp-bf16-300", steps=300, thermal=False)
+    nwp = run_nwp_deck(work, "nwp-bf16-300", steps=300, thermal=False,
+                       source=made)
     paths.update({"vk-bf16-400": main, "novk-bf16-100": off,
                   "vk-fp16c-200": fp16c, "wall-vk-bf16-400": wall,
                   "dg-bf16-300": dg, "nwp-t-bf16-300": nwp_t,
@@ -2509,11 +2869,13 @@ def main() -> int:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_", dir=BUILD_DIR))
     try:
-        deck = phase_main_path(work)
+        made, pipeline = phase_pipeline(work)
+        deck = phase_main_path(work, made)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
     paths = deck["paths"]
+    paths["nwp-made-16m"] = pipeline["route"]
     by_path = {tag: p["launches"] for tag, p in paths.items()}
     # each kernel's launches on the deck path that runs it: the no-wall step
     # on the example deck as it ships, the wall step and K-AVG on it with
@@ -2663,6 +3025,7 @@ def main() -> int:
                              if k.startswith("K-AVG")}},
     ], "build_s": card["build_s"], "nvcc_s": card["nvcc_s"],
         "copy_gbps": timing["copy_gbps"], "resume_phase": deck["resume"],
+        "pipeline": pipeline,
         "renders": {k: {"renders": p["renders"],
                         "solver_seconds": p["solver_seconds"],
                         "solver_seconds_without_renders":

@@ -14,9 +14,12 @@ several devices is split over them: `--device cuda` puts shard i on card i
 `--device cpu` every shard on the CPU.  The deck runs as written, the VK
 synthetic-turbulence inlet, the wall models, the temperature sub-lattice
 and every `lbm_storage` included.  A `.luw` deck needs its prepared inputs
-(`proj_temp/SurfData_<datetime>.csv` and the case STL, which the JAX
-package's `makeluw` writes; `examples/example_NWP-LBM_prepared` holds a
-prepared copy of the NWP example).
+(`proj_temp/SurfData_<datetime>.csv` and the case STL), which the port's
+`makeluw` writes; `vtk2nc` then turns the averaged VTK into NetCDF:
+
+    python -m latticeurbanwind_tpu_torch.cli.dispatch makeluw conf.luw
+    python -m latticeurbanwind_tpu_torch.cli.dispatch runluw conf.luw
+    python -m latticeurbanwind_tpu_torch.cli.dispatch vtk2nc conf.luw
 """
 
 from __future__ import annotations

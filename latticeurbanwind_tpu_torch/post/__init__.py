@@ -1,1 +1,1 @@
-"""Post-processing helpers the run modes need (the grid <-> geographic transform)."""
+"""Post-processing: the grid <-> geographic transform and vtk2nc."""

@@ -1,1 +1,2 @@
-"""Pre-processing helpers the run modes need (the UTM projection)."""
+"""Pre-processing: the makeluw stages (WRF ingest, buildBC, footprint crop,
+DEM ingest, terrain and voxelization) and the UTM projection."""

@@ -1,1 +1,2 @@
-"""Build helpers: the CUDA kernel builder and the native C++ helpers."""
+"""Build and environment helpers: the CUDA kernel builder, the native C++
+helpers and the luwenv probe."""

@@ -2,6 +2,7 @@
 package, and the port's independence from jax."""
 
 import dataclasses
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -140,7 +141,11 @@ def test_port_never_imports_jax():
         "       'post.transform', 'pre.utm', 'parallel.mesh',\n"
         "       'parallel.halo', 'run.checkpoint', 'run.fieldvis',\n"
         "       'run.render', 'run.render_device', 'run.snapshots',\n"
-        "       'run.batch', 'io.png']\n"
+        "       'run.batch', 'io.png', 'pre.shp_reader', 'pre.buildbc',\n"
+        "       'pre.wrf_ingest', 'pre.shpcutter', 'pre.dem_ingest',\n"
+        "       'pre.terrain', 'pre.voxelization', 'cli.inspect_tools',\n"
+        "       'cli.validate', 'cli.clean', 'cli.makeluw', 'cli.dispatch',\n"
+        "       'utils.accelerator', 'post.vtk2nc']\n"
         "missing = [m for m in new if p.__name__ + '.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
         "print('ok', len(sys.modules))\n")
@@ -148,3 +153,12 @@ def test_port_never_imports_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok")
+    # nor does any function of the port import JAX, the JAX package,
+    # matplotlib or PIL when it runs (convert.py reads bfloat16 through
+    # ml_dtypes, for the tests, where the caller hands it JAX arrays)
+    lazy = re.compile(r"^\s*(?:import|from)\s+(?:jax|latticeurbanwind_tpu|"
+                      r"matplotlib|PIL)\b", re.M)
+    hits = [str(f.relative_to(REPO)) for f in
+            sorted((REPO / "latticeurbanwind_tpu_torch").rglob("*.py"))
+            if lazy.search(f.read_text())]
+    assert not hits, hits

@@ -154,6 +154,22 @@ nvcc per source, in parallel), then:
      configuration, forcing and inlet hook: K-SC without and with sites, the
      site pass alone, the FaceBC refresh and the whole step (refresh + K-SC), each by device time
      and by host enqueue time.
+  4b. the examples' routes through the port's dispatcher: before phase 4,
+     `dgprepare` on copies of `examples/example_ProfileResearch_noDEM` and
+     `examples/example_DatasetGen` with their proj_temp/*.stl removed, the
+     made STLs and decks byte for byte as the examples ship them, and
+     phase 4's profile and `.luwdg` decks run from these made cases; after
+     phase 4, each tool on the outputs the decks wrote, timed (`[post]
+     <command> seconds`): on `vk-bf16-400`'s, `luwutmnc` (the deck's copy
+     given a site, PROFILE_SITE), `luwcutvis` (a local crop), `luwtkeviz`
+     on the averaged VTK, `luwspectra` on the raw u VTK, `luwvideo` over
+     the raw series, `buildingscale`; `luwseason` on `dg-bf16-300`'s
+     averaged VTKs with a 16-row windrose and profile.dat, its u_avg held
+     to the cases weighted by its season_weights.csv; `visluw` on phase
+     4a's 16 m run; `visdem` on a seeded DEM grid, `shptester` on the NWP
+     example's footprints.  Every file a tool names must exist, every PNG
+     read back, every NetCDF variable be finite.  `luwaij` is not run (no
+     Case E workbook in the repository).
 
 The second-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero; so
@@ -180,6 +196,9 @@ import torch
 REPO = Path(__file__).resolve().parent
 EXAMPLE = REPO / "examples" / "example_ProfileResearch_noDEM"
 EXAMPLE_DG = REPO / "examples" / "example_DatasetGen"
+# the cases phase 4's profile and .luwdg decks copy: the shipped examples
+# until phase 4b's dgprepare step puts its own output here
+SOURCES = {"profile": EXAMPLE, "datagen": EXAMPLE_DG}
 EXAMPLE_NWP = REPO / "examples" / "example_NWP-LBM_prepared"
 EXAMPLE_NWP_RAW = REPO / "examples" / "example_NWP-LBM"   # makeluw's inputs
 NWP_PREPARED_FILES = ("conf.luw", "proj_temp/SurfData_20260101120000.csv",
@@ -1821,7 +1840,7 @@ def run_example_deck(work: Path, tag: str, *, storage: str, steps: int,
 
     device = device or DEVICE
     case = work / tag
-    shutil.copytree(EXAMPLE, case)
+    shutil.copytree(SOURCES["profile"], case)
     deck = load_deck(case / "conf.luwpf")
     if deck.get_raw("turb_inflow_enable") is not None:
         raise AssertionError("the example deck sets turb_inflow_enable")
@@ -2101,7 +2120,7 @@ def run_resume_phase(work: Path, main: dict, tag: str = "resume-bf16-400") -> di
     from latticeurbanwind_tpu_torch.run.checkpoint import checkpoint_path
 
     case = work / tag
-    shutil.copytree(EXAMPLE, case)
+    shutil.copytree(SOURCES["profile"], case)
     deck_path = case / "conf.luwpf"
     ckpt = checkpoint_path(case, DATETIME)
     real_run = modes.run_case
@@ -2242,7 +2261,7 @@ def run_datagen_deck(work: Path, tag: str, *, storage: str, steps: int,
     out = {}
     for kind in ("case-parallel", "serial"):
         case = work / f"{tag}-{kind}"
-        shutil.copytree(EXAMPLE_DG, case)
+        shutil.copytree(SOURCES["datagen"], case)
         deck = load_deck(case / "conf.luwdg")
         if not deck.get_bool("case_parallel", False):
             raise AssertionError("the example .luwdg deck does not set case_parallel")
@@ -2860,6 +2879,187 @@ def phase_main_path(work: Path, made: Path) -> dict:
     return {"paths": paths, "resume": resume}
 
 
+PREPARED = {"profile": ("conf.luwpf", "CityDemo_PF.stl"),
+            "datagen": ("conf.luwdg", "BlockDemo_DG.stl")}
+# a site for the profile case's copy that luwutmnc converts (the deck has no
+# geographic frame): the 636 m box at Niigata, the AIJ Case E city
+PROFILE_SITE = ('cut_lon_manual = [139.0400, 139.0480]\n'
+                'cut_lat_manual = [37.9170, 37.9230]\n'
+                'utm_crs = "EPSG:32654"\nrotate_deg = 0.0\n')
+WINDROSE_PROBS = (2, 2, 3, 3, 4, 5, 6, 8, 10, 14, 16, 11, 7, 4, 3, 2)
+SEASON_TOL = 1e-6
+
+
+def phase_dgprepare(work: Path) -> dict:
+    """Phase 4b, first half: the port's `dispatch dgprepare` on copies of
+    both examples with their proj_temp/*.stl removed; the made STL and deck
+    byte for byte as the examples ship them.  Phase 4's profile and .luwdg
+    decks then copy these made cases (SOURCES)."""
+    log("== phase 4b (1/2): dgprepare makes the profile and .luwdg cases")
+    out = {}
+    for kind, shipped in (("profile", EXAMPLE), ("datagen", EXAMPLE_DG)):
+        deck, stl = PREPARED[kind]
+        made = work / f"{kind}-made"
+        shutil.copytree(shipped, made)
+        for old in (made / "proj_temp").glob("*.stl"):
+            old.unlink()
+        rc, printed, secs = run_dispatch(["dgprepare", str(made / deck)])
+        log(printed.rstrip())
+        same = {rel: (made / rel).read_bytes() == (shipped / rel).read_bytes()
+                for rel in (deck, f"proj_temp/{stl}")}
+        log(f"[post] dgprepare seconds {secs:.3f} ({kind}: exit {rc}; byte for "
+            f"byte as shipped: {same})")
+        if rc != 0 or not all(same.values()):
+            raise AssertionError(f"[dgprepare] {kind}: exit {rc}, equal {same}")
+        SOURCES[kind] = made
+        out[kind] = {"seconds": secs, "equal_to_shipped": same}
+    return out
+
+
+def post_tool(seconds: dict, args, *, want=()) -> str:
+    """One tool through the dispatcher: it must exit 0 and write every
+    file in `want`; its seconds are logged as `[post] <command> seconds`."""
+    rc, printed, secs = run_dispatch([str(a) for a in args])
+    log(printed.rstrip())
+    cmd = str(args[0])
+    seconds[cmd] = seconds.get(cmd, 0.0) + secs
+    log(f"[post] {cmd} seconds {secs:.3f}")
+    missing = [str(p) for p in want if not Path(p).is_file()]
+    if rc != 0 or missing:
+        raise AssertionError(f"[post] {cmd} exit {rc}, missing {missing}")
+    return printed
+
+
+def hold_pngs(pngs) -> list:
+    from latticeurbanwind_tpu_torch.io.png import png_size
+
+    pngs = sorted(pngs)
+    sizes = [png_size(p) for p in pngs]
+    if not pngs or min(min(s) for s in sizes) < 1:
+        raise AssertionError(f"[post] PNGs {pngs} sizes {sizes}")
+    return sizes
+
+
+def hold_netcdf(ncs) -> dict:
+    shapes = {}
+    for path in ncs:
+        nc = read_nc(path)
+        for name, arr in nc.items():
+            if not np.isfinite(arr).all():
+                raise AssertionError(f"[post] {path.name}: non-finite {name}")
+        shapes[path.name] = {k: list(v.shape) for k, v in nc.items()}
+    if not shapes:
+        raise AssertionError("[post] no NetCDF written")
+    return shapes
+
+
+def season_against_cases(home: Path, dt: str) -> float:
+    """The largest |u_avg| of SEASON_<dt>_avg.vtk off the sum of the case
+    VTKs weighted by season_weights.csv (velocity weights), beside the
+    limit: SEASON_TOL plus what the CSV's 6 decimals may round away."""
+    from latticeurbanwind_tpu_torch.io.vtk import read_structured_points
+    from latticeurbanwind_tpu_torch.post.season_average import discover_directional_avgs
+
+    rows = np.loadtxt(home / "RESULTS" / "season_weights.csv", delimiter=",",
+                      skiprows=1, ndmin=2)
+    avgs = discover_directional_avgs(home, dt)
+    want, rounding = 0.0, 0.0
+    for angle, vw, _, _ in rows:
+        u = read_structured_points(avgs[float(angle)])[1]["u_avg"].astype(np.float64)
+        want = want + vw * u
+        rounding += 5e-7 * float(np.abs(u).max())
+    _, season = read_structured_points(home / "RESULTS" / "vtk" / f"SEASON_{dt}_avg.vtk")
+    err = float(np.abs(season["u_avg"] - want).max())
+    log(f"[luwseason] season u_avg against the cases weighted by "
+        f"season_weights.csv ({len(rows)} cases): max |diff| {err:.3g} m/s "
+        f"(limit {SEASON_TOL} + {rounding:.3g} for the CSV's rounding)")
+    if not err <= SEASON_TOL + rounding:
+        raise AssertionError(f"[luwseason] season u_avg off the weighted cases by {err}")
+    return err
+
+
+def phase_examples_post(work: Path, made: Path) -> dict:
+    """Phase 4b, second half: the post-processing tools through the port's
+    dispatcher on the outputs phase 4 and 4a's decks wrote, each timed."""
+    log("== phase 4b (2/2): the examples' post-processing routes")
+    t0 = time.perf_counter()
+    secs, out = {}, {}
+    # the profile route on vk-bf16-400's outputs
+    home = work / "vk-bf16-400"
+    deck = home / "conf.luwpf"
+    vtk = home / "RESULTS" / "vtk"
+    avg = vtk / f"{DATETIME}_avg-000000400.vtk"
+    raw = vtk / f"{DATETIME}_raw_u-000000400.vtk"
+    figs = home / "RESULTS" / "figures"
+    deck.write_text(deck.read_text() + PROFILE_SITE)
+    post_tool(secs, ["luwutmnc", deck, "--overwrite"],
+              want=[home / "RESULTS" / "nc_utm_asl" / f"{avg.stem}_utm_asl.nc"])
+    out["luwutmnc"] = hold_netcdf((home / "RESULTS" / "nc_utm_asl").glob("*.nc"))
+    post_tool(secs, ["luwcutvis", deck, "100", "536", "100", "536"],
+              want=[vtk / f"{avg.stem}_cropped.vtk",
+                    figs / f"{avg.stem}_wind9.png", figs / f"{avg.stem}_tke9.png"])
+    post_tool(secs, ["luwtkeviz", avg, "--out", home / "RESULTS" / "tke_viz"],
+              want=[home / "RESULTS" / "tke_viz" / f"{avg.stem}_{k}_layers.png"
+                    for k in ("wind", "tke")])
+    post_tool(secs, ["luwspectra", deck],
+              want=[figs / f"{raw.stem}_{k}" for k in
+                    ("Ek.csv", "Ek.png", "kxky_overview.png", "kxky_layers.csv")])
+    post_tool(secs, ["luwvideo", raw, "--out-dir", home / "video"],
+              want=[home / "video" / f"frame_{i:05d}.png" for i in range(2)])
+    printed = post_tool(secs, ["buildingscale", deck])
+    if "lambda_p" not in printed:
+        raise AssertionError("[post] buildingscale printed no statistics")
+    out["profile_pngs"] = len(hold_pngs([*figs.glob("*.png"),
+                                         *(home / "RESULTS" / "tke_viz").glob("*.png"),
+                                         *(home / "video").glob("*.png")]))
+    # the dataset-generation route on dg-bf16-300's averaged VTKs
+    home = work / "dg-bf16-300-case-parallel"
+    (home / "wind_bc").mkdir(exist_ok=True)
+    (home / "wind_bc" / "profile.dat").write_text("z,U\n1\t3.0\n10\t6.0\n100\t9.0\n")
+    from latticeurbanwind_tpu_torch.post.season_average import COMPASS
+
+    probs = np.array(WINDROSE_PROBS, float)
+    probs *= 100.0 / probs.sum()
+    rows = ["dir,C1_4_8"] + [f"{c},{p:.6f}" for c, p in zip(COMPASS, probs)]
+    (home / "wind_bc" / "windrose_10m.csv").write_text("\n".join(rows) + "\n")
+    post_tool(secs, ["luwseason", home / "conf.luwdg"],
+              want=[home / "RESULTS" / "vtk" / f"SEASON_{DATETIME}_avg.vtk",
+                    home / "RESULTS" / "season_weights.csv",
+                    home / "RESULTS" / "season_summary.txt",
+                    home / "RESULTS" / "figures" / f"season_{DATETIME}_wind.png"])
+    hold_pngs((home / "RESULTS" / "figures").glob("season_*.png"))
+    out["season_max_diff"] = season_against_cases(home, DATETIME)
+    # the flagship route's last step on phase 4a's 16 m run
+    home = work / "nwp-made-16m"
+    post_tool(secs, ["visluw", home / "conf.luw"])
+    out["visluw"] = hold_netcdf((home / "RESULTS").glob("*_visluw.nc"))
+    out["visluw_pngs"] = len(hold_pngs((home / "RESULTS" / "sections").glob("wind_*m.png")))
+    # visdem on a seeded DEM grid, shptester on phase 4a's footprints
+    rng = np.random.default_rng(0)
+    xs, ys = np.meshgrid(np.arange(0.0, 2000.0, 10.0), np.arange(0.0, 1500.0, 10.0))
+    z = (40.0 + 25.0 * np.exp(-((xs - 900) ** 2 + (ys - 700) ** 2) / 3e5)
+         + rng.normal(0.0, 0.5, xs.shape))
+    dem = work / "dem" / "interpolated_dem.csv"
+    dem.parent.mkdir()
+    np.savetxt(dem, np.column_stack([xs.ravel(), ys.ravel(), z.ravel()]),
+               delimiter=",", header="x,y,z", comments="")
+    post_tool(secs, ["visdem", dem, work / "dem" / "dem.png"],
+              want=[work / "dem" / "dem.png"])
+    hold_pngs([work / "dem" / "dem.png"])
+    shp = sorted((made / "building_db").glob("*.shp"))
+    printed = post_tool(secs, ["shptester", shp[0]])
+    if "records:" not in printed:
+        raise AssertionError("[post] shptester printed no report")
+    log("[post] luwaij not run: the AIJ Case E workbook is not in the "
+        "repository (tests/test_aij_validation.py:21), so no deck has its "
+        "measurements to compare with")
+    out["seconds"] = secs
+    out["phase_seconds"] = time.perf_counter() - t0
+    log(f"[post] phase 4b seconds {out['phase_seconds']:.1f}: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in secs.items()))
+    return out
+
+
 def main() -> int:
     card = phase_card()
     from latticeurbanwind_tpu_torch.utils.cuda_build import BUILD_DIR
@@ -2870,7 +3070,10 @@ def main() -> int:
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_", dir=BUILD_DIR))
     try:
         made, pipeline = phase_pipeline(work)
+        prepared = phase_dgprepare(work)
         deck = phase_main_path(work, made)
+        examples = phase_examples_post(work, made)
+        examples["dgprepare"] = prepared
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3025,7 +3228,7 @@ def main() -> int:
                              if k.startswith("K-AVG")}},
     ], "build_s": card["build_s"], "nvcc_s": card["nvcc_s"],
         "copy_gbps": timing["copy_gbps"], "resume_phase": deck["resume"],
-        "pipeline": pipeline,
+        "pipeline": pipeline, "examples": examples,
         "renders": {k: {"renders": p["renders"],
                         "solver_seconds": p["solver_seconds"],
                         "solver_seconds_without_renders":

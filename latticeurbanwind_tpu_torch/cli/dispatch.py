@@ -2,13 +2,17 @@
 
 `python -m latticeurbanwind_tpu_torch.cli.dispatch <command> [args...]`
 
-The counterpart of `latticeurbanwind_tpu/cli/dispatch.py` for the commands
-the port carries, each a module of the port: the pre-processing pipeline
-(`makeluw` and its stages), the solver (`runluw`, the port's `cli/run.py`),
-`vtk2nc` and `luwenv`.  Any other command, among them the JAX package's
-post-processing and GUI commands that the port does not carry yet, is
-"Unknown" with the list.  `makeluw`, `luwvox` and `runluw` take `--device`
-(default cuda; `cpu` runs on the CPU).
+The counterpart of `latticeurbanwind_tpu/cli/dispatch.py`: every command
+of the JAX package but the studio (`luwstudio`, which is "Unknown" with the
+list, as any other name), each a module of the port — the pre-processing
+pipeline (`makeluw` and its stages, `dgprepare`), the solver (`runluw`, the
+port's `cli/run.py`) and the post-processing tools.  `makeluw`, `luwvox`
+and `runluw` take `--device` (default cuda; `cpu` runs on the CPU); every
+other tool is host numpy.  The examples' routes:
+
+    dispatch dgprepare conf.luwpf; dispatch runluw conf.luwpf; dispatch vtk2nc conf.luwpf
+    dispatch dgprepare conf.luwdg; dispatch runluw conf.luwdg; dispatch luwseason conf.luwdg
+    dispatch makeluw conf.luw; dispatch runluw conf.luw; dispatch vtk2nc conf.luw; dispatch visluw conf.luw
 """
 
 from __future__ import annotations
@@ -40,6 +44,18 @@ COMMANDS = {
     "cleanluw": _lazy(f"{PKG}.cli.clean"),
     "luwenv": _lazy(f"{PKG}.utils.accelerator"),
     "vtk2nc": _lazy(f"{PKG}.post.vtk2nc"),
+    "dgprepare": _lazy(f"{PKG}.pre.dgprepare"),
+    "buildingscale": _lazy(f"{PKG}.post.buildingscale"),
+    "visluw": _lazy(f"{PKG}.post.visluw"),
+    "luwutmnc": _lazy(f"{PKG}.post.vtk_avg_to_utm_asl_nc"),
+    "luwcutvis": _lazy(f"{PKG}.post.cut_vis"),
+    "luwseason": _lazy(f"{PKG}.post.season_average"),
+    "luwspectra": _lazy(f"{PKG}.post.les_spectra"),
+    "luwtkeviz": _lazy(f"{PKG}.post.tke_viz"),
+    "luwaij": _lazy(f"{PKG}.post.aij_casee"),
+    "luwvideo": _lazy(f"{PKG}.post.video"),
+    "visdem": _lazy(f"{PKG}.cli.dem_shp_tools", "visdem_main"),
+    "shptester": _lazy(f"{PKG}.cli.dem_shp_tools", "shptester_main"),
 }
 
 

@@ -5,6 +5,9 @@ profile (.luwpf) or dataset-generation (.luwdg) deck.
     python -m latticeurbanwind_tpu_torch.cli.run conf.luwpf
     python -m latticeurbanwind_tpu_torch.cli.run conf.luwdg --device cpu
 
+A `.luw` deck runs only when its `validation` is `pass` (`luwval` writes
+it), unless `--force` is given; `.luwpf` and `.luwdg` decks are not gated.
+
 Counterpart of `latticeurbanwind_tpu/cli/run.py`.  There is no --impl
 switch: the run goes to the CUDA device (the hand-written kernels, built on
 first use) and raises when there is none; `--device cpu` runs the kernels'
@@ -37,14 +40,25 @@ def main(argv=None) -> int:
                              "present; cpu runs the plain versions); an "
                              "n_gpu deck's shards go to card i under cuda, "
                              "all to card k under cuda:k")
+    parser.add_argument("--force", action="store_true",
+                        help="skip the prerun validation gate")
     parser.add_argument("--max-cases", type=int, default=0,
                         help="run only the first N cases")
     parser.add_argument("--quiet", action="store_true")
     args = parser.parse_args(argv)
 
+    from ..deck import deck_mode_from_path, load_deck
     from ..run.modes import run_deck
 
-    results = run_deck(Path(args.deck).expanduser().resolve(),
+    deck_path = Path(args.deck).expanduser().resolve()
+    if deck_mode_from_path(deck_path) == "luw" and not args.force:
+        status = (load_deck(deck_path).get_text("validation") or "").lower()
+        if status != "pass":
+            print(f"ERROR: deck validation status is '{status or 'missing'}' "
+                  "(run luwval first, or pass --force)")
+            return 1
+
+    results = run_deck(deck_path,
                        device=args.device, quiet=args.quiet,
                        max_cases=args.max_cases)
     total = sum(r.solver_seconds for r in results)

@@ -255,21 +255,49 @@ def make_initial_state(
     T: Optional[np.ndarray] = None,
     device: torch.device | str = "cpu",
 ) -> LBMState:
-    """DDFs at equilibrium from (rho, u[, T]) — the reference initialize
-    kernel (kernel.cpp:1370).  The equilibria are built on `device` one
-    direction at a time, so the transient footprint is one fp32 plane set.
-    A thermal configuration also gets the D3Q7 populations `gi` at
-    g_eq(T, u) and `T` (ones when none is given)."""
+    """DDFs at equilibrium from host arrays (rho, u[, T]) — the reference
+    initialize kernel (kernel.cpp:1370): the arrays are copied to `device`
+    and `equilibrium_state` builds the equilibria there."""
+    dev = torch.device(device)
+
+    def put(a, dtype):
+        return None if a is None else torch.tensor(np.asarray(a, dtype), device=dev)
+
+    return equilibrium_state(shape, config=config, rho=put(rho, np.float32),
+                             u=put(u, np.float32), flags=put(flags, np.uint8),
+                             T=put(T, np.float32), device=dev)
+
+
+def equilibrium_state(
+    shape,  # (Z, Y, X)
+    *,
+    config: StepConfig,
+    device: torch.device | str,
+    rho: Optional[torch.Tensor] = None,
+    u: Optional[torch.Tensor] = None,
+    flags: Optional[torch.Tensor] = None,
+    T: Optional[torch.Tensor] = None,
+) -> LBMState:
+    """DDFs at equilibrium built on `device` from tensors there (rho = 1,
+    u = 0, flags = 0 and T = 1 where not given; a tensor elsewhere is
+    moved).  Counterpart of the JAX package's `equilibrium_state` (the
+    on-device twin of `make_initial_state`): only (rho, u, flags[, T]) need
+    be on the device, and the equilibria are built there one direction at
+    a time, so the transient footprint is one fp32 plane set.  A thermal
+    configuration also gets the D3Q7 populations `gi` at g_eq(T, u)."""
     from .lattice import C7, W7
 
     Z, Y, X = (int(v) for v in shape)
     dev = torch.device(device)
-    rho_t = (torch.ones((Z, Y, X), dtype=torch.float32, device=dev) if rho is None
-             else torch.tensor(np.asarray(rho, np.float32), device=dev))
-    u_t = (torch.zeros((3, Z, Y, X), dtype=torch.float32, device=dev) if u is None
-           else torch.tensor(np.asarray(u, np.float32), device=dev))
-    flags_t = (torch.zeros((Z, Y, X), dtype=torch.uint8, device=dev) if flags is None
-               else torch.tensor(np.asarray(flags, np.uint8), device=dev))
+
+    def field(t, lead, dtype, fill):
+        if t is None:
+            return torch.full((*lead, Z, Y, X), fill, dtype=dtype, device=dev)
+        return torch.as_tensor(t).to(device=dev, dtype=dtype)
+
+    rho_t = field(rho, (), torch.float32, 1.0)
+    u_t = field(u, (3,), torch.float32, 0.0)
+    flags_t = field(flags, (), torch.uint8, 0)
     scale = FP16_SCALE if config.storage == "f16" else 1.0
     fi = torch.empty((19, Z, Y, X), dtype=storage_dtype(config.storage),
                      device=dev)
@@ -283,8 +311,7 @@ def make_initial_state(
         store(fi, d, feq)
     if not config.thermal:
         return LBMState(fi=fi, rho=rho_t, u=u_t, flags=flags_t)
-    T_t = (torch.ones((Z, Y, X), dtype=torch.float32, device=dev) if T is None
-           else torch.tensor(np.asarray(T, np.float32), device=dev))
+    T_t = field(T, (), torch.float32, 1.0)
     gi = torch.empty((7, Z, Y, X), dtype=fi.dtype, device=dev)
     for d in range(7):
         cx, cy, cz = (int(v) for v in C7[d])

@@ -131,3 +131,11 @@ def make_runner(config: StepConfig, forcing: Forcing = Forcing(), *,
     # pure-DDF stepping on every device: rho/u/T stay stale until refreshed
     run.fields_stale = True
     return run, ("cuda" if dev.type == "cuda" else "plain")
+
+
+def make_bench_runner(config: StepConfig, *, shape: Tuple[int, int, int],
+                      device: torch.device | str):
+    """`make_runner` with no forcing (`Forcing()`), as the JAX package's
+    `make_bench_runner` is: `run(state, dyn, 0, n_steps)` steps a bare
+    lattice."""
+    return make_runner(config, Forcing(), shape=shape, device=device)

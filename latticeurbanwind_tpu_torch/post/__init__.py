@@ -1,1 +1,3 @@
-"""Post-processing: the grid <-> geographic transform and vtk2nc."""
+"""Post-processing: the grid <-> geographic transform, vtk2nc and the tools
+that read a run's VTKs (visluw, luwutmnc, luwcutvis, luwseason,
+luwspectra, luwtkeviz, luwaij, luwvideo, buildingscale)."""

@@ -108,9 +108,8 @@ def storage_from_deck(deck: DeckDocument) -> str:
 
     The reference stores DDFs as FP16C (1-4-11 custom float, defines.hpp:14)
     by default, with FP16S/FP32 options; bf16 has the same 2-byte footprint
-    and converts natively on the GPU.  The port's kernels take `bf16` and
-    `f32`; `f16` and `fp16c` are accepted here and refused by the kernels
-    until ROADMAP kernel item K5 ports their codecs.
+    and converts natively on the GPU.  The port's kernels take all four
+    storages (`csrc/codec.cuh` holds the f16 and fp16c codecs).
     """
     raw = (deck.get_text("lbm_storage", "bf16") or "bf16").strip().lower()
     if raw not in ("bf16", "f16", "fp16c", "f32"):

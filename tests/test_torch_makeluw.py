@@ -12,7 +12,8 @@ the JAX package's `makeluw`.
     vertices are within 1e-3 m of the JAX run's (both solve in float32,
     with different LU codes); with `--device cuda` and no card the
     pipeline fails at luwvox instead of solving on the CPU.
-  * Every dispatch target is a module of the port.
+  * Every dispatch target is a module of the port: the JAX package's 25
+    commands but `luwstudio`.
 """
 
 import shutil
@@ -132,13 +133,16 @@ def test_dispatch_targets_are_port_modules(capsys):
 
     assert sorted(COMMANDS) == sorted([
         "makeluw", "runluw", "luwbc", "luwcut", "luwvox", "luwdem", "luwval",
-        "cdfinspect", "shpinspect", "cleanluw", "luwenv", "vtk2nc"])
+        "cdfinspect", "shpinspect", "cleanluw", "luwenv", "vtk2nc",
+        "dgprepare", "buildingscale", "visluw", "luwutmnc", "luwcutvis",
+        "luwseason", "luwspectra", "luwtkeviz", "luwaij", "luwvideo",
+        "visdem", "shptester"])
     for cmd, handler in COMMANDS.items():
         modname, attr = handler.target
         assert modname.startswith("latticeurbanwind_tpu_torch."), cmd
         assert callable(getattr(importlib.import_module(modname), attr)), cmd
     assert COMMANDS["runluw"].target[0] == "latticeurbanwind_tpu_torch.cli.run"
-    for argv in (["visluw", "conf.luw"], ["luwstudio"]):
+    for argv in (["luwstudio"], ["nosuch", "conf.luw"]):
         assert main(argv) == 2
         out = capsys.readouterr().out
         assert f"Unknown command: {argv[0]}" in out and "makeluw" in out

@@ -145,7 +145,12 @@ def test_port_never_imports_jax():
         "       'pre.wrf_ingest', 'pre.shpcutter', 'pre.dem_ingest',\n"
         "       'pre.terrain', 'pre.voxelization', 'cli.inspect_tools',\n"
         "       'cli.validate', 'cli.clean', 'cli.makeluw', 'cli.dispatch',\n"
-        "       'utils.accelerator', 'post.vtk2nc']\n"
+        "       'utils.accelerator', 'post.vtk2nc', 'pre.dgprepare',\n"
+        "       'post.buildingscale', 'io.figure', 'post.visluw',\n"
+        "       'post.vtk_avg_to_utm_asl_nc', 'post.cut_vis',\n"
+        "       'post.season_average', 'post.les_spectra', 'post.tke_viz',\n"
+        "       'io.xls', 'post.aij_casee', 'post.video',\n"
+        "       'cli.dem_shp_tools']\n"
         "missing = [m for m in new if p.__name__ + '.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
         "print('ok', len(sys.modules))\n")

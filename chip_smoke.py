@@ -122,14 +122,7 @@ nvcc per source, in parallel), then:
      (the unsplit runs on the card's device path, the split ones on the host
      path from the gathered fields), each timed, each with its `_3d.png`,
      their sizes read from the PNG headers, and the solver seconds given
-     with and without them; then the resume phase (`resume-bf16-400`): the
-     same deck in two legs with a checkpoint every 200 steps, leg 1 split
-     [1, 2, 2] on card 0 for 200 steps without averaging (800 K8 launches,
-     a checkpoint of one block per shard), leg 2 unsplit resumed to 400
-     with no further save (200 K-SC, 50 K-AVG launches), its final DDF
-     codes, u, rho and VTKs
-     equal to `vk-bf16-400`'s (0 differing codes), with the save and load
-     seconds and the file's size; then
+     with and without them; then
      the inlet-off deck for 100 steps and the inlet-on deck in fp16c for 200
      steps; then the same bf16 400-step deck with the wall models
      (`ground_z0 = 0.055`, `building_z0 = 0.01`: 400 K-SC launches, all
@@ -141,7 +134,14 @@ nvcc per source, in parallel), then:
      first two cases, 300 steps each, through the case-parallel batch
      runner (one case per card, in turn on one card: 600 K-SC, 60 K-AVG
      launches, its lines, both cases' `DG_<u>_<a>_` outputs, byte for byte
-     those of the same cases run serially on card 0); then the
+     those of the same cases run serially on card 0); then the resume
+     phase (`resume-dg-bf16-300`): the serial run's second case (inflow 4,
+     angle 45) in two legs with a checkpoint every 200 steps, leg 1 split
+     [1, 2, 2] on card 0 for 200 steps without averaging (800 K8 launches,
+     a checkpoint of one block per shard), leg 2 unsplit resumed to 300
+     with no further save (100 K-SC, 30 K-AVG launches), its final DDF
+     codes, u, rho and VTKs equal to the serial run's (0 differing codes),
+     with the save and load seconds and the file's size; then the
      NWP-coupled standard deck (`.luw`) that phase 4a made, at 3 m cells
      (1017x887x79 =
      71.3M cells) in bf16 as it ships, 300 steps (`nwp-t-bf16-300`: patch-2d
@@ -170,6 +170,26 @@ nvcc per source, in parallel), then:
      example's footprints.  Every file a tool names must exist, every PNG
      read back, every NetCDF variable be finite.  `luwaij` is not run (no
      Case E workbook in the repository).
+  4c. the studio (`luwstudio`, `gui/server.py`) served from this process on
+     a copy of phase 4a's made 16 m NWP case: `POST /api/run` `runluw
+     conf.luw` (a child process of the port's dispatcher, on the card: the
+     studio adds no device argument), polled on /api/job until done, exit
+     0, its lines naming the card's device, its VTKs byte for byte phase
+     4a's direct runluw's (else each within 1e-6, the differences printed);
+     the job's averaged VTK through /api/vtkinfo, /api/render in slice, MIP
+     and 3d (each a PNG whose title chunk names the file), /api/volinfo and
+     every brick of every level of /api/brick; /api/env naming this card
+     and the kernels built; each request timed (`[studio] <step> seconds`).
+  5. the published-value physics checks of `lbm/physics_checks.py` on the
+     kernels in f32 (the lid-driven cavity at Re 100 against Ghia et al.,
+     the vortex street's Strouhal number, Taylor-Green decay, Poiseuille,
+     thermal diffusion, Coriolis, Boussinesq, the Schumann drag rate and
+     the vertical-wall model), each value printed beside its published
+     value and band, one K-SC launch per step (counted), a value outside
+     its band failing the smoke; then each check's simulation stepped 5
+     times from its initial state by K-SC and by its plain version on the
+     card, which agree within the f32 tolerance at these grids (3 planes
+     deep, 4 cells wide).
 
 The second-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero; so
@@ -2104,31 +2124,33 @@ def compare_split_deck(split: dict, main: dict, tag: str) -> dict:
     return {"fi_equal": fi_same, "raw_equal": raw_same, "avg_max_abs": avg_err}
 
 
-def run_resume_phase(work: Path, main: dict, tag: str = "resume-bf16-400") -> dict:
-    """The example deck at 1.5 m in bf16 as it ships, in two legs through
-    `run_deck` (`checkpoint_interval` is a `RunSettings` field, not a deck
-    key: set on the case the port builds, as the JAX package's tests set
-    it).  Leg 1: split n_gpu = SHARD_SPLIT on SHARD_DEVICE, 200 steps, no
-    averaging, a checkpoint every 200 steps; its checkpoint holds one block
-    per shard.  Leg 2: unsplit on DEVICE, resumed to 400 with the deck's own
-    settings and the interval past its end: one-thread `savez_compressed`
-    of the state with its accumulators at 400 would take this script
-    another two minutes.  Its final DDF codes, u and rho and every VTK (leg
-    1's raw u at 200 included) equal vk-bf16-400's (`main`)."""
+def run_resume_phase(work: Path, ref: dict, tag: str = "resume-dg-bf16-300") -> dict:
+    """The example `.luwdg` deck at 2 m in bf16, its case (inflow 4, angle
+    45) run serially in two legs through `run_deck` (`checkpoint_interval`
+    is a `RunSettings` field, not a deck key: set on the case the port
+    builds, as the JAX package's tests set it).  Leg 1: split n_gpu =
+    SHARD_SPLIT on SHARD_DEVICE, 200 steps, no averaging, a checkpoint
+    every 200 steps; its checkpoint holds one block per shard.  Leg 2:
+    unsplit on DEVICE, resumed to 300 with the deck's own averaging and the
+    interval past its end.  Its final DDF codes, u and rho and its VTKs
+    equal those of dg-bf16-300's serial run of the same case (`ref`; the
+    deck keeps both inflows, so the case's units are that run's)."""
     import latticeurbanwind_tpu_torch.run.modes as modes
     from latticeurbanwind_tpu_torch.deck import load_deck
     from latticeurbanwind_tpu_torch.run.checkpoint import checkpoint_path
 
     case = work / tag
-    shutil.copytree(SOURCES["profile"], case)
-    deck_path = case / "conf.luwpf"
-    ckpt = checkpoint_path(case, DATETIME)
+    shutil.copytree(SOURCES["datagen"], case)
+    deck_path = case / "conf.luwdg"
+    inflow, angle = ref["case"]
+    ckpt = checkpoint_path(case, DATETIME, f"DG_{modes._format_tag(inflow)}_"
+                                           f"{modes._format_tag(angle)}_")
+    purge_avg = load_deck(deck_path).get_int("purge_avg", 0)
     real_run = modes.run_case
     seen = {}
 
     def run_spy(case_, **kw):
         case_.settings.checkpoint_interval = seen["every"]
-        seen["case"] = case_
         return real_run(case_, **kw)
 
     legs = {}
@@ -2136,12 +2158,15 @@ def run_resume_phase(work: Path, main: dict, tag: str = "resume-bf16-400") -> di
     try:
         for leg, n_gpu, steps, purge, device, every in (
                 ("leg 1", SHARD_SPLIT, 200, 0, SHARD_DEVICE, 200),
-                ("leg 2", (1, 1, 1), 400, 100, DEVICE, 1000)):
+                ("leg 2", (1, 1, 1), 300, purge_avg, DEVICE, 1000)):
             seen["every"] = every
             deck = load_deck(deck_path)
-            deck.set_float("cell_size", MAIN_CELL_M)
+            if inflow not in deck.get_float_list("inflow"):
+                raise AssertionError(f"[{tag}] inflow {inflow} not in the deck")
+            deck.set_float("cell_size", DG_CELL_M)
             deck.set_text("lbm_storage", "bf16")
-            deck.set_list("angle", [0.0])
+            deck.set_bool("case_parallel", False)
+            deck.set_list("angle", [angle])
             deck.set_raw("n_gpu", str(list(n_gpu)))
             deck.set_int("run_nstep", steps)
             deck.set_int("purge_avg", purge)
@@ -2149,12 +2174,12 @@ def run_resume_phase(work: Path, main: dict, tag: str = "resume-bf16-400") -> di
             zero_launches()
             buf = io.StringIO()
             t0 = time.perf_counter()
-            with timed_renders() as renders, contextlib.redirect_stdout(buf):
-                (r,) = modes.run_deck(deck_path, device=device, quiet=False)
+            with contextlib.redirect_stdout(buf):
+                (r,) = modes.run_deck(deck_path, device=device, quiet=False,
+                                      max_cases=1)
             wall = time.perf_counter() - t0
             legs[leg] = {"r": r, "launches": read_launches(), "wall": wall,
-                         "printed": buf.getvalue(), "renders": renders,
-                         "nz_out": seen["case"].nz_out}
+                         "printed": buf.getvalue()}
             if leg == "leg 1":
                 with np.load(ckpt) as z:
                     keys = list(z.files)
@@ -2170,13 +2195,13 @@ def run_resume_phase(work: Path, main: dict, tag: str = "resume-bf16-400") -> di
     log(two["printed"].rstrip())
     shards = int(np.prod(SHARD_SPLIT))
     expect = {
-        "leg 1": {"stream_collide": 200 * shards, "stream_collide_vk": 200 * shards,
+        "leg 1": {"stream_collide": 200 * shards, "stream_collide_vk": 0,
                   "stream_collide_wall": 0, "stream_collide_thermal": 0,
                   "stream_collide_halo": 200 * shards, "avg_update": 0,
                   "avg_update_wall": 0},
-        "leg 2": {"stream_collide": 200, "stream_collide_vk": 200,
+        "leg 2": {"stream_collide": 100, "stream_collide_vk": 0,
                   "stream_collide_wall": 0, "stream_collide_thermal": 0,
-                  "stream_collide_halo": 0, "avg_update": 50,
+                  "stream_collide_halo": 0, "avg_update": ref["n_avg"],
                   "avg_update_wall": 0}}
     for leg in legs:
         if legs[leg]["launches"] != expect[leg]:
@@ -2186,39 +2211,36 @@ def run_resume_phase(work: Path, main: dict, tag: str = "resume-bf16-400") -> di
         raise AssertionError(f"[{tag}] leg 1's checkpoint: {one['fi_blocks']} fi "
                              f"blocks, plain fi {one['fi_plain']}")
     if "| Checkpoint      | resumed from step 200" not in two["printed"] or \
-            r.total_steps != 400:
+            r.total_steps != 300:
         raise AssertionError(f"[{tag}] leg 2 did not resume from step 200")
-    files = {f.name: f for f in [*one["r"].files, *r.files]}
-    for leg, snap in (("leg 1", 200), ("leg 2", 400)):
-        check_renders(f"{tag} {leg}", files, legs[leg]["renders"], MAIN_SHAPE,
-                      legs[leg]["nz_out"], snaps=(snap,),
-                      path="host" if leg == "leg 1" else "device")
+    files = {f.name: f for f in r.files if f.suffix == ".vtk"}
+    if not files or sorted(files) != sorted(ref["files"]):
+        raise AssertionError(f"[{tag}] leg 2 wrote {sorted(files)}, the "
+                             f"uninterrupted run {sorted(ref['files'])}")
     differing = int((r.state.fi.cpu().view(torch.int16)
-                     != main["fi"].view(torch.int16)).sum())
-    same = {"u": torch.equal(r.state.u.cpu(), main["u"]),
-            "rho": torch.equal(r.state.rho.cpu(), main["rho"])}
-    vtks = sorted(k for k in main["files"] if k.endswith(".vtk"))
-    same.update({k: files[k].read_bytes() == main["files"][k].read_bytes()
-                 for k in vtks})
+                     != ref["fi"].view(torch.int16)).sum())
+    same = {"u": torch.equal(r.state.u.cpu(), ref["u"]),
+            "rho": torch.equal(r.state.rho.cpu(), ref["rho"])}
+    same.update({k: files[k].read_bytes() == ref["files"][k].read_bytes()
+                 for k in sorted(files)})
     t1, t2 = one["r"].timing, r.timing
     log(f"[{tag}] leg 1 ({list(SHARD_SPLIT)} on {SHARD_DEVICE}, 200 steps): "
         f"checkpoint {one['ckpt_bytes'] / 2**20:.1f} MiB ({one['fi_blocks']} fi "
         f"blocks), saved in {t1['checkpoint_save_seconds']:.2f} s; solver "
         f"{one['r'].solver_seconds:.2f} s, whole run_deck {one['wall']:.1f} s. "
-        f"Leg 2 (unsplit, 200 -> 400): loaded in "
+        f"Leg 2 (unsplit, 200 -> 300): loaded in "
         f"{t2['checkpoint_load_seconds']:.2f} s; solver {r.solver_seconds:.2f} s, "
-        f"whole run_deck {two['wall']:.1f} s. Against vk-bf16-400: "
-        f"{differing} differing DDF codes; " + ", ".join(
+        f"whole run_deck {two['wall']:.1f} s. Against dg-bf16-300's serial run "
+        f"of the case: {differing} differing DDF codes; " + ", ".join(
             f"{k} {'equal' if v else 'DIFFER'}" for k, v in same.items()))
     if differing or not all(same.values()):
-        raise AssertionError(f"[{tag}] the resumed run differs from vk-bf16-400")
+        raise AssertionError(f"[{tag}] the resumed run differs from dg-bf16-300's")
     return {"launches": {leg: legs[leg]["launches"] for leg in legs},
             "checkpoint_bytes": one["ckpt_bytes"],
             "save_seconds": t1["checkpoint_save_seconds"],
             "load_seconds": t2["checkpoint_load_seconds"],
             "solver_seconds": [one["r"].solver_seconds, r.solver_seconds],
             "wall": [one["wall"], two["wall"]],
-            "renders": one["renders"] + two["renders"],
             "differing_codes": differing, "equal": same}
 
 
@@ -2336,11 +2358,17 @@ def run_datagen_deck(work: Path, tag: str, *, storage: str, steps: int,
     if not all(same.values()):
         raise AssertionError(f"[{tag}] the case-parallel outputs differ from "
                              "the serial run's")
+    last = serial["results"][-1]     # the one case whose state is kept
     return {"launches": launches, "wall": par["wall"],
             "serial_wall": serial["wall"], "devices": D,
             "solver_seconds": [r.solver_seconds for r in results],
             "mlups": [r.timing["mlups"] for r in results],
-            "equal_to_serial": same}
+            "equal_to_serial": same,
+            "last": {"case": [(u, a) for u in inflows for a in angles][cases - 1],
+                     "n_avg": n_avg, "fi": last.state.fi.cpu(),
+                     "u": last.state.u.cpu(), "rho": last.state.rho.cpu(),
+                     "files": {f.name: f for f in last.files
+                               if f.suffix == ".vtk"}}}
 
 
 def run_nwp_deck(work: Path, tag: str, *, steps: int, thermal: bool,
@@ -2843,8 +2871,6 @@ def phase_main_path(work: Path, made: Path) -> dict:
         log(f"[vk-bf16-sharded-4cards] not run: {torch.cuda.device_count()} "
             f"card(s) visible, n_gpu={list(SHARD_SPLIT)} on device=\"cuda\" "
             f"needs {int(np.prod(SHARD_SPLIT))}")
-    torch.cuda.empty_cache()
-    resume = run_resume_phase(work, main)
     for p in (main, *paths.values()):
         for k in ("fi", "u", "rho", "files"):
             p.pop(k, None)
@@ -2863,6 +2889,8 @@ def phase_main_path(work: Path, made: Path) -> dict:
                              f"only {du} m/s")
     wall["near_ground_du"] = du
     dg = run_datagen_deck(work, "dg-bf16-300", storage="bf16", steps=300, cases=2)
+    torch.cuda.empty_cache()
+    resume = run_resume_phase(work, dg.pop("last"))
     torch.cuda.empty_cache()
     nwp_t = run_nwp_deck(work, "nwp-t-bf16-300", steps=300, thermal=True,
                          source=made)
@@ -3060,6 +3088,319 @@ def phase_examples_post(work: Path, made: Path) -> dict:
     return out
 
 
+STUDIO_JOB_S = 300              # a studio job's time limit
+STUDIO_VTK_TOL = 1e-6           # if the job's VTK bytes differ from the direct run's
+
+
+def studio_get(base: str, path: str):
+    """(content type, body, headers) of one GET to the studio."""
+    import urllib.request
+
+    with urllib.request.urlopen(base + path, timeout=120) as r:
+        return r.headers.get_content_type(), r.read(), r.headers
+
+
+def studio_json(base: str, path: str, post=None):
+    import urllib.error
+    import urllib.request
+
+    req = (urllib.request.Request(base + path, data=json.dumps(post).encode(),
+                                  method="POST") if post is not None else base + path)
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return json.loads(r.read())
+    except urllib.error.HTTPError as e:     # error answers carry JSON
+        return json.loads(e.read())
+
+
+def png_title(raw: bytes) -> str:
+    """A PNG's tEXt Title (its chunks' CRCs checked), or raise."""
+    import struct
+    import zlib
+
+    if raw[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError("not a PNG")
+    pos, title, size = 8, None, None
+    while pos < len(raw):
+        (n,) = struct.unpack(">I", raw[pos:pos + 4])
+        kind, data = raw[pos + 4:pos + 8], raw[pos + 8:pos + 8 + n]
+        if struct.unpack(">I", raw[pos + 8 + n:pos + 12 + n])[0] != \
+                zlib.crc32(kind + data) & 0xFFFFFFFF:
+            raise AssertionError(f"bad CRC in the PNG's {kind!r} chunk")
+        if kind == b"IHDR":
+            size = struct.unpack(">II", data[:8])
+        if kind == b"tEXt" and data.startswith(b"Title\x00"):
+            title = data[6:].decode("latin-1")
+        pos += 12 + n
+    if not size or min(size) < 1 or not title:
+        raise AssertionError(f"PNG size {size}, title {title!r}")
+    return title
+
+
+def vtk_max_diff(a: Path, b: Path) -> float:
+    from latticeurbanwind_tpu_torch.io.vtk import read_structured_points
+
+    fa, fb = read_structured_points(a)[1], read_structured_points(b)[1]
+    if sorted(fa) != sorted(fb):
+        raise AssertionError(f"{a.name}: fields {sorted(fa)} != {sorted(fb)}")
+    return max(float(np.abs(fa[k].astype(np.float64) - fb[k]).max()) for k in fa)
+
+
+def phase_studio(work: Path, made: Path, direct_launches: dict) -> dict:
+    """Phase 4c: the port's studio (`gui/server.py`) on a copy of the 16 m
+    NWP case phase 4a made.  A `runluw conf.luw` job (a child process of
+    the port's dispatcher, on the card) must exit 0 and write the VTKs of
+    phase 4a's direct `runluw` of the same deck, and the kernel launches
+    its runluw summary prints must equal that direct run's counted
+    launches (`direct_launches`); then the job's averaged
+    VTK through /api/render (slice, MIP, 3d), /api/volinfo and /api/brick,
+    and /api/env, which must name this card and report the kernels built.
+    Each request is timed (`[studio] <step> seconds`)."""
+    import threading
+
+    from latticeurbanwind_tpu_torch.gui.server import serve
+
+    log("== phase 4c: the studio drives the 16 m NWP deck through the kernels")
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    case = work / "studio-nwp-16m"
+    shutil.copytree(made, case)
+    direct = work / "nwp-made-16m" / "RESULTS" / "vtk"
+    httpd = serve(case, port=0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    secs, out = {}, {}
+
+    def timed(step, fn):
+        t0 = time.perf_counter()
+        r = fn()
+        secs[step] = time.perf_counter() - t0
+        log(f"[studio] {step} seconds {secs[step]:.3f}")
+        return r
+
+    try:
+        env = timed("env", lambda: studio_json(base, "/api/env"))
+        log(f"[studio] /api/env: {json.dumps(env)}")
+        if not (env.get("cards", 0) >= 1
+                and env["devices"][0]["name"] == torch.cuda.get_device_name(0)
+                and env["kernels"]["built"]):
+            raise AssertionError(f"[studio] /api/env does not name the card or the "
+                                 f"built kernels: {env}")
+
+        def job():
+            j = studio_json(base, "/api/run", post={"cmd": "runluw",
+                                                    "args": ["conf.luw"], "cwd": ""})
+            if "error" in j:
+                raise AssertionError(f"[studio] /api/run refused: {j}")
+            t0 = time.perf_counter()
+            while time.perf_counter() - t0 < STUDIO_JOB_S:
+                st = studio_json(base, f"/api/job?id={j['id']}")
+                if st["done"]:
+                    return st
+                time.sleep(0.2)
+            raise AssertionError(f"[studio] job not done in {STUDIO_JOB_S} s")
+
+        st = timed("runluw job", job)
+        log("\n".join(f"[studio job] {line}" for line in st["lines"]))
+        log(f"[studio] job argv {st['argv'][1:]}, exit {st['rc']}, "
+            f"progress {st['progress']}")
+        if st["rc"] != 0:
+            raise AssertionError(f"[studio] runluw job exit {st['rc']}")
+        if not any(f"device={DEVICE}" in line for line in st["lines"]):
+            raise AssertionError(f"[studio] the job did not run on {DEVICE}")
+        tag = "runluw-torch: kernel launches "
+        counted = [json.loads(line.split(tag, 1)[1]) for line in st["lines"]
+                   if tag in line]
+        job_launches = {k: counted[-1].get(k) for k in direct_launches} \
+            if counted else None
+        log(f"[studio] the job's kernel launches {counted[-1] if counted else None}"
+            f", phase 4a's direct runluw {direct_launches}")
+        if job_launches != direct_launches:
+            raise AssertionError(f"[studio] the job's launches {job_launches} "
+                                 f"!= the direct run's {direct_launches}")
+        out["launches"] = counted[-1]
+        got = {p.name: p for p in (case / "RESULTS" / "vtk").glob("*.vtk")}
+        want = {p.name: p for p in direct.glob("*.vtk")}
+        if sorted(got) != sorted(want) or not want:
+            raise AssertionError(f"[studio] job VTKs {sorted(got)} != direct "
+                                 f"{sorted(want)}")
+        differ = {n: vtk_max_diff(got[n], want[n]) for n in sorted(want)
+                  if got[n].read_bytes() != want[n].read_bytes()}
+        log(f"[studio] the job's {len(got)} VTKs against the direct runluw's: "
+            + ("byte for byte equal" if not differ else
+               f"{len(differ)} differ, max |diff| {differ}"))
+        if any(not v <= STUDIO_VTK_TOL for v in differ.values()):
+            raise AssertionError(f"[studio] job VTKs off the direct run: {differ}")
+        out["vtks"] = len(got)
+        out["vtks_differing"] = differ
+        avg = sorted(n for n in got if "_avg-" in n)[-1]
+        rel = f"RESULTS/vtk/{avg}"
+        shape = timed("vtkinfo", lambda: studio_json(
+            base, f"/api/vtkinfo?path={rel}"))["fields"]["u_avg"]
+        pngs = {}
+        for mode in ("slice", "mip", "3d"):
+            q = f"/api/render?path={rel}&mode={mode}" + (
+                f"&field=u_avg&z={shape[1] // 2}" if mode != "3d" else "")
+            ctype, body, _ = timed(f"render {mode}", lambda: studio_get(base, q))
+            if ctype != "image/png":
+                raise AssertionError(f"[studio] render {mode}: {ctype} {body[:200]!r}")
+            pngs[mode] = {"bytes": len(body), "title": png_title(body)}
+            if avg not in pngs[mode]["title"]:
+                raise AssertionError(f"[studio] render {mode} title {pngs[mode]}")
+        log(f"[studio] renders {pngs}")
+        info = timed("volinfo", lambda: studio_json(base, f"/api/volinfo?path={rel}&field=u"))
+        if "error" in info:
+            raise AssertionError(f"[studio] volinfo: {info}")
+        def bricks():       # every brick of every level
+            n = 0
+            for lvl, level in enumerate(info["levels"]):
+                for i, j, k in np.ndindex(*level["bricks"]):
+                    _, body, hdr = studio_get(
+                        base, f"/api/brick?path={rel}&field=u&level={lvl}"
+                              f"&i={i}&j={j}&k={k}")
+                    dims = [int(v) for v in hdr["X-Brick-Shape"].split(",")]
+                    tile = np.frombuffer(body, np.float16)
+                    if tile.size != int(np.prod(dims)) or \
+                            not np.isfinite(tile.astype(np.float32)).all():
+                        raise AssertionError(f"[studio] brick {lvl}/{i},{j},{k}")
+                    n += 1
+            return n
+
+        out["bricks"] = timed("bricks", bricks)
+        out.update(env=env, renders=pngs, levels=len(info["levels"]), job_rc=st["rc"])
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(30)
+    out["seconds"] = secs
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"[studio] phase 4c seconds {out['phase_seconds']:.1f}")
+    shutil.rmtree(case, ignore_errors=True)
+    return out
+
+
+def varied_state(sim, seed: int):
+    """A check's simulation started from fields that vary along every axis:
+    its initial rho, u (and T) each plus seeded noise of 0.01, its flags
+    as they were.  The checks' own initial states are uniform along their
+    small axes (the cavity and the vortex street along z, Poiseuille along
+    y and x), where a kernel that read the wrong plane, row or column of a
+    grid smaller than one tile would give the same bytes."""
+    from latticeurbanwind_tpu_torch.lbm.state import make_initial_state
+
+    rng = np.random.default_rng(seed)
+    shape, init = sim.shape, sim.init
+    rho = np.ones(shape) if init.get("rho") is None else np.asarray(init["rho"])
+    u = np.zeros((3, *shape)) if init.get("u") is None else np.asarray(init["u"])
+    fields = {"flags": init.get("flags"),
+              "rho": rho + 0.01 * rng.standard_normal(shape),
+              "u": u + 0.01 * rng.standard_normal(u.shape)}
+    if sim.config.thermal:
+        T = np.ones(shape) if init.get("T") is None else np.asarray(init["T"])
+        fields["T"] = T + 0.01 * rng.standard_normal(shape)
+    return make_initial_state(shape, config=sim.config, device=DEVICE, **fields)
+
+
+def sim_against_plain(sim, fi0, gi0, steps: int) -> float:
+    """K-SC and its plain version, each `steps` steps from (fi0, gi0) with
+    the simulation's flags, config and dyn row: the largest difference of
+    f (and g)."""
+    from latticeurbanwind_tpu_torch.lbm.state import Forcing, dyn_row
+    from latticeurbanwind_tpu_torch.ops.stream_collide import (
+        stream_collide, stream_collide_plain,
+    )
+
+    flags, cfg = sim.state.flags, sim.config
+    row = dyn_row(sim.dyn, DEVICE)
+    fk, fp = fi0.clone(), fi0.clone()
+    gk = [gi0.clone(), torch.empty_like(gi0)] if gi0 is not None else [None, None]
+    gp = [gi0.clone(), torch.empty_like(gi0)] if gi0 is not None else [None, None]
+    for _ in range(steps):
+        fk = stream_collide(fk, flags, row, cfg, Forcing(), gi=gk[0], gi_out=gk[1])
+        fp = stream_collide_plain(fp, flags, row, cfg, Forcing(), gi=gp[0],
+                                  gi_out=gp[1])
+        gk.reverse()
+        gp.reverse()
+    torch.cuda.synchronize()
+    e = max_err(fk, fp)
+    return e if gi0 is None else max(e, max_err(gk[0], gp[0]))
+
+
+PHYSICS_VARIED_STEPS = 16      # K-SC against plain from a varied state
+
+
+def phase_physics() -> dict:
+    """Phase 5: every published-value check of `lbm/physics_checks.py` on
+    the kernels in f32 (launches counted: one K-SC per step), each measured
+    value printed beside its published value and band; a value outside its
+    band fails the smoke.  Then, at each simulation's shape, flags, config
+    and dyn row, K-SC and its plain version on the card must agree within
+    the f32 (wall) tolerance at these grids (3 planes deep, 4 cells wide):
+    5 steps from the simulation's initial state, and `PHYSICS_VARIED_STEPS`
+    steps from a seeded state that varies along every axis
+    (`varied_state`)."""
+    from latticeurbanwind_tpu_torch.lbm import physics_checks as pc
+
+    log("== phase 5: the published-value physics checks on the kernels")
+    t_phase = time.perf_counter()
+    out, outside, sims = {}, [], []
+    for name, check in pc.CHECKS.items():
+        zero_launches()
+        t0 = time.perf_counter()
+        c = check(DEVICE)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = read_launches()
+        expect = {"stream_collide": c.steps,
+                  "stream_collide_wall": sum(s.steps for s in c.sims
+                                             if s.config.wall_model),
+                  "stream_collide_thermal": sum(s.steps for s in c.sims
+                                                if s.config.thermal)}
+        log(f"[physics] {c}; {secs:.2f} s, launches {launches}")
+        if sum(s.steps for s in c.sims) != c.steps or any(
+                launches[k] != v for k, v in expect.items()):
+            raise AssertionError(f"[physics] {name}: launches {launches}, "
+                                 f"expected {expect}")
+        if not c.ok:
+            outside.append(name)
+        out[name] = {"ok": c.ok, "seconds": secs, "steps": c.steps,
+                     "launches": launches["stream_collide"],
+                     "rows": [{"label": r.label, "value": r.value,
+                               "lo": r.lo, "hi": r.hi, "published": r.ref}
+                              for r in c.rows]}
+        sims.extend(c.sims)
+    t0 = time.perf_counter()
+    initial, varied = {}, {}
+    for seed, sim in enumerate(sims):
+        cfg = sim.config
+        tol = tolerance("f32", "wall" if cfg.wall_model else "")
+        key = f"{sim.shape}{' wall' if cfg.wall_model else ''}" \
+              f"{' thermal' if cfg.thermal else ''}"
+        e0 = sim_against_plain(sim, *sim.initial, 5)
+        st = varied_state(sim, seed)
+        e1 = sim_against_plain(sim, st.fi, st.gi, PHYSICS_VARIED_STEPS)
+        initial[key] = max(e0, initial.get(key, 0.0))
+        varied[key] = max(e1, varied.get(key, 0.0))
+        if not (e0 <= tol and e1 <= tol):
+            raise AssertionError(f"[physics] K-SC off its plain version at {key}: "
+                                 f"{e0} (5 steps from the initial state), {e1} "
+                                 f"({PHYSICS_VARIED_STEPS} steps from a varied "
+                                 f"state) against {tol}")
+    log(f"[physics] K-SC against its plain version, 5 steps from each check's "
+        f"initial state: max |diff| {initial}")
+    log(f"[physics] K-SC against its plain version, {PHYSICS_VARIED_STEPS} steps "
+        f"from a seeded state varying along every axis: max |diff| {varied}; "
+        f"{time.perf_counter() - t0:.2f} s")
+    out["kernel_against_plain"] = initial
+    out["kernel_against_plain_varied"] = varied
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"[physics] phase 5 seconds {out['phase_seconds']:.1f}")
+    if outside:
+        raise AssertionError(f"[physics] outside their bands: {outside}")
+    return out
+
+
 def main() -> int:
     card = phase_card()
     from latticeurbanwind_tpu_torch.utils.cuda_build import BUILD_DIR
@@ -3074,8 +3415,10 @@ def main() -> int:
         deck = phase_main_path(work, made)
         examples = phase_examples_post(work, made)
         examples["dgprepare"] = prepared
+        studio = phase_studio(work, made, pipeline["route"]["launches"])
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    physics = phase_physics()
 
     paths = deck["paths"]
     paths["nwp-made-16m"] = pipeline["route"]
@@ -3228,7 +3571,8 @@ def main() -> int:
                              if k.startswith("K-AVG")}},
     ], "build_s": card["build_s"], "nvcc_s": card["nvcc_s"],
         "copy_gbps": timing["copy_gbps"], "resume_phase": deck["resume"],
-        "pipeline": pipeline, "examples": examples,
+        "pipeline": pipeline, "examples": examples, "studio": studio,
+        "physics": physics,
         "renders": {k: {"renders": p["renders"],
                         "solver_seconds": p["solver_seconds"],
                         "solver_seconds_without_renders":

@@ -3,12 +3,13 @@
 `python -m latticeurbanwind_tpu_torch.cli.dispatch <command> [args...]`
 
 The counterpart of `latticeurbanwind_tpu/cli/dispatch.py`: every command
-of the JAX package but the studio (`luwstudio`, which is "Unknown" with the
-list, as any other name), each a module of the port — the pre-processing
+of the JAX package, each a module of the port — the pre-processing
 pipeline (`makeluw` and its stages, `dgprepare`), the solver (`runluw`, the
-port's `cli/run.py`) and the post-processing tools.  `makeluw`, `luwvox`
-and `runluw` take `--device` (default cuda; `cpu` runs on the CPU); every
-other tool is host numpy.  The examples' routes:
+port's `cli/run.py`), the post-processing tools and the studio
+(`luwstudio`, `gui/server.py`, whose jobs are commands of this
+dispatcher).  `makeluw`, `luwvox` and `runluw` take `--device` (default
+cuda; `cpu` runs on the CPU); every other tool is host numpy.  The
+examples' routes:
 
     dispatch dgprepare conf.luwpf; dispatch runluw conf.luwpf; dispatch vtk2nc conf.luwpf
     dispatch dgprepare conf.luwdg; dispatch runluw conf.luwdg; dispatch luwseason conf.luwdg
@@ -56,6 +57,7 @@ COMMANDS = {
     "luwvideo": _lazy(f"{PKG}.post.video"),
     "visdem": _lazy(f"{PKG}.cli.dem_shp_tools", "visdem_main"),
     "shptester": _lazy(f"{PKG}.cli.dem_shp_tools", "shptester_main"),
+    "luwstudio": _lazy(f"{PKG}.gui.server"),
 }
 
 

@@ -28,8 +28,25 @@ and every `lbm_storage` included.  A `.luw` deck needs its prepared inputs
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 from pathlib import Path
+
+
+def launch_counts() -> dict:
+    """The kernels' launch counters (each wrapper adds one where it launches
+    its kernel; a run on the CPU launches none)."""
+    from ..ops.avg_kernel import avg_update
+    from ..ops.stream_collide import stream_collide, vk_sites
+
+    return {"stream_collide": stream_collide.launches,
+            "stream_collide_vk": stream_collide.launches_vk,
+            "stream_collide_wall": stream_collide.launches_wall,
+            "stream_collide_thermal": stream_collide.launches_thermal,
+            "stream_collide_halo": stream_collide.launches_halo,
+            "vk_sites": vk_sites.launches,
+            "avg_update": avg_update.launches,
+            "avg_update_wall": avg_update.launches_wall}
 
 
 def main(argv=None) -> int:
@@ -58,6 +75,7 @@ def main(argv=None) -> int:
                   "(run luwval first, or pass --force)")
             return 1
 
+    before = launch_counts()
     results = run_deck(deck_path,
                        device=args.device, quiet=args.quiet,
                        max_cases=args.max_cases)
@@ -65,6 +83,8 @@ def main(argv=None) -> int:
     print(f"runluw-torch: {len(results)} case(s) complete, "
           f"solver time {total:.1f} s, "
           f"{sum(len(r.files) for r in results)} file(s) written")
+    launched = {k: v - before[k] for k, v in launch_counts().items()}
+    print(f"runluw-torch: kernel launches {json.dumps(launched)}")
     return 0
 
 

@@ -27,7 +27,7 @@ import numpy as np
 
 from ..run.fieldvis import colorscale_iron, colorscale_rainbow
 from ..run.render import draw_segments
-from .png import write_png
+from .png import encode_png, write_png
 
 MARGIN = 6                                   # pixels around each panel
 BACKGROUND = (1.0, 1.0, 1.0)
@@ -157,6 +157,18 @@ class Panel:
         self.used = True
         return self
 
+    def bars(self, left, right, height, rgb=(0.27, 0.38, 0.5)) -> "Panel":
+        """Filled bars over [left, right] from the lower y limit up to
+        `height`, in data units (linear axes)."""
+        for x0, x1, top in zip(np.ravel(left), np.ravel(right), np.ravel(height)):
+            p = self.to_pixels([x0, x1], [self.ylim[0], top])
+            h, w = self.shape
+            c0, c1 = sorted(np.clip(np.round(p[:, 0]), 0, w - 1).astype(np.int64))
+            r0, r1 = sorted(np.clip(np.round(p[:, 1]), 0, h - 1).astype(np.int64))
+            self.img[r0:r1 + 1, c0:c1 + 1] = rgb
+        self.used = True
+        return self
+
     def arrows(self, x, y, dx, dy, rgb=(1.0, 1.0, 1.0), *,
                length_px: Optional[float] = None) -> "Panel":
         """Arrows from the points (x, y) along (dx, dy), scaled together so
@@ -204,9 +216,16 @@ class Figure:
                 self.img[top:top + ph, left:left + pw] = BACKGROUND
                 self.panels.append(Panel(self.img[top:top + ph, left:left + pw]))
 
-    def save(self, path: Path | str) -> Path:
-        """Write the PNG; its title chunk holds the figure's title and each
-        drawn panel's title."""
+    def text(self) -> str:
+        """The figure's title and each drawn panel's title, "; "-joined: what
+        the PNG's title chunk holds."""
         titles = [p.title for p in self.panels if p.used and p.title]
-        text = "; ".join(t for t in [self.title, *titles] if t)
-        return write_png(path, self.img, title=text)
+        return "; ".join(t for t in [self.title, *titles] if t)
+
+    def save(self, path: Path | str) -> Path:
+        """Write the PNG, its title chunk holding `text()`."""
+        return write_png(path, self.img, title=self.text())
+
+    def to_png(self) -> bytes:
+        """The PNG's bytes, its title chunk holding `text()`."""
+        return encode_png(self.img, title=self.text())

@@ -30,10 +30,10 @@ def to_rgb8(img: np.ndarray) -> np.ndarray:
     return np.round(np.clip(img, 0.0, 1.0) * 255.0).astype(np.uint8)
 
 
-def write_png(path: Path | str, img: np.ndarray, title: str = "") -> Path:
-    """Write an (H, W, 3) image (uint8, or floats in [0, 1]) as an RGB8 PNG:
-    one IHDR, a `tEXt` "Title" chunk when `title` is set, one IDAT of
-    filter-0 rows, IEND."""
+def encode_png(img: np.ndarray, title: str = "") -> bytes:
+    """An (H, W, 3) image (uint8, or floats in [0, 1]) as the bytes of an
+    RGB8 PNG: one IHDR, a `tEXt` "Title" chunk when `title` is set, one
+    IDAT of filter-0 rows, IEND."""
     rgb = np.ascontiguousarray(to_rgb8(img))
     if rgb.ndim != 3 or rgb.shape[2] != 3 or min(rgb.shape[:2]) < 1:
         raise ValueError(f"want an (H, W, 3) image, got {rgb.shape}")
@@ -47,9 +47,15 @@ def write_png(path: Path | str, img: np.ndarray, title: str = "") -> Path:
                           + title.encode("latin-1", "replace")))
     out.append(_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)))
     out.append(_chunk(b"IEND", b""))
+    return b"".join(out)
+
+
+def write_png(path: Path | str, img: np.ndarray, title: str = "") -> Path:
+    """Write `encode_png(img, title)` to `path`."""
     path = Path(path)
+    data = encode_png(img, title)
     path.parent.mkdir(parents=True, exist_ok=True)
-    path.write_bytes(b"".join(out))
+    path.write_bytes(data)
     return path
 
 

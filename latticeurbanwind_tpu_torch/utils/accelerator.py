@@ -52,7 +52,7 @@ def probe_cuda_environment() -> dict:
         report["nvcc"] = cuda_build.find_nvcc()
     except RuntimeError as e:
         report["errors"].append(f"nvcc: {e}")
-    lib = cuda_build.BUILD_DIR / f"libluwtorch_{cuda_build.source_digest()}.so"
+    lib = cuda_build.library_path()
     report["kernel_library"] = {"path": str(lib), "built": lib.exists()}
     try:
         from .native import load

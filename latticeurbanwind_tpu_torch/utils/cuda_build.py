@@ -122,11 +122,17 @@ def _run(cmd: list[str], label: str) -> str:
     return f"{out}# nvcc {label}: {time.perf_counter() - t0:.1f} s\n"
 
 
+def library_path(digest: str | None = None) -> Path:
+    """Where the library of the current sources (or of `digest`) is, or
+    will be once built; looking builds nothing."""
+    return BUILD_DIR / f"libluwtorch_{digest or source_digest()}.so"
+
+
 def build() -> tuple[Path, str]:
     """(library path, nvcc's output) — builds only when the library for the
     current sources does not exist yet; the output is then the build log."""
     digest = source_digest()
-    lib = BUILD_DIR / f"libluwtorch_{digest}.so"
+    lib = library_path(digest)
     log = lib.with_suffix(".log")
     if lib.exists():
         return lib, log.read_text() if log.exists() else ""

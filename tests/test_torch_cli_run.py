@@ -75,3 +75,35 @@ def test_gate_lines_are_the_jax_lines(tmp_path, capsys, stubbed):
         jax_out, port_out = capsys.readouterr().out.split("\n", 1)
         assert rcs[0] == rcs[1]
         assert port_out.startswith(jax_out.replace("runluw:", "runluw-torch:"))
+
+
+def test_summary_prints_this_runs_launches(tmp_path, capsys, monkeypatch):
+    """runluw's summary ends with the kernel launches of its own run: the
+    counters' advance across `run_deck`, not their totals."""
+    import json
+
+    import latticeurbanwind_tpu_torch.run.modes as port_modes
+    from latticeurbanwind_tpu_torch.cli.run import launch_counts, main
+    from latticeurbanwind_tpu_torch.ops.avg_kernel import avg_update
+    from latticeurbanwind_tpu_torch.ops.stream_collide import stream_collide, vk_sites
+
+    def run_deck(path, **kw):          # as a run with sites and 2 samples would
+        stream_collide.launches += 3
+        stream_collide.launches_vk += 3
+        vk_sites.launches += 3
+        avg_update.launches += 2
+        return []
+
+    monkeypatch.setattr(port_modes, "run_deck", run_deck)
+    for counter, name in ((stream_collide, "launches"), (stream_collide, "launches_vk"),
+                          (vk_sites, "launches"), (avg_update, "launches")):
+        monkeypatch.setattr(counter, name, 5)
+    (tmp_path / "conf.luwpf").write_text("casename = c\n")
+    assert main([str(tmp_path / "conf.luwpf"), "--device", "cpu"]) == 0
+    last = capsys.readouterr().out.rstrip("\n").rsplit("\n", 1)[-1]
+    tag = "runluw-torch: kernel launches "
+    assert last.startswith(tag)
+    got = json.loads(last[len(tag):])
+    assert sorted(got) == sorted(launch_counts())
+    assert got == {k: {"stream_collide": 3, "stream_collide_vk": 3, "vk_sites": 3,
+                       "avg_update": 2}.get(k, 0) for k in got}

@@ -136,16 +136,17 @@ def test_dispatch_targets_are_port_modules(capsys):
         "cdfinspect", "shpinspect", "cleanluw", "luwenv", "vtk2nc",
         "dgprepare", "buildingscale", "visluw", "luwutmnc", "luwcutvis",
         "luwseason", "luwspectra", "luwtkeviz", "luwaij", "luwvideo",
-        "visdem", "shptester"])
+        "visdem", "shptester", "luwstudio"])
     for cmd, handler in COMMANDS.items():
         modname, attr = handler.target
         assert modname.startswith("latticeurbanwind_tpu_torch."), cmd
         assert callable(getattr(importlib.import_module(modname), attr)), cmd
     assert COMMANDS["runluw"].target[0] == "latticeurbanwind_tpu_torch.cli.run"
-    for argv in (["luwstudio"], ["nosuch", "conf.luw"]):
-        assert main(argv) == 2
-        out = capsys.readouterr().out
-        assert f"Unknown command: {argv[0]}" in out and "makeluw" in out
+    assert COMMANDS["luwstudio"].target == ("latticeurbanwind_tpu_torch.gui.server",
+                                            "main")
+    assert main(["nosuch", "conf.luw"]) == 2
+    out = capsys.readouterr().out
+    assert "Unknown command: nosuch" in out and "makeluw" in out
     assert main([]) == 2
 
 

@@ -129,7 +129,7 @@ if CODES:
     dyn = DynParams(force=row[:3].cpu(), omega_coriolis=row[3:6].cpu())
     pre, _ = c.vk_hook(st)
     mesh = domain_mesh(SPLIT, SPLIT_SHAPE, "cuda:0")
-    srun, _ = make_sharded_runner(cfg, frc, mesh, pre_step=pre)
+    srun, _ = make_sharded_runner(cfg, frc, mesh, pre_step=pre, init_u=st.u)
     one = gather_state(srun(shard_state(st, mesh), dyn, 0, 1), "cuda")
     got = gather_state(srun(shard_state(st, mesh), dyn, 0, 6), "cuda")
     torch.save({"f1": one.fi.cpu(), "f": got.fi.cpu(), "g": None,

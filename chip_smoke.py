@@ -180,6 +180,18 @@ nvcc per source, in parallel), then:
      and 3d (each a PNG whose title chunk names the file), /api/volinfo and
      every brick of every level of /api/brick; /api/env naming this card
      and the kernels built; each request timed (`[studio] <step> seconds`).
+  4d. the several-hosts path (`phase_hosts`): `vk-bf16-sharded`'s deck
+     (1.5 m, n_gpu = [1, 2, 2], 400 steps) run by two processes of this
+     script (`--hosts-child`, each the port's `cli.run --device cuda:0`
+     under LUW_COORDINATOR / LUW_NUM_PROCESSES / LUW_PROCESS_ID on a local
+     port, gloo through pinned host buffers between them): each process
+     800 K8 launches, all with sites, no K-AVG; process 0's VTKs byte for
+     byte `vk-bf16-sharded`'s; the split step in lock-step (whole,
+     exchange, K8 launches, FaceBC refresh) and the bytes staged through
+     the host per step; then the sharded runner at (24, 72, 136) over both
+     processes saving a checkpoint set at steps 7 and 9, which this
+     process loads code for code equal to its own split run's state.  A
+     process that fails fails the smoke.
   5. the published-value physics checks of `lbm/physics_checks.py` on the
      kernels in f32 (the lid-driven cavity at Re 100 against Ghia et al.,
      the vortex street's Strouhal number, Taylor-Green decay, Poiseuille,
@@ -978,7 +990,8 @@ def compare_sharded() -> dict:
         single = update_fields(single, cfg, dyn)
         for split in SPLITS:
             mesh = domain_mesh(split, shape, SHARD_DEVICE)
-            srun, impl = make_sharded_runner(cfg, frc, mesh, pre_step=pre)
+            srun, impl = make_sharded_runner(cfg, frc, mesh, pre_step=pre,
+                                             init_u=st.u, init_T=st.T)
             halo0 = stream_collide.launches_halo
             ss = srun(shard_state(st, mesh), dyn, 0, 3)
             ss = srun(ss, dyn, 3, 3)
@@ -1575,7 +1588,7 @@ def time_sharded_step() -> dict:
     pre, _ = vk_hook(st)
     run, _ = make_runner(cfg, frc, shape=MAIN_SHAPE, device=DEVICE, pre_step=pre)
     mesh = domain_mesh(SHARD_SPLIT, MAIN_SHAPE, SHARD_DEVICE)
-    srun, _ = make_sharded_runner(cfg, frc, mesh, pre_step=pre)
+    srun, _ = make_sharded_runner(cfg, frc, mesh, pre_step=pre, init_u=st.u)
     one = {"s": st._replace(fi=st.fi.clone()), "t": 0}
     split = {"s": shard_state(st, mesh), "t": 0}
 
@@ -2058,7 +2071,8 @@ def sharded_loop(case, final, n_gpu, device) -> dict:
 
     mesh = domain_mesh(n_gpu, tuple(final.rho.shape), device)
     run, _ = make_sharded_runner(case.config, case.forcing, mesh,
-                                 pre_step=case.pre_step)
+                                 pre_step=case.pre_step, init_u=final.u,
+                                 init_T=final.T)
     cell = {"s": shard_state(final, mesh), "t": 0}
 
     def step():
@@ -2859,6 +2873,10 @@ def phase_main_path(work: Path, made: Path) -> dict:
                              steps=400, vk=True, n_gpu=SHARD_SPLIT,
                              device=SHARD_DEVICE, keep=True)
     split["against_unsplit"] = compare_split_deck(split, main, "vk-bf16-sharded")
+    # phase_hosts runs the same deck over processes against these VTKs
+    sharded = {"case": work / "vk-bf16-sharded",
+               "vtks": {k: v for k, v in split["files"].items()
+                        if k.endswith(".vtk")}}
     paths = {"vk-bf16-sharded": split}
     if torch.cuda.device_count() >= int(np.prod(SHARD_SPLIT)):
         spread = run_example_deck(work, "vk-bf16-sharded-4cards", storage="bf16",
@@ -2904,7 +2922,7 @@ def phase_main_path(work: Path, made: Path) -> dict:
     for p in paths.values():
         p.pop("raw_u", None)
         p.pop("flags", None)
-    return {"paths": paths, "resume": resume}
+    return {"paths": paths, "resume": resume, "sharded": sharded}
 
 
 PREPARED = {"profile": ("conf.luwpf", "CityDemo_PF.stl"),
@@ -3401,6 +3419,320 @@ def phase_physics() -> dict:
     return out
 
 
+HOSTS_PROCESSES = 2
+HOSTS_CHILD_S = 420             # a deck process's time limit
+HOSTS_TIMED_STEPS = 50
+HOSTS_CKPT_SHAPE = (24, 72, 136)
+# a deck process: this script in its child mode
+HOSTS_CHILD = [sys.executable, str(REPO / "chip_smoke.py"), "--hosts-child"]
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_processes(argv, n: int, timeout: float, cwd=None, env_of=None) -> list:
+    """`argv` in `n` processes under the environment contract of
+    `parallel/comm.py::ensure_distributed` on a free local port (process k
+    gets `env_of(k)` besides); their outputs.  A process that fails or
+    outlives `timeout` fails the phase and every other one is killed."""
+    import os
+
+    port = free_port()
+    procs = []
+    for k in range(n):
+        env = dict(os.environ, LUW_COORDINATOR=f"127.0.0.1:{port}",
+                   LUW_NUM_PROCESSES=str(n), LUW_PROCESS_ID=str(k),
+                   PYTHONPATH=str(REPO))
+        env.update(env_of(k) if env_of else {})
+        procs.append(subprocess.Popen(argv, env=env, cwd=cwd, text=True,
+                                      stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT))
+    outs = [None] * n
+    deadline = time.monotonic() + timeout
+    try:
+        while any(o is None for o in outs):
+            for k, p in enumerate(procs):
+                if outs[k] is None and p.poll() is not None:
+                    outs[k] = p.communicate()[0]
+                    if p.returncode:
+                        raise AssertionError(f"process {k} exited {p.returncode}")
+            if time.monotonic() > deadline:
+                raise AssertionError(f"processes outlived {timeout} s")
+            time.sleep(0.2)
+    except AssertionError as e:
+        for k, p in enumerate(procs):
+            if p.poll() is None:
+                p.kill()
+            if outs[k] is None:
+                outs[k] = p.communicate()[0]
+        raise AssertionError(f"{e}:\n" + "\n".join(
+            f"--- process {k} (rc {p.returncode}), last lines:\n"
+            + "\n".join(o.splitlines()[-40:]) for k, (p, o) in
+            enumerate(zip(procs, outs)))) from None
+    return outs
+
+
+def printed_json(text: str, tag: str):
+    """The JSON after `tag` on the last line of `text` that starts with it."""
+    line = [x for x in text.splitlines() if x.startswith(tag)][-1]
+    return json.loads(line[len(tag):])
+
+
+def fi_digest(fi: torch.Tensor) -> str:
+    """SHA-256 of a DDF tensor's stored codes."""
+    import hashlib
+
+    codes = fi.cpu().view(torch.int16) if fi.element_size() == 2 else fi.cpu()
+    return hashlib.sha256(codes.numpy().tobytes()).hexdigest()
+
+
+def hosts_child(deck: Path, device: str, ckpt: Path | None) -> None:
+    """One process of a deck run over several processes (phase_hosts,
+    chip_four.py): the deck through the port's `cli.run` on `device`, the
+    peak memory of each card it uses, the final DDFs' digest (process 0);
+    then the split step on the run's own runner and final shards, in
+    lock-step with the other processes: the whole step, the exchange, the
+    K8 launches and the FaceBC refresh apart by the host clock between
+    synchronisations and barriers (the K8 launches also by events on the
+    first card), and the bytes staged through the host per step; then,
+    with `ckpt`, the sharded runner on HOSTS_CKPT_SHAPE saving a checkpoint
+    set into `ckpt` at steps 7 and 9.  Prints `HOSTS {...}`."""
+    import latticeurbanwind_tpu_torch.run.driver as driver
+    import latticeurbanwind_tpu_torch.run.modes as modes
+    from latticeurbanwind_tpu_torch.cli.run import main as runluw
+    from latticeurbanwind_tpu_torch.parallel.comm import barrier
+
+    seen = {}
+    real = (driver.make_sharded_runner, driver.gather_state, modes.run_case)
+
+    def runner_spy(config, forcing, mesh, **kw):
+        seen["run"], impl = real[0](config, forcing, mesh, **kw)
+        seen["mesh"] = mesh
+        return seen["run"], impl
+
+    def gather_spy(sstate, *a):
+        seen["final"] = sstate
+        seen["gathered"] = real[1](sstate, *a)
+        return seen["gathered"]
+
+    def case_spy(case, **kw):
+        seen["case"] = case
+        seen["result"] = real[2](case, **kw)
+        return seen["result"]
+
+    driver.make_sharded_runner, driver.gather_state = runner_spy, gather_spy
+    modes.run_case = case_spy
+    try:
+        if runluw([str(deck), "--device", device]):
+            raise AssertionError("runluw failed")
+    finally:
+        driver.make_sharded_runner, driver.gather_state, modes.run_case = real
+    mesh, run, dyn = seen["mesh"], seen["run"], seen["case"].dyn
+    result = {"rank": mesh.rank, "backend": mesh.transport.backend,
+              "shards": list(mesh.local),
+              "devices": [str(d) for d in mesh.local_devices],
+              # since the process began: peak memory of each card it uses
+              "peak_gib": [torch.cuda.max_memory_allocated(d) / 2**30
+                           for d in sorted(set(mesh.local_devices), key=str)],
+              "solver_seconds": seen["result"].solver_seconds,
+              "mlups": seen["result"].timing["mlups"]}
+    if seen["gathered"] is not None:
+        result["fi_sha256"] = fi_digest(seen["gathered"].fi)
+    devices = set(mesh.local_devices)
+    cell = {"s": seen.pop("final"), "t": 10 ** 6}
+    seen.clear()
+
+    def lockstep_ms(fn, reps: int = HOSTS_TIMED_STEPS) -> float:
+        for d in devices:
+            torch.cuda.synchronize(d)
+        barrier()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        for d in devices:
+            torch.cuda.synchronize(d)
+        barrier()
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    def step():
+        cell["s"] = run(cell["s"], dyn, cell["t"], 1)
+        cell["t"] += 1
+
+    lockstep_ms(step, 5)
+    staged0 = mesh.transport.staged_bytes
+    result["step_ms"] = lockstep_ms(step)
+    result["staged_bytes_per_step"] = (
+        (mesh.transport.staged_bytes - staged0) / HOSTS_TIMED_STEPS)
+    stages = run.stages(cell["s"], dyn, cell["t"])
+    stages.refresh()
+    result["exchange_ms"] = lockstep_ms(stages.exchange)
+    result["kernels_ms"] = lockstep_ms(stages.kernels)
+    result["kernels_event_ms"] = cuda_ms(stages.kernels, reps=HOSTS_TIMED_STEPS)
+    result["refresh_ms"] = lockstep_ms(stages.refresh)
+    del stages, cell
+    torch.cuda.empty_cache()
+    if ckpt is not None:
+        result["checkpoint"] = hosts_checkpoint(ckpt, device)
+    log("HOSTS " + json.dumps(result))
+
+
+def hosts_checkpoint(out: Path, device: str) -> dict:
+    """The sharded runner SHARD_SPLIT on HOSTS_CKPT_SHAPE (bf16, nudge +
+    sponge, VK hook) over this run's processes, a checkpoint set saved at
+    steps 7 and 9 into `out`: the seconds of each save.  Process 1 removes
+    its stale sibling after the second barrier of the save, so the set is
+    read once the processes are done."""
+    from latticeurbanwind_tpu_torch.lbm.state import DynParams
+    from latticeurbanwind_tpu_torch.parallel import domain_mesh, shard_state
+    from latticeurbanwind_tpu_torch.parallel.halo import (
+        make_sharded_runner, update_fields_sharded,
+    )
+    from latticeurbanwind_tpu_torch.run.checkpoint import save_checkpoint
+
+    cfg, st, frc, row = make_case(HOSTS_CKPT_SHAPE, "bf16", inflow=0.05,
+                                  device=device)
+    dyn = DynParams(force=row[:3].cpu(), omega_coriolis=row[3:6].cpu())
+    pre, _ = vk_hook(st)
+    mesh = domain_mesh(SHARD_SPLIT, HOSTS_CKPT_SHAPE, device)
+    run, _ = make_sharded_runner(cfg, frc, mesh, pre_step=pre, init_u=st.u)
+    ss = shard_state(st, mesh)
+    seconds, t = {}, 0
+    for step in (7, 9):
+        ss = update_fields_sharded(run(ss, dyn, t, step - t), cfg, dyn)
+        t = step
+        t0 = time.perf_counter()
+        save_checkpoint(out / "hosts.ckpt.npz", ss, step=step,
+                        fbc=run.get_fbc())
+        seconds[step] = time.perf_counter() - t0
+    return {"save_seconds": seconds}
+
+
+def hosts_checkpoint_reference(device: str):
+    """hosts_checkpoint's state at step 9 in this one process, split
+    SHARD_SPLIT on `device`, gathered to the host."""
+    from latticeurbanwind_tpu_torch.lbm.state import DynParams
+    from latticeurbanwind_tpu_torch.parallel import (
+        domain_mesh, gather_state, shard_state,
+    )
+    from latticeurbanwind_tpu_torch.parallel.halo import (
+        make_sharded_runner, update_fields_sharded,
+    )
+
+    cfg, st, frc, row = make_case(HOSTS_CKPT_SHAPE, "bf16", inflow=0.05,
+                                  device=device)
+    dyn = DynParams(force=row[:3].cpu(), omega_coriolis=row[3:6].cpu())
+    pre, _ = vk_hook(st)
+    mesh = domain_mesh(SHARD_SPLIT, HOSTS_CKPT_SHAPE, device)
+    run, _ = make_sharded_runner(cfg, frc, mesh, pre_step=pre, init_u=st.u)
+    ss = update_fields_sharded(run(shard_state(st, mesh), dyn, 0, 7), cfg, dyn)
+    ss = update_fields_sharded(run(ss, dyn, 7, 2), cfg, dyn)
+    return gather_state(ss)
+
+
+def run_deck_processes(work: Path, source: Path, tag: str, *, device: str,
+                       n: int, ckpt: bool = False, env_of=None) -> dict:
+    """A copy of the deck case `source` (its outputs left behind) run by
+    `n` processes of `hosts_child` on `device`: each process's lines, its
+    launches (the runluw summary line), its HOSTS record; the run's VTKs
+    (name -> path) and the wall seconds."""
+    case = work / tag
+    shutil.copytree(source, case, ignore=shutil.ignore_patterns(
+        "RESULTS", "snapshots", "frames", "checkpoints"))
+    deck = next(case.glob("conf.luw*"))
+    argv = HOSTS_CHILD + [str(deck), device] + ([str(case)] if ckpt else [])
+    t0 = time.perf_counter()
+    outs = run_processes(argv, n, HOSTS_CHILD_S, cwd=case, env_of=env_of)
+    wall = time.perf_counter() - t0
+    procs = [{"launches": printed_json(o, "runluw-torch: kernel launches "),
+              "record": printed_json(o, "HOSTS "),
+              "lines": [x for x in o.splitlines() if x.startswith("| ")]}
+             for o in outs]
+    return {"processes": procs, "wall": wall, "case": case,
+            "vtks": {p.name: p for p in (case / "RESULTS" / "vtk").glob("*.vtk")}}
+
+
+def phase_hosts(work: Path, sharded: dict) -> dict:
+    """The several-hosts path on card 0: `vk-bf16-sharded`'s deck (1.5 m,
+    n_gpu = SHARD_SPLIT, 400 steps) run by HOSTS_PROCESSES processes of the
+    port's `cli.run --device cuda:0`, gloo through the host between them:
+    each process launches K8 400 x its shards (all with VK sites) and no
+    K-AVG, process 0 writes every VTK, each byte for byte
+    `vk-bf16-sharded`'s (`sharded`: its case directory and VTKs); the split
+    step, its exchange and the host-staged bytes per step; then the
+    sharded runner's checkpoint set of both processes, loaded here code for
+    code equal to this process's split state."""
+    from latticeurbanwind_tpu_torch.run.checkpoint import load_checkpoint
+
+    log("== phase hosts: the split deck over processes on card 0")
+    t0 = time.perf_counter()
+    run = run_deck_processes(work, sharded["case"], "hosts-bf16-sharded",
+                             device=SHARD_DEVICE, n=HOSTS_PROCESSES, ckpt=True)
+    from latticeurbanwind_tpu_torch.deck import load_deck
+
+    steps = load_deck(next(run["case"].glob("conf.luw*"))).get_int("run_nstep")
+    records = [p["record"] for p in run["processes"]]
+    for k, p in enumerate(run["processes"]):
+        shards = len(p["record"]["shards"])
+        want = {"stream_collide": steps * shards,
+                "stream_collide_vk": steps * shards,
+                "stream_collide_halo": steps * shards,
+                "stream_collide_wall": 0, "stream_collide_thermal": 0,
+                "vk_sites": 0, "avg_update": 0, "avg_update_wall": 0}
+        got = {key: p["launches"].get(key) for key in want}
+        log(f"[hosts] process {k}: " + "; ".join(p["lines"]))
+        log(f"[hosts] process {k} (shards {p['record']['shards']}, data over "
+            f"{p['record']['backend']}): launches {p['launches']}")
+        if got != want or p["record"]["backend"] != "gloo":
+            raise AssertionError(f"[hosts] process {k} launches {got} != {want}")
+    names = sorted(sharded["vtks"])
+    if sorted(run["vtks"]) != names:
+        raise AssertionError(f"[hosts] VTKs {sorted(run['vtks'])} != {names}")
+    same = {n: run["vtks"][n].read_bytes() == sharded["vtks"][n].read_bytes()
+            for n in names}
+    log(f"[hosts] VTKs against vk-bf16-sharded's: " + ", ".join(
+        f"{n} {'byte for byte' if v else 'DIFFER'}" for n, v in same.items()))
+    if not all(same.values()):
+        raise AssertionError("[hosts] the VTKs differ from vk-bf16-sharded's")
+    want = hosts_checkpoint_reference(SHARD_DEVICE)
+    got, step, _, _, _ = load_checkpoint(run["case"] / "hosts.ckpt.npz",
+                                         expect_shape=HOSTS_CKPT_SHAPE)
+    apart = {k: codes_apart(getattr(got, k).to(getattr(want, k).device),
+                            getattr(want, k))["differing"]
+             for k in ("fi", "rho", "u")}
+    apart["flags"] = int((got.flags != want.flags).sum())
+    files = sorted(p.name for p in run["case"].glob("hosts.ckpt*"))
+    log(f"[hosts] checkpoint set {files} at step {step}, against the split "
+        f"state of one process: differing " + ", ".join(
+            f"{k} {v}" for k, v in apart.items()))
+    if step != 9 or any(apart.values()) or files != [
+            "hosts.ckpt.npz", "hosts.ckpt.npz.p1.s9.npz"]:
+        raise AssertionError("[hosts] the checkpoint set does not assemble")
+    shutil.rmtree(run["case"], ignore_errors=True)
+    timing = {k: [r[k] for r in records] for k in (
+        "step_ms", "exchange_ms", "kernels_ms", "kernels_event_ms",
+        "refresh_ms", "staged_bytes_per_step")}
+    seconds = time.perf_counter() - t0
+    log(f"[hosts] split step over {HOSTS_PROCESSES} processes on card 0, ms "
+        f"per step (host clock, in lock-step) by process: whole "
+        f"{timing['step_ms']}, exchange {timing['exchange_ms']}, K8 launches "
+        f"{timing['kernels_ms']} (events {timing['kernels_event_ms']}), "
+        f"refresh {timing['refresh_ms']}; bytes staged through the host per "
+        f"step {timing['staged_bytes_per_step']}; solver seconds "
+        f"{[r['solver_seconds'] for r in records]}; processes' wall "
+        f"{run['wall']:.1f} s, phase {seconds:.1f} s")
+    return {"timing": timing, "launches": [p["launches"] for p in run["processes"]],
+            "solver_seconds": [r["solver_seconds"] for r in records],
+            "mlups": [r["mlups"] for r in records],
+            "peak_gib": [r["peak_gib"] for r in records],
+            "checkpoint_save_seconds": records[0]["checkpoint"]["save_seconds"],
+            "vtks_equal": same, "wall": run["wall"], "seconds": seconds}
+
+
 def main() -> int:
     card = phase_card()
     from latticeurbanwind_tpu_torch.utils.cuda_build import BUILD_DIR
@@ -3416,6 +3748,7 @@ def main() -> int:
         examples = phase_examples_post(work, made)
         examples["dgprepare"] = prepared
         studio = phase_studio(work, made, pipeline["route"]["launches"])
+        hosts = phase_hosts(work, deck.pop("sharded"))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     physics = phase_physics()
@@ -3572,6 +3905,7 @@ def main() -> int:
     ], "build_s": card["build_s"], "nvcc_s": card["nvcc_s"],
         "copy_gbps": timing["copy_gbps"], "resume_phase": deck["resume"],
         "pipeline": pipeline, "examples": examples, "studio": studio,
+        "hosts": hosts,
         "physics": physics,
         "renders": {k: {"renders": p["renders"],
                         "solver_seconds": p["solver_seconds"],
@@ -3587,4 +3921,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--hosts-child"]:
+        # one process of run_deck_processes: <deck> <device> [<checkpoint dir>]
+        hosts_child(Path(sys.argv[2]), sys.argv[3],
+                    Path(sys.argv[4]) if len(sys.argv) > 4 else None)
+        sys.exit(0)
     sys.exit(main())

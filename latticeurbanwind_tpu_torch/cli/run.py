@@ -14,7 +14,22 @@ first use) and raises when there is none; `--device cpu` runs the kernels'
 plain torch versions on the CPU instead.  A deck whose `n_gpu` asks for
 several devices is split over them: `--device cuda` puts shard i on card i
 (one card when fewer are visible), `--device cuda:k` every shard on card k,
-`--device cpu` every shard on the CPU.  The deck runs as written, the VK
+`--device cpu` every shard on the CPU.
+
+Over several processes or hosts, one command per process under the JAX
+package's environment (`parallel/comm.py::ensure_distributed`), each
+process with its own LUW_PROCESS_ID:
+
+    export LUW_COORDINATOR=host0:29500 LUW_NUM_PROCESSES=2
+    LUW_PROCESS_ID=0 python -m latticeurbanwind_tpu_torch.cli.run conf.luwpf
+    LUW_PROCESS_ID=1 python -m latticeurbanwind_tpu_torch.cli.run conf.luwpf
+
+The deck's shards are dealt to the processes in contiguous blocks (the
+device rule then holds within each process), halos cross over NCCL between
+distinct cards or gloo through the host otherwise, process 0 writes every
+output file and a checkpoint is written by all as one set.
+
+The deck runs as written, the VK
 synthetic-turbulence inlet, the wall models, the temperature sub-lattice
 and every `lbm_storage` included.  A `.luw` deck needs its prepared inputs
 (`proj_temp/SurfData_<datetime>.csv` and the case STL), which the port's

@@ -2,15 +2,16 @@
 
 Counterpart of `latticeurbanwind_tpu/parallel/halo.py::
 make_sharded_pallas_runner` (the reference's pack / PCIe / unpack halo
-pipeline, lbm.cpp:1864-1958).  All shards live in one process, each on the
-device of `parallel/mesh.py`'s rule, and every step runs, in this order
+pipeline, lbm.cpp:1864-1958).  Each shard lives on the device of
+`parallel/mesh.py`'s rule, in one process or dealt over several (each
+process steps the shards it holds), and every step runs, in this order
 (JAX `halo.py:326-337`):
 
   1. the pre-step hook (the VK inlet) refreshes the FaceBC targets of the
-     whole domain once, and each shard takes its slice of the face arrays,
-     edge-padded over its ghosts (JAX `:395-417`), so every target is the
-     single-device run's bit for bit and the JAX hook's shard offsets are
-     not needed;
+     whole domain once in every process, from the same seeded generator,
+     and each shard takes its slice of the face arrays, edge-padded over its
+     ghosts (JAX `:395-417`), so every target is the single-device run's bit
+     for bit and the JAX hook's shard offsets are not needed;
   2. the y / x ghosts are exchanged: x first, then y over the
      x-ghost-extended width, so the corners are right (JAX `:89-111`);
   3. the z halos are taken, after the ghosts, because the diagonal pulls
@@ -20,9 +21,13 @@ device of `parallel/mesh.py`'s rule, and every step runs, in this order
      thermal run one g channel each.  On one device a halo is a view into
      the neighbour's DDF buffer (the kernel takes a channel stride), so no z
      plane is copied; across devices it is copied with `Tensor.copy_`, which
-     orders the two devices' streams;
+     orders the two devices' streams; across processes ghosts and halos go
+     through the mesh's `Transport` (`parallel/comm.py`: one
+     `batch_isend_irecv` per stage, NCCL between cards or gloo through the
+     host), every process posting the same stages in the same order;
   4. one K8 launch per shard (`ops.stream_collide.stream_collide(...,
-     halo=...)`) steps the shard into its spare buffer.
+     halo=...)`) steps the shard into its spare buffer;
+     `stream_collide.launches_halo` counts this process's launches.
 
 At the domain's edges ghosts and halos wrap periodically, as the single-
 device kernel does (JAX `_fwd` / `_bwd`).  The kernel is ghost-oblivious: a
@@ -30,7 +35,9 @@ ghost cell's output is garbage that the next exchange overwrites before
 anything reads it.  Flags are exchanged once (`shard_state` fills their
 ghosts; the flag planes of the halos are taken once per runner); nudge
 fields are zero-padded per shard, `sponge_z` is sliced at z0, and the VK
-site masks are sliced, with only the sites of the faces a shard owns.
+site masks are sliced, with only the sites of the faces a shard owns.  The
+whole domain's FaceBC is built from the caller's initial u (and T), as the
+JAX runner's `init_u` / `init_T`: no process sees the others' shards.
 """
 
 from __future__ import annotations
@@ -47,72 +54,89 @@ from ..lbm.state import (
 )
 from ..lbm.stepper import spare_buffer
 from ..ops.stream_collide import FaceBC, build_face_bc, check_config, stream_collide
-from .mesh import DomainMesh, ShardedState, gather_tensors
+from .mesh import DomainMesh, ShardedState, move_between_shards
 
 # VK site kind -> (mesh axis, which end) of the face it sits on
 _SITE_FACE = {"lane0": (2, 0), "laneL": (2, -1), "row0": (1, 0),
               "rowL": (1, -1), "plane0": (0, 0), "planeL": (0, -1)}
 
 
-def exchange_ghosts(bufs: List[torch.Tensor], mesh: DomainMesh) -> None:
+def exchange_ghosts(bufs: List[Optional[torch.Tensor]], mesh: DomainMesh,
+                    stage: str = "f") -> None:
     """Refresh the ghost lanes and rows of every shard's (..., Z, Y, X)
-    buffer from its neighbours' boundary cells, in place: x first, then y
-    over the whole (x-ghost-extended) width, so corners come from the
-    diagonal neighbour.  Each shard's last own row or lane sits one before
-    its upper ghost, whatever its box."""
+    buffer (None: another process's) from its neighbours' boundary cells,
+    in place: x first, then y over the whole (x-ghost-extended) width, so
+    corners come from the diagonal neighbour.  Each shard's last own row or
+    lane sits one before its upper ghost, whatever its box."""
     gy, gx = mesh.ghosts
-    b = [_bits(t) for t in bufs]
-    if gx:
+    b = [None if t is None else _bits(t) for t in bufs]
+    for axis, on in ((2, gx), (1, gy)):
+        if not on:
+            continue
+        end = (slice(None),) * (2 - axis)     # the rows or lanes of the axis
+
+        def cut(i, k, end=end):
+            return lambda: b[i][(Ellipsis, k) + end]
+
+        pairs = []
         for i in range(mesh.n):
-            b[i][..., 0].copy_(b[mesh.neighbour(i, 2, -1)][..., -2])
-            b[i][..., -1].copy_(b[mesh.neighbour(i, 2, 1)][..., 1])
-    if gy:
-        for i in range(mesh.n):
-            b[i][..., 0, :].copy_(b[mesh.neighbour(i, 1, -1)][..., -2, :])
-            b[i][..., -1, :].copy_(b[mesh.neighbour(i, 1, 1)][..., 1, :])
+            lo, hi = mesh.neighbour(i, axis, -1), mesh.neighbour(i, axis, 1)
+            pairs.append((lo, i, cut(lo, -2), cut(i, 0)))
+            pairs.append((hi, i, cut(hi, 1), cut(i, -1)))
+        move_between_shards(mesh, f"{stage}-{axis}", pairs)
 
 
 class _Halos:
-    """The z halos of every shard: views into the neighbours' buffers on
-    one device, copies into buffers kept per shard across devices.  The
-    halo below is the lower neighbour's own last plane, the one above the
-    upper neighbour's first (z carries no ghosts, whatever the slabs'
-    depths)."""
+    """The z halos of every shard this process holds: views into the
+    neighbours' buffers on one device, copies into buffers kept per shard
+    across devices or processes.  The halo below is the lower neighbour's
+    own last plane, the one above the upper neighbour's first (z carries no
+    ghosts, whatever the slabs' depths); neighbours along z share their y
+    and x extents, so a shard's own plane gives a halo's shape."""
 
-    def __init__(self, mesh: DomainMesh, flags: List[torch.Tensor]):
+    def __init__(self, mesh: DomainMesh, flags: List[Optional[torch.Tensor]]):
         self.mesh = mesh
         self.scratch = {}
-        self.flb = [self._take(i, "flb", flags[mesh.neighbour(i, 0, -1)][-1])
-                    for i in range(mesh.n)]
-        self.fla = [self._take(i, "fla", flags[mesh.neighbour(i, 0, 1)][0])
-                    for i in range(mesh.n)]
+        self.flb = self._take("flb", flags, lambda a: a[-1], -1)
+        self.fla = self._take("fla", flags, lambda a: a[0], 1)
 
-    def _take(self, i: int, key: str, src: torch.Tensor) -> torch.Tensor:
-        dev = self.mesh.devices[i]
-        if src.device == dev:
-            return src
-        buf = self.scratch.get((i, key))
-        if buf is None:
-            buf = self.scratch[(i, key)] = torch.empty(
-                src.shape, dtype=src.dtype, device=dev)
-        _bits(buf).copy_(_bits(src))
-        return buf
+    def _take(self, key: str, bufs, plane, step: int) -> List[Optional[torch.Tensor]]:
+        """Each held shard's halo `plane(buffer)` of its neighbour `step`
+        away along z."""
+        mesh = self.mesh
+        out = [None] * mesh.n
+        pairs = []
+        for i in range(mesh.n):
+            j = mesh.neighbour(i, 0, step)
+            if mesh.is_local(i) and mesh.is_local(j):
+                src = plane(bufs[j])
+                if src.device == mesh.devices[i]:
+                    out[i] = src
+                    continue
+            if mesh.is_local(i):
+                like = plane(bufs[i])
+                buf = self.scratch.get((i, key))
+                if buf is None:
+                    buf = self.scratch[(i, key)] = torch.empty(
+                        like.shape, dtype=like.dtype, device=mesh.devices[i])
+                out[i] = buf
+            pairs.append((j, i, lambda j=j: _bits(plane(bufs[j])),
+                          lambda i=i: _bits(out[i])))
+        move_between_shards(mesh, f"halo-{key}", pairs)
+        return out
 
-    def __call__(self, cur, gcur) -> List[ZHalo]:
+    def __call__(self, cur, gcur) -> List[Optional[ZHalo]]:
         mesh = self.mesh
         gy, gx = mesh.ghosts
-        out = []
-        for i in range(mesh.n):
-            below, above = mesh.neighbour(i, 0, -1), mesh.neighbour(i, 0, 1)
-            gp = gm = None
-            if gcur is not None:
-                gp = self._take(i, "gp", gcur[below][5, -1])
-                gm = self._take(i, "gm", gcur[above][6, 0])
-            out.append(ZHalo(fp=self._take(i, "fp", cur[below][9:14, -1]),
-                             fm=self._take(i, "fm", cur[above][14:19, 0]),
-                             flb=self.flb[i], fla=self.fla[i], gp=gp, gm=gm,
-                             gy=gy, gx=gx))
-        return out
+        fp = self._take("fp", cur, lambda a: a[9:14, -1], -1)
+        fm = self._take("fm", cur, lambda a: a[14:19, 0], 1)
+        gp = gm = [None] * mesh.n
+        if gcur is not None:
+            gp = self._take("gp", gcur, lambda a: a[5, -1], -1)
+            gm = self._take("gm", gcur, lambda a: a[6, 0], 1)
+        return [ZHalo(fp=fp[i], fm=fm[i], flb=self.flb[i], fla=self.fla[i],
+                      gp=gp[i], gm=gm[i], gy=gy, gx=gx)
+                if mesh.is_local(i) else None for i in range(mesh.n)]
 
 
 def _box(a: torch.Tensor, mesh: DomainMesh, i: int, dims) -> torch.Tensor:
@@ -170,10 +194,10 @@ def _shard_sites(spec, mesh: DomainMesh, i: int):
 
 
 class _FaceSlicer:
-    """Every shard's FaceBC from the domain's: per face field one gather of
-    all shards' parts at once (the flat indices of every shard's part, kept
-    from the build, concatenated), each part its box edge-padded over the
-    ghosts, as JAX `halo.py:395-417`."""
+    """Every held shard's FaceBC from the domain's: per face field one
+    gather of all these shards' parts at once (the flat indices of each
+    one's part, kept from the build, concatenated), each part its box
+    edge-padded over the ghosts, as JAX `halo.py:395-417`."""
 
     def __init__(self, mesh: DomainMesh, home: torch.device):
         Z, Y, X = mesh.shape
@@ -195,7 +219,7 @@ class _FaceSlicer:
             return torch.arange(3)[:, None, None] * (Y * X) + yx[None]
 
         def flat(fn):
-            parts = [fn(i) for i in range(mesh.n)]
+            parts = [fn(i) for i in mesh.local]
             return (torch.cat([p.reshape(-1) for p in parts]).to(home),
                     [p.numel() for p in parts], [tuple(p.shape) for p in parts])
 
@@ -220,30 +244,36 @@ class _FaceSlicer:
             idx, sizes, shapes = self.index[which[k]]
             parts[k] = [p.view(s) for p, s in
                         zip(torch.take(v, idx).split(sizes), shapes)]
-        out = []
-        for i, dev in enumerate(self.mesh.devices):
-            out.append(FaceBC(**{k: None if v is None else v[i].to(dev)
-                                 for k, v in parts.items()}))
+        out = [None] * self.mesh.n
+        for n, i in enumerate(self.mesh.local):
+            dev = self.mesh.devices[i]
+            out[i] = FaceBC(**{k: None if v is None else v[n].to(dev)
+                               for k, v in parts.items()})
         return out
 
 
 def make_sharded_runner(config: StepConfig, forcing: Forcing,
-                        mesh: DomainMesh, *, pre_step=None):
+                        mesh: DomainMesh, *, init_u: torch.Tensor,
+                        init_T: Optional[torch.Tensor] = None, pre_step=None):
     """`(run, impl_name)` with `run(sstate, dyn, t0, n_steps=1) ->
     sstate`, the stepper's interface (`lbm/stepper.py::make_runner`) over a
     `ShardedState` of `mesh`: every step is the ordered exchange and one
-    K8 launch per shard of the module docstring.  `forcing` is the whole
+    K8 launch per shard this process holds, as the module docstring says.
+    `forcing` is the whole
     domain's, on the host or any device (each shard takes a copy of its
-    part); the hook is the whole domain's, on the mesh's first device, where
-    the FaceBC refresh runs; `impl_name` is
+    part); the hook is the whole domain's, on this process's first device,
+    where the FaceBC refresh runs; `impl_name` is
     "cuda-sharded" on CUDA devices (the kernels; a CUDA run never steps a
     plain version) and "plain-sharded" on the CPU.
 
     Like the stepper, `run` keeps two DDF buffers per shard (and two g
     buffers when thermal), swaps them after every step and returns the
     state holding the newest; the incoming shards' `fi`/`gi` become spares.
-    The FaceBC of the whole domain is built from the first state's fields
-    and carried across calls (`get_fbc` / `set_fbc`; `reset` forgets it).
+    The FaceBC of the whole domain is built from `init_u` (and `init_T`,
+    required when thermal), the whole domain's initial fields on the host
+    or any device, as the JAX runner's.  It is carried across calls
+    (`get_fbc` / `set_fbc`; `reset` goes back to the one built from
+    `init_u`).
     `run.stages(sstate, dyn, t0)` hands out one step's stages, the functions
     `run` calls in turn, to time them apart.
     """
@@ -256,50 +286,57 @@ def make_sharded_runner(config: StepConfig, forcing: Forcing,
                 "JAX package's reference tier, which the port does not carry")
     vk_spec = getattr(pre_ddf, "kernel_spec", None)
     check_config(config, forcing, vk_spec)
-    home = mesh.devices[0]
+    local = mesh.local
+    home = mesh.devices[local[0]]
     thermal = config.thermal
     needs_fbc = (forcing.nudge_sigma is not None
                  or forcing.sponge_sigma_z is not None or vk_spec is not None)
-    forcings = [_shard_forcing(forcing, mesh, i) for i in range(mesh.n)]
-    sites = [_shard_sites(vk_spec, mesh, i) for i in range(mesh.n)]
+
+    def face_bc(u, T) -> FaceBC:
+        return FaceBC(*(None if v is None else v.to(home)
+                        for v in build_face_bc(u, T if thermal else None)))
+
+    if thermal and init_T is None:
+        raise ValueError("a thermal runner needs the whole domain's init_T")
+    fbc0 = face_bc(init_u, init_T) if needs_fbc else None
+    forcings = [_shard_forcing(forcing, mesh, i) if mesh.is_local(i) else None
+                for i in range(mesh.n)]
+    sites = [_shard_sites(vk_spec, mesh, i) if mesh.is_local(i) else None
+             for i in range(mesh.n)]
     slicer = _FaceSlicer(mesh, home)
-    cell = {"fbc": None, "init": False, "local": None, "local_of": None,
-            "spare": [None] * mesh.n, "gspare": [None] * mesh.n, "halos": None,
-            "rows": None, "rows_of": None}
+    cell = {}
+
+    def reset():
+        cell.update(fbc=fbc0, local=None, local_of=None, spare=[None] * mesh.n,
+                    gspare=[None] * mesh.n, halos=None, rows=None, rows_of=None)
+
+    reset()
 
     def begin(sstate: ShardedState, dyn: DynParams, t0: int) -> SimpleNamespace:
-        """A call's set-up: the carried FaceBC (built from the first
-        state's fields), the halos' flag planes (static: taken once), one
-        dyn row per device and DynParams, each shard's buffers; returns the
-        step context that the stages advance."""
+        """A call's set-up: the carried FaceBC, the halos' flag planes
+        (static: taken once), one dyn row per device and DynParams, each
+        shard's buffers; returns the step context that the stages
+        advance."""
         if sstate.mesh != mesh:
             raise ValueError("the state is split over another mesh")
         shards = sstate.shards
-        if not cell["init"]:
-            # the face targets from the whole domain's u (and T) gathered on
-            # the host: card 0 never holds a whole-domain field
-            fbc = None
-            if needs_fbc:
-                u = gather_tensors([s.u for s in shards], mesh)
-                T = (gather_tensors([s.T for s in shards], mesh)
-                     if thermal else None)
-                fbc = FaceBC(*(None if v is None else v.to(home)
-                               for v in build_face_bc(u, T)))
-            cell["fbc"], cell["init"] = fbc, True
         if cell["halos"] is None:
-            cell["halos"] = _Halos(mesh, [s.flags for s in shards])
+            cell["halos"] = _Halos(mesh, [_field(s, "flags") for s in shards])
         if cell["rows_of"] is not dyn:
-            cell["rows"] = {d: dyn_row(dyn, d) for d in set(mesh.devices)}
+            cell["rows"] = {d: dyn_row(dyn, d) for d in set(mesh.local_devices)}
             cell["rows_of"] = dyn
-        cur = [s.fi for s in shards]
-        gcur = [s.gi for s in shards] if thermal else None
+        cur = [_field(s, "fi") for s in shards]
+        gcur = [_field(s, "gi") for s in shards] if thermal else None
+
+        def spares(bufs, kept):
+            return [None if c is None else spare_buffer(c, k)
+                    for c, k in zip(bufs, kept)]
+
         return SimpleNamespace(
             shards=shards, t=int(t0), fbc=cell["fbc"],
             aux=pre_ddf.init_aux(t0) if hasattr(pre_ddf, "init_aux") else None,
-            cur=cur, spare=[spare_buffer(c, s) for c, s in zip(cur, cell["spare"])],
-            gcur=gcur,
-            gspare=([spare_buffer(c, s) for c, s in zip(gcur, cell["gspare"])]
-                    if thermal else [None] * mesh.n),
+            cur=cur, spare=spares(cur, cell["spare"]), gcur=gcur,
+            gspare=spares(gcur, cell["gspare"]) if thermal else [None] * mesh.n,
             zh=None)
 
     def refresh(ctx: SimpleNamespace) -> None:
@@ -315,15 +352,16 @@ def make_sharded_runner(config: StepConfig, forcing: Forcing,
         """Stages 2 and 3: the y / x ghosts, then the z halos."""
         exchange_ghosts(ctx.cur, mesh)
         if thermal:
-            exchange_ghosts(ctx.gcur, mesh)
+            exchange_ghosts(ctx.gcur, mesh, "g")
         ctx.zh = cell["halos"](ctx.cur, ctx.gcur)
 
     def kernels(ctx: SimpleNamespace) -> None:
         """Stage 4: one K8 launch per shard into its spare buffers."""
-        local = cell["local"]
-        for i, s in enumerate(ctx.shards):
+        parts = cell["local"]
+        for i in local:
+            s = ctx.shards[i]
             stream_collide(ctx.cur[i], s.flags, cell["rows"][mesh.devices[i]],
-                           config, forcings[i], local[i], out=ctx.spare[i],
+                           config, forcings[i], parts[i], out=ctx.spare[i],
                            vk=sites[i], gi=ctx.gcur[i] if thermal else None,
                            gi_out=ctx.gspare[i], halo=ctx.zh[i])
 
@@ -340,6 +378,7 @@ def make_sharded_runner(config: StepConfig, forcing: Forcing,
                 ctx.gcur, ctx.gspare = ctx.gspare, ctx.gcur
         cell.update(fbc=ctx.fbc, spare=ctx.spare, gspare=ctx.gspare)
         return sstate._replace(shards=tuple(
+            None if s is None else
             s._replace(fi=ctx.cur[i], gi=ctx.gcur[i] if thermal else s.gi)
             for i, s in enumerate(sstate.shards)))
 
@@ -358,11 +397,6 @@ def make_sharded_runner(config: StepConfig, forcing: Forcing,
         return SimpleNamespace(context=ctx, **{
             f.__name__: functools.partial(f, ctx) for f in stages})
 
-    def reset():
-        cell.update(fbc=None, init=False, local=None, local_of=None,
-                    spare=[None] * mesh.n, gspare=[None] * mesh.n, halos=None,
-                    rows=None, rows_of=None)
-
     def set_fbc(fbc: Optional[FaceBC]):
         if fbc is not None:
             Z, Y, X = mesh.shape
@@ -375,31 +409,36 @@ def make_sharded_runner(config: StepConfig, forcing: Forcing,
             if thermal and forcing.sponge_sigma_z is not None and fbc.tt is None:
                 raise ValueError("FaceBC has no thermal target 'tt' but this "
                                  "runner is thermal")
-        cell.update(fbc=fbc, init=True, local=None, local_of=None)
+        cell.update(fbc=fbc, local=None, local_of=None)
 
     run.reset = reset
     run.get_fbc = lambda: cell["fbc"]
     run.set_fbc = set_fbc
     run.fields_stale = True
     run.stages = step_stages
-    cuda = all(d.type == "cuda" for d in mesh.devices)
+    cuda = all(d.type == "cuda" for d in mesh.local_devices)
     return run, ("cuda-sharded" if cuda else "plain-sharded")
+
+
+def _field(shard, name: str):
+    return None if shard is None else getattr(shard, name)
 
 
 def update_fields_sharded(sstate: ShardedState, config: StepConfig,
                           dyn: Optional[DynParams] = None) -> ShardedState:
-    """`lbm.fields.update_fields` on every shard: its ghosts refreshed from
-    the neighbours first (a step leaves them garbage), then each slab with
-    its z halos beside it, cropped back; the JAX package runs the same pass
-    on the sharded arrays."""
+    """`lbm.fields.update_fields` on every shard this process holds: its
+    ghosts refreshed from the neighbours first (a step leaves them
+    garbage), then each slab with its z halos beside it, cropped back; the
+    JAX package runs the same pass on the sharded arrays."""
     mesh = sstate.mesh
     shards = sstate.shards
-    cur = [s.fi for s in shards]
+    cur = [_field(s, "fi") for s in shards]
     exchange_ghosts(cur, mesh)
     gcur = None
     if config.thermal:
-        gcur = [s.gi for s in shards]
-        exchange_ghosts(gcur, mesh)
-    zh = _Halos(mesh, [s.flags for s in shards])(cur, gcur)
+        gcur = [_field(s, "gi") for s in shards]
+        exchange_ghosts(gcur, mesh, "g")
+    zh = _Halos(mesh, [_field(s, "flags") for s in shards])(cur, gcur)
     return sstate._replace(shards=tuple(
-        update_fields(s, config, dyn, halo=h) for s, h in zip(shards, zh)))
+        None if s is None else update_fields(s, config, dyn, halo=h)
+        for s, h in zip(shards, zh)))

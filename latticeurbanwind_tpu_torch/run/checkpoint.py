@@ -16,8 +16,15 @@ reference lacks: a killed run restarts from step 0).  The file is the same
   * a state split over a mesh (`parallel.mesh.ShardedState`) is saved as
     one block per shard, `<name>@<starts>`: the shard's box without its
     ghosts at its offset in the global array (`DomainMesh.origin`), with no
-    gathered copy; the per-shard accumulators likewise.  One process writes
-    the file (`n_processes` 1): the multi-host writer is not ported.
+    gathered copy; the per-shard accumulators likewise;
+  * a mesh over several processes saves one set, the JAX package's
+    multi-host protocol (JAX `run/checkpoint.py:58-77`, `:176-204`): each
+    process k > 0 writes its blocks and a {version, step} header to the
+    step-tagged sibling `<name>.p<k>.s<step>.npz`, then a barrier, then
+    process 0 writes the main file (`n_processes` = the process count, the
+    plain entries and its own blocks), then a barrier, then each process
+    k > 0 removes its stale siblings.  A crash anywhere leaves the old set
+    or the new one loadable, never a torn mix.
 
 Loading reads the per-process sibling files of a JAX multi-host save and
 refuses a torn one, assembles the global arrays and returns them as host
@@ -37,6 +44,7 @@ import torch
 
 from ..lbm.state import LBMState
 from ..ops.stream_collide import FaceBC
+from ..parallel.comm import barrier
 from ..parallel.mesh import ShardedState, interior
 from .welford import AvgState
 
@@ -58,6 +66,22 @@ def _sibling_path(path: Path, process_index: int,
     (`.p<k>.s<step>.npz`), or the legacy untagged `.p<k>.npz`."""
     tag = "" if step is None else f".s{int(step)}"
     return path.with_name(f"{path.name}.p{process_index}{tag}.npz")
+
+
+def _gc_siblings(path: Path, process_index: int, keep_step: int) -> None:
+    """Remove this process's stale sibling files after a committed save:
+    its other step tags and its legacy untagged file.  Only this process's
+    own names match (`.p1.` never reaches `.p10.`'s files; JAX
+    `run/checkpoint.py:72`'s `.p<k>*` pattern does)."""
+    keep = _sibling_path(path, process_index, keep_step).name
+    olds = [*path.parent.glob(f"{path.name}.p{process_index}.s*.npz"),
+            _sibling_path(path, process_index)]
+    for old in olds:
+        if old.name != keep:
+            try:
+                old.unlink()
+            except OSError:
+                pass
 
 
 def _to_numpy(t: torch.Tensor) -> Tuple[np.ndarray, str]:
@@ -99,58 +123,70 @@ def save_checkpoint(path: Path, state, *, step: int,
 
     `state` is an `LBMState` or a `ShardedState`; under a mesh `avg` is the
     tuple of per-shard `AvgState`s (ghosts included; only the boxes are
-    saved), else one `AvgState`.  `fbc`: the runner's carried FaceBC (the
-    nudge/sponge face targets the VK inlet refreshes), so that a resumed
-    VK run continues bit-exactly."""
+    saved; None for another process's shard), else one `AvgState`.  `fbc`:
+    the runner's carried FaceBC (the nudge/sponge face targets the VK inlet
+    refreshes), so that a resumed VK run continues bit-exactly.  Under a
+    mesh over several processes every process calls this with the same
+    arguments and the set is written as the module docstring says."""
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     mesh = state.mesh if isinstance(state, ShardedState) else None
+    rank, n_proc = (mesh.rank, mesh.processes) if mesh is not None else (0, 1)
+    first = state if mesh is None else state.local()
+
+    def blocks(name):
+        if mesh is None:
+            return getattr(state, name)
+        return [None if s is None else getattr(s, name) for s in state.shards]
 
     arrays: Dict[str, object] = {}
     for name in ("fi", "rho", "u", "flags"):
-        arrays[name] = (getattr(state, name) if mesh is None
-                        else [getattr(s, name) for s in state.shards])
+        arrays[name] = blocks(name)
     if fbc is not None:
         for k in _FBC_FIELDS:
             v = getattr(fbc, k)
             if v is not None:
                 arrays[f"fbc_{k}"] = v
-    thermal = (state.gi if mesh is None else state.shards[0].gi) is not None
+    thermal = first.gi is not None
     if thermal:
         for name in ("gi", "T"):
-            arrays[name] = (getattr(state, name) if mesh is None
-                            else [getattr(s, name) for s in state.shards])
+            arrays[name] = blocks(name)
     if avg is not None:
         avgs = [avg] if mesh is None else list(avg)
+        mine = avg if mesh is None else avgs[mesh.local[0]]
         for name, key in (("avg_mean_u", "mean_u"), ("avg_m2_u", "m2_u"),
                           ("avg_mean_rho", "mean_rho"),
                           ("avg_mean_T", "mean_T")):
-            parts = [getattr(a, key) for a in avgs]
-            if parts[0] is not None:
-                arrays[name] = parts[0] if mesh is None else parts
+            if getattr(mine, key) is not None:
+                arrays[name] = (getattr(mine, key) if mesh is None else
+                                [None if a is None else getattr(a, key)
+                                 for a in avgs])
 
-    payload: Dict[str, np.ndarray] = {}
+    plain: Dict[str, np.ndarray] = {}
+    shards: Dict[str, np.ndarray] = {}
     global_shapes: Dict[str, list] = {}
     dtypes: Dict[str, str] = {}
     for name, v in arrays.items():
-        if isinstance(v, list):                 # one block per shard
-            lead = tuple(v[0].shape[:-3])
+        if isinstance(v, list):                 # one block per shard held
+            held = v[mesh.local[0]]
+            lead = tuple(held.shape[:-3])
             global_shapes[name] = [*lead, *mesh.shape]
-            for i, part in enumerate(v):
-                a, dtypes[name] = _to_numpy(interior(part, mesh, i))
+            dtypes[name] = _to_numpy(held[..., :0, :0, :0])[1]
+            for i in mesh.local:
+                a, _ = _to_numpy(interior(v[i], mesh, i))
                 starts = "_".join(str(s) for s in (0,) * len(lead)
                                   + tuple(mesh.origin(i)))
-                payload[f"{name}{_SHARD_SEP}{starts}"] = a
+                shards[f"{name}{_SHARD_SEP}{starts}"] = a
         else:
-            payload[name], dtypes[name] = _to_numpy(v)
+            plain[name], dtypes[name] = _to_numpy(v)
 
     if avg is not None:
-        payload["avg_count"] = np.asarray(int(avgs[0].count))
+        plain["avg_count"] = np.asarray(int(mine.count))
     n_probes = 0
     if probes:
         for i, p in enumerate(probes):
-            payload[f"probe{i}_times"] = np.asarray(p.times_si, dtype=np.float64)
-            payload[f"probe{i}_series"] = (
+            plain[f"probe{i}_times"] = np.asarray(p.times_si, dtype=np.float64)
+            plain[f"probe{i}_series"] = (
                 np.stack(p.series) if p.series
                 else np.zeros((0, len(p.heights_si), 3), dtype=np.float64))
         n_probes = len(probes)
@@ -162,15 +198,34 @@ def save_checkpoint(path: Path, state, *, step: int,
         "thermal": thermal,
         "shape": list(mesh.shape if mesh is not None else state.rho.shape),
         "n_probes": n_probes,
-        "n_processes": 1,
+        "n_processes": n_proc,
         "global_shapes": global_shapes,
         "dtypes": dtypes,
         "meta": meta or {},
     }
-    payload["header"] = np.frombuffer(json.dumps(header).encode(), dtype=np.uint8)
-    tmp = path.with_suffix(".tmp.npz")
-    np.savez_compressed(tmp, **payload)
-    tmp.replace(path)
+
+    def write(target: Path, entries: Dict[str, np.ndarray], head: dict) -> None:
+        entries = dict(entries)
+        entries["header"] = np.frombuffer(json.dumps(head).encode(),
+                                          dtype=np.uint8)
+        tmp = target.with_suffix(".tmp.npz")
+        np.savez_compressed(tmp, **entries)
+        tmp.replace(target)
+
+    if n_proc == 1:
+        write(path, {**plain, **shards}, header)
+        return path
+    # one set: the step-tagged siblings, a barrier, the main file (whose
+    # step selects its siblings at load), a barrier, then the stale tags go
+    if rank:
+        write(_sibling_path(path, rank, step), shards,
+              {"version": FORMAT_VERSION, "step": int(step)})
+    barrier()
+    if rank == 0:
+        write(path, {**plain, **shards}, header)
+    barrier()
+    if rank:
+        _gc_siblings(path, rank, step)
     return path
 
 

@@ -43,6 +43,17 @@ MLUPs count the grid's cells, not the ghosts.  A split that does not divide
 the grid gives shards whose sizes differ by one cell (`DomainMesh.edges`,
 numpy.array_split's cuts).  A checkpoint of a split run holds one block per
 shard and resumes under any split or none.
+
+Several processes (`parallel/comm.py::ensure_distributed`; JAX
+`run_case` :189 and `parallel/mesh.py:56-72`): every process runs this loop
+with the same events for the shards it holds.  The fields, the probe
+columns and the accumulators gather to process 0, which alone writes the
+raw and averaged VTKs, snapshots, frames, probe CSVs and transform.info (the
+JAX `run_case` cannot: its `np.asarray` of a field that spans processes
+fails, :452, :515-529); a checkpoint is written by every process as one set
+(`run/checkpoint.py`).  Every process loads the set itself, and the run
+raises before its first step when they disagree on the resume point.  The
+calibration batch and the solver's clock are framed by barriers.
 """
 
 from __future__ import annotations
@@ -64,6 +75,7 @@ from ..lbm.state import (
 from ..lbm.stepper import make_runner
 from ..ops.avg_kernel import avg_update
 from ..ops.stream_collide import FaceBC
+from ..parallel.comm import all_gather_object, barrier
 from ..parallel.halo import make_sharded_runner, update_fields_sharded
 from ..parallel.mesh import (
     DomainMesh, ShardedState, column_reader, domain_mesh, gather_state,
@@ -130,6 +142,10 @@ class SolverCase:
 
 @dataclass
 class RunResult:
+    """One case's run.  Over several processes `state` and `avg` are the
+    gathered whole-domain arrays in process 0 and None in the others, whose
+    `files` is empty (they write only their checkpoint files)."""
+
     state: Optional[LBMState]
     avg: Optional[AvgState]
     total_steps: int
@@ -147,19 +163,25 @@ class RunResult:
 def _sync(state) -> None:
     """Wait for the device of a state, or for every shard's device."""
     if isinstance(state, ShardedState):
-        sync(state.mesh.devices)
+        sync(state.mesh.local_devices)
     else:
         sync([state.fi.device])
 
 
 def _gather_avg(avgs: Tuple[AvgState, ...], mesh: DomainMesh) -> AvgState:
-    """The whole domain's accumulators on the host from the shards' ones,
-    their ghosts stripped."""
-    def part(k):
-        parts = [getattr(a, k) for a in avgs]
-        return None if parts[0] is None else gather_tensors(parts, mesh)
+    """The whole domain's accumulators on the host from the shards' ones
+    (None for another process's shard), their ghosts stripped: in process
+    0; None in the others."""
+    first = avgs[mesh.local[0]]
 
-    return AvgState(avgs[0].count, *(part(k) for k in AvgState._fields[1:]))
+    def part(k):
+        if getattr(first, k) is None:
+            return None
+        return gather_tensors([None if a is None else getattr(a, k)
+                               for a in avgs], mesh)
+
+    fields = [part(k) for k in AvgState._fields[1:]]
+    return AvgState(first.count, *fields) if mesh.rank == 0 else None
 
 
 def run_case(case: SolverCase, *, quiet: bool = False) -> RunResult:
@@ -207,15 +229,32 @@ def run_case(case: SolverCase, *, quiet: bool = False) -> RunResult:
     mesh = None
     if int(np.prod(split)) > 1:
         mesh = domain_mesh(split, shape, asked)
-        state = shard_state(state, mesh)
-        case.state = None       # the domain is held once, in its shards
+        if mesh.processes > 1:
+            # each process read the checkpoint itself: one that resumed
+            # elsewhere would post other steps' halos and hang the others
+            points = all_gather_object((resume_t, avg_samples,
+                                        fbc_saved is not None))
+            if len(set(points)) > 1:
+                raise RuntimeError(
+                    "the processes disagree on the resume point (step, "
+                    f"samples, face targets) by process: {points}")
+        # the face targets from the whole domain's fields, then the domain
+        # is held once, in its shards
         advance, impl_name = make_sharded_runner(
-            case.config, case.forcing, mesh, pre_step=case.pre_step)
+            case.config, case.forcing, mesh, pre_step=case.pre_step,
+            init_u=state.u, init_T=state.T)
+        state = shard_state(state, mesh)
+        case.state = None
         if not quiet:
             shapes = dict.fromkeys(mesh.local_shape(i) for i in range(mesh.n))
+            where = sorted({str(d) for d in mesh.local_devices})
+            if mesh.processes > 1:
+                where = (f"{where} in process {mesh.rank} of "
+                         f"{mesh.processes} (shards {list(mesh.local)}; data "
+                         f"over {mesh.transport.backend})")
             print(f"| Device mesh     | n_gpu={list(case.ngpu)} -> {mesh.n} "
                   f"shards of {' / '.join(map(str, shapes))} (Z, Y, X with "
-                  f"ghosts) on {sorted({str(d) for d in mesh.devices})}")
+                  f"ghosts) on {where}")
     else:
         if int(np.prod(case.ngpu)) > 1 and not quiet:
             print(f"| Device mesh     | n_gpu={list(case.ngpu)} requested, "
@@ -246,18 +285,27 @@ def run_case(case: SolverCase, *, quiet: bool = False) -> RunResult:
             return update_fields_sharded(st, case.config, case.dyn)
         return update_fields(st, case.config, case.dyn)
 
-    def host_u(st) -> torch.Tensor:
+    # this process writes the outputs: the only one, or process 0
+    writes = mesh is None or mesh.rank == 0
+
+    def gathered(st, name: str):
+        return gather_tensors([None if sh is None else getattr(sh, name)
+                               for sh in st.shards], mesh)
+
+    def host_u(st) -> Optional[torch.Tensor]:
         if mesh is None:
             return st.u.cpu()
-        return gather_tensors([sh.u for sh in st.shards], mesh)
+        return gathered(st, "u")
 
-    def render_view(st) -> LBMState:
-        """What the renderers read: the state itself, or a split run's u
-        and flags gathered to the host."""
+    def render(writer, path: Path, **kw) -> Optional[Path]:
+        """`writer` on what the renderers read: the current state, or a
+        split run's u and flags gathered to the host (in every process;
+        the one that writes renders)."""
         if mesh is None:
-            return st
-        return LBMState(fi=None, rho=None, u=host_u(st), flags=gather_tensors(
-            [sh.flags for sh in st.shards], mesh))
+            return writer(state, path, **kw)
+        view = LBMState(fi=None, rho=None, u=host_u(state),
+                        flags=gathered(state, "flags"))
+        return writer(view, path, **kw) if writes else None
 
     def timed(kind: str, fn):
         """fn()'s result, its host seconds (after the queued steps) added
@@ -283,17 +331,21 @@ def run_case(case: SolverCase, *, quiet: bool = False) -> RunResult:
     events.add(total_steps)
     event_list = sorted(events)
 
-    avg = None       # under a mesh: one AvgState per shard, ghosts included
+    # under a mesh: one AvgState per shard, ghosts included (None for
+    # another process's shard)
+    avg = None
     if avg_loaded is not None:
         if mesh is not None:
             avg = tuple(AvgState(avg_loaded.count, *(
                 None if v is None else shard_tensor(v, mesh, i)
-                for v in avg_loaded[1:])) for i in range(mesh.n))
+                for v in avg_loaded[1:])) if mesh.is_local(i) else None
+                for i in range(mesh.n))
         else:
             avg = AvgState(avg_loaded.count, *(
                 to_device(v, device) for v in avg_loaded[1:]))
     elif avg_window:
-        avg = (tuple(init_avg(tuple(sh.rho.shape), case.thermal_output,
+        avg = (tuple(None if sh is None else
+                     init_avg(tuple(sh.rho.shape), case.thermal_output,
                               sh.rho.device) for sh in state.shards)
                if mesh is not None
                else init_avg(shape, case.thermal_output, device))
@@ -332,6 +384,7 @@ def run_case(case: SolverCase, *, quiet: bool = False) -> RunResult:
                    thermal=case.config.thermal)
 
     t = resume_t
+    barrier()           # the solver's clock starts and stops in every process
     t0 = time.perf_counter()
     next_events = [e for e in event_list if e > t]
     avail = (next_events[0] if next_events else total_steps) - t
@@ -344,10 +397,12 @@ def run_case(case: SolverCase, *, quiet: bool = False) -> RunResult:
         # (setup.cpp:4799-4841)
         state = advance(state, case.dyn, t, bench_steps)
         _sync(state)
+        barrier()
         t += bench_steps
         info.start(t)
         state = advance(state, case.dyn, t, bench_steps)
         _sync(state)
+        barrier()
         t += bench_steps
         info.update(t)
         calibrated = True
@@ -403,14 +458,14 @@ def run_case(case: SolverCase, *, quiet: bool = False) -> RunResult:
                 avg = avg_update(state.fi, state.flags, dyn_dev,
                                  1.0 / float(avg_samples + 1), avg, case.config)
             elif mesh is not None:
-                avg = tuple(welford_update(a, sh)
+                avg = tuple(None if sh is None else welford_update(a, sh)
                             for a, sh in zip(avg, state.shards))
             else:
                 avg = welford_update(avg, state)
             avg_samples += 1
         if fires_probe:
             cols = read_columns(state)
-            for pi, p in enumerate(case.probes):
+            for pi, p in enumerate(case.probes if writes else ()):
                 p.sample_column(cols[:, :, pi], t * dt_si, u_factor)
         title = f"{case.vtk_prefix}{case.datetime} step {t}"
         if fires_frame:
@@ -418,17 +473,23 @@ def run_case(case: SolverCase, *, quiet: bool = False) -> RunResult:
             # only, ffmpeg-ready numbering, perspective camera
             frame = case.parent / "proj_temp" / "frames" / (
                 f"{case.vtk_prefix}{case.datetime}_{t // frames:06d}.png")
-            files.append(timed("frame", lambda: write_frame(
-                render_view(state), frame, nz_out=case.nz_out, title=title)))
+            made = timed("frame", lambda: render(
+                write_frame, frame, nz_out=case.nz_out, title=title))
+            if writes:
+                files.append(made)
         if fires_unsteady:
-            write_raw("u", host_u(state).numpy() * u_factor, t)
+            u_now = host_u(state)
+            if writes:
+                write_raw("u", u_now.numpy() * u_factor, t)
             last_unsteady_t = t
             if s.snapshots:
                 snap = case.parent / "proj_temp" / "snapshots" / (
                     f"{case.vtk_prefix}{case.datetime}_{t:09d}.png")
-                files.append(timed("snapshot", lambda: write_snapshot(
-                    render_view(state), snap, u_factor=u_factor,
-                    nz_out=case.nz_out, title=title)))
+                made = timed("snapshot", lambda: render(
+                    write_snapshot, snap, u_factor=u_factor,
+                    nz_out=case.nz_out, title=title))
+                if writes:
+                    files.append(made)
         if fires_ckpt:
             timed("checkpoint_save", lambda: save_checkpoint(
                 ckpt_path, state, step=t, avg=avg, avg_samples=avg_samples,
@@ -436,6 +497,7 @@ def run_case(case: SolverCase, *, quiet: bool = False) -> RunResult:
                 fbc=advance.get_fbc()))
 
     _sync(state)
+    barrier()
     solver_seconds = time.perf_counter() - t0
     if avg_phase_t0 is not None and t > avg_phase_start_t:
         timing["avg_steps_per_second"] = (t - avg_phase_start_t) / max(
@@ -454,8 +516,9 @@ def run_case(case: SolverCase, *, quiet: bool = False) -> RunResult:
         state = gather_state(state)
         if avg is not None:
             avg = _gather_avg(avg, mesh)
-    write_final_outputs(case, state, avg, avg_samples, t, files,
-                        skip_raw_u=(last_unsteady_t == t))
+    if writes:
+        write_final_outputs(case, state, avg, avg_samples, t, files,
+                            skip_raw_u=(last_unsteady_t == t))
 
     progress.done("Solving CFD", f"{t}/{total_steps} steps")
     return RunResult(state=state, avg=avg, total_steps=t,

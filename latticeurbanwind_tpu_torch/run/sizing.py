@@ -19,6 +19,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..parallel.comm import ensure_distributed
+
 
 def bytes_per_cell(storage: str = "f16", thermal: bool = False) -> float:
     s = {"f32": 4, "f16": 2, "bf16": 2, "fp16c": 2}[storage]
@@ -113,22 +115,26 @@ def plan_grid(
 def effective_ngpu(ngpu, device: torch.device | str = "cuda") -> Tuple[int, int, int]:
     """The (Dx, Dy, Dz) split a run uses under the device rule of
     `parallel/mesh.py::domain_mesh`: the deck's n_gpu, except that "cuda"
-    (no card index) with fewer visible cards than Dx*Dy*Dz is a single-
-    device run, (1, 1, 1), as the JAX package's `run_case` does.  "cuda:k" and "cpu" put
-    every shard on one device and keep the split."""
+    (no card index) in one process with fewer visible cards than Dx*Dy*Dz
+    is a single-device run, (1, 1, 1), as the JAX package's `run_case`
+    does.  Over several processes (`parallel/comm.py::ensure_distributed`)
+    the split stays: `domain_mesh` raises in a process with fewer cards
+    than its shards.  "cuda:k" and "cpu" keep the split."""
     dx, dy, dz = (int(v) for v in (list(ngpu) + [1, 1, 1])[:3])
     dev = torch.device(device)
     if (dx * dy * dz > 1 and dev.type == "cuda" and dev.index is None
-            and torch.cuda.device_count() < dx * dy * dz):
+            and torch.cuda.device_count() < dx * dy * dz
+            and not ensure_distributed()):
         return (1, 1, 1)
     return (dx, dy, dz)
 
 
 def setup_device(ngpu, device: torch.device | str = "cuda") -> torch.device:
-    """Where a run builds its whole-domain state and forcing: the host when
-    the device rule spreads its shards over several cards ("cuda" with
-    enough of them visible; the grid is sized for all of them together, so
-    it may not fit on one), else `device` itself."""
+    """Where a run builds its whole-domain state and forcing: the host of
+    each process when the device rule spreads its shards over several cards
+    ("cuda" with enough of them visible, in one process or over several;
+    the grid is sized for all of them together, so it may not fit on one),
+    else `device` itself."""
     dev = torch.device(device)
     if (math.prod(effective_ngpu(ngpu, dev)) > 1 and dev.type == "cuda"
             and dev.index is None):

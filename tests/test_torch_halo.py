@@ -237,7 +237,8 @@ def _single_and_split(name, split, storage="f32", steps=4, device="cpu",
     single = update_fields(single, cfg, dyn)
 
     mesh = domain_mesh(split, tuple(st.rho.shape), device)
-    srun, simpl = make_sharded_runner(cfg, frc, mesh, pre_step=pre)
+    srun, simpl = make_sharded_runner(cfg, frc, mesh, pre_step=pre,
+                                      init_u=st.u, init_T=st.T)
     assert (impl, simpl) == ("plain", "plain-sharded")
     ss = shard_state(st, mesh)
     half = steps // 2                 # two calls: the carried FaceBC and aux
@@ -289,7 +290,7 @@ def test_runner_stages_make_one_step():
     cfg, st, frc, dyn = _case(seed=4)
     pre = _hook(st)
     mesh = domain_mesh((1, 2, 2), tuple(st.rho.shape), "cpu")
-    srun, _ = make_sharded_runner(cfg, frc, mesh, pre_step=pre)
+    srun, _ = make_sharded_runner(cfg, frc, mesh, pre_step=pre, init_u=st.u)
     want = srun(shard_state(st, mesh), dyn, 0, 3)
     srun.reset()
     ss = srun(shard_state(st, mesh), dyn, 0, 2)
@@ -373,7 +374,7 @@ def test_sharded_runner_matches_jax_sharded_pallas_runner(split, kw, hook):
     pmesh = domain_mesh(split, tuple(ts.rho.shape), "cpu")
     prun, _ = make_sharded_runner(StepConfig(**dataclasses.asdict(cfg)),
                                   convert.forcing_from_jax(forcing), pmesh,
-                                  pre_step=ppre)
+                                  pre_step=ppre, init_u=ts.u, init_T=ts.T)
     got = gather_state(prun(shard_state(ts, pmesh),
                             convert.dyn_from_jax(dyn), 0, 4))
     np.testing.assert_allclose(got.fi.numpy(), want, rtol=0, atol=1e-6)

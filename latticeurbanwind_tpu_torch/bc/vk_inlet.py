@@ -39,6 +39,7 @@ import torch
 
 from ..lbm.state import LBMState, TYPE_E, TYPE_S
 from ..ops.stream_collide import VK_SITES, FaceBC
+from ..utils.trace import span
 
 WEST, EAST, SOUTH, NORTH, TOP = range(5)
 FACE_NORMALS = np.array([
@@ -481,19 +482,20 @@ def make_vk_pre_step(cfg: VkConfig, rt: VkRuntime,
         with realization t.  With stride > 1 and no interpolation the targets
         change only at anchor steps; with interpolation the two anchor
         realizations ride in `aux` and each step lerps them."""
-        if stride > 1 and not interp:
-            if int(t) % stride != 0:
-                return fbc, aux
+        with span("vk.refresh"):
+            if stride > 1 and not interp:
+                if int(t) % stride != 0:
+                    return fbc, aux
+                return apply(fbc, q_at(t)), aux
+            if interp and aux is not None:
+                tf, anchor = anchor_of(t)
+                if anchor != aux[0]:
+                    aux = (anchor, [group_q(g, anchor) for g in groups],
+                           [group_q(g, anchor + fstride) for g in groups])
+                frac = float((tf - aux[0]) / fstride)
+                qs = [q0 + frac * (q1 - q0) for q0, q1 in zip(aux[1], aux[2])]
+                return apply(fbc, qs), aux
             return apply(fbc, q_at(t)), aux
-        if interp and aux is not None:
-            tf, anchor = anchor_of(t)
-            if anchor != aux[0]:
-                aux = (anchor, [group_q(g, anchor) for g in groups],
-                       [group_q(g, anchor + fstride) for g in groups])
-            frac = float((tf - aux[0]) / fstride)
-            qs = [q0 + frac * (q1 - q0) for q0, q1 in zip(aux[1], aux[2])]
-            return apply(fbc, qs), aux
-        return apply(fbc, q_at(t)), aux
 
     # kernel site spec: where the stream-collide kernel applies the inlet
     # equilibria from the FaceBC targets (lane/row masks (R, 1, C))

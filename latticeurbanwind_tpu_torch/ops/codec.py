@@ -4,7 +4,7 @@ The kernels inline these codecs; this module exposes them alone so that a
 run on the card can hold them bit for bit against the torch codecs of
 `lbm.state` (`encode_ddf` / `decode_ddf`), which are their plain versions.
 CPU tensors take the torch codecs; CUDA tensors launch `csrc/codec.cu` or
-raise, and count the launch in `encode.launches` / `decode.launches`.
+raise.
 """
 
 from __future__ import annotations
@@ -41,7 +41,6 @@ def encode(x: torch.Tensor, storage: str) -> torch.Tensor:
         raise NotImplementedError(f"no codec kernel for {x.device}")
     out = torch.empty(x.shape, dtype=storage_dtype(storage), device=x.device)
     _launch("luw_codec_encode", x, out, storage)
-    encode.launches += 1
     return out
 
 
@@ -56,9 +55,4 @@ def decode(bits: torch.Tensor, storage: str) -> torch.Tensor:
         raise NotImplementedError(f"no codec kernel for {bits.device}")
     out = torch.empty(bits.shape, dtype=torch.float32, device=bits.device)
     _launch("luw_codec_decode", bits, out, storage)
-    decode.launches += 1
     return out
-
-
-encode.launches = 0
-decode.launches = 0

@@ -82,6 +82,7 @@ from ..parallel.mesh import (
     gather_tensors, shard_state, shard_tensor, sync,
 )
 from ..units import Units
+from ..utils.trace import span
 from .checkpoint import checkpoint_path, load_checkpoint, load_fbc, save_checkpoint
 from .derived import derived_turbulence_fields
 from .info import RunInfo
@@ -162,10 +163,11 @@ class RunResult:
 
 def _sync(state) -> None:
     """Wait for the device of a state, or for every shard's device."""
-    if isinstance(state, ShardedState):
-        sync(state.mesh.local_devices)
-    else:
-        sync([state.fi.device])
+    with span("case.wait"):
+        if isinstance(state, ShardedState):
+            sync(state.mesh.local_devices)
+        else:
+            sync([state.fi.device])
 
 
 def _gather_avg(avgs: Tuple[AvgState, ...], mesh: DomainMesh) -> AvgState:
@@ -379,9 +381,7 @@ def run_case(case: SolverCase, *, quiet: bool = False) -> RunResult:
 
     info = RunInfo(total_steps=total_steps,
                    avg_start=avg_start if avg_window else 0,
-                   n_cells=int(np.prod(shape)),
-                   storage=case.config.storage,
-                   thermal=case.config.thermal)
+                   n_cells=int(np.prod(shape)))
 
     t = resume_t
     barrier()           # the solver's clock starts and stops in every process
@@ -395,16 +395,17 @@ def run_case(case: SolverCase, *, quiet: bool = False) -> RunResult:
         # the first batch warms up (kernel build + load) so the second times
         # pure stepping, like the reference's 16-step benchmark
         # (setup.cpp:4799-4841)
-        state = advance(state, case.dyn, t, bench_steps)
-        _sync(state)
-        barrier()
-        t += bench_steps
-        info.start(t)
-        state = advance(state, case.dyn, t, bench_steps)
-        _sync(state)
-        barrier()
-        t += bench_steps
-        info.update(t)
+        with span("case.calibrate"):
+            state = advance(state, case.dyn, t, bench_steps)
+            _sync(state)
+            barrier()
+            t += bench_steps
+            info.start(t)
+            state = advance(state, case.dyn, t, bench_steps)
+            _sync(state)
+            barrier()
+            t += bench_steps
+            info.update(t)
         calibrated = True
     timing = {"normal_steps_per_second": info.steps_per_second()}
     if not quiet and calibrated:
@@ -421,7 +422,8 @@ def run_case(case: SolverCase, *, quiet: bool = False) -> RunResult:
             continue   # handled before the interruption
         while t < ev:
             n = min(s.chunk, ev - t)
-            state = advance(state, case.dyn, t, n)
+            with span("case.chunk"):
+                state = advance(state, case.dyn, t, n)
             t += n
             if not quiet and progress.enabled:
                 _sync(state)
@@ -448,20 +450,23 @@ def run_case(case: SolverCase, *, quiet: bool = False) -> RunResult:
             or t == total_steps
             or (fires_avg and not avg_fused))
         if wants_fields:
-            state = refresh(state)
+            with span("case.fields"):
+                state = refresh(state)
         if fires_avg:
             if avg_phase_t0 is None:
                 _sync(state)
                 avg_phase_t0 = time.perf_counter()
                 avg_phase_start_t = t
-            if avg_fused and not wants_fields:
-                avg = avg_update(state.fi, state.flags, dyn_dev,
-                                 1.0 / float(avg_samples + 1), avg, case.config)
-            elif mesh is not None:
-                avg = tuple(None if sh is None else welford_update(a, sh)
-                            for a, sh in zip(avg, state.shards))
-            else:
-                avg = welford_update(avg, state)
+            with span("case.sample"):
+                if avg_fused and not wants_fields:
+                    avg = avg_update(state.fi, state.flags, dyn_dev,
+                                     1.0 / float(avg_samples + 1), avg,
+                                     case.config)
+                elif mesh is not None:
+                    avg = tuple(None if sh is None else welford_update(a, sh)
+                                for a, sh in zip(avg, state.shards))
+                else:
+                    avg = welford_update(avg, state)
             avg_samples += 1
         if fires_probe:
             cols = read_columns(state)
@@ -540,54 +545,62 @@ def write_final_outputs(case: SolverCase, state: LBMState,
     vtk_dir = case.parent / "RESULTS" / "vtk"
     raw_base = f"{case.vtk_prefix}{case.datetime}_raw_"
 
+    def host(x: torch.Tensor) -> np.ndarray:
+        with span("output.copy"):
+            return x.cpu().numpy()
+
+    def write_vtk(path: Path, fields: Dict[str, np.ndarray]) -> None:
+        with span("output.vtk"):
+            write_structured_points(path, fields, spacing=case.cell_m,
+                                    origin_shift=case.origin_shift,
+                                    nz_write=case.nz_out)
+        files.append(path)
+
     def write_raw(name: str, data: np.ndarray, affine_T: bool = False):
         arr = np.asarray(data)
         if affine_T:
             arr = arr * case.units.unit_K + case.units.unit_K_offset
-        path = vtk_dir / vtk_timestep_name(raw_base + name, t)
-        write_structured_points(
-            path, {"data": arr.astype(np.float32)},
-            spacing=case.cell_m, origin_shift=case.origin_shift,
-            nz_write=case.nz_out)
-        files.append(path)
+        write_vtk(vtk_dir / vtk_timestep_name(raw_base + name, t),
+                  {"data": arr.astype(np.float32)})
 
-    if not skip_raw_u:
-        write_raw("u", state.u.cpu().numpy() * u_factor)
-    write_raw("rho", state.rho.cpu().numpy() * rho_factor)
-    if case.thermal_output and state.T is not None:
-        write_raw("T", state.T.cpu().numpy(), affine_T=True)
+    with span("output"):
+        if not skip_raw_u:
+            write_raw("u", host(state.u) * u_factor)
+        write_raw("rho", host(state.rho) * rho_factor)
+        if case.thermal_output and state.T is not None:
+            write_raw("T", host(state.T), affine_T=True)
 
-    if avg is not None and avg_samples > 0:
-        mean_u = avg.mean_u.cpu().numpy()
-        var_sum = variance_sum_u(avg).cpu().numpy()
-        flags = state.flags.cpu().numpy()
-        fields: Dict[str, np.ndarray] = {
-            "u_avg": (mean_u * u_factor).astype(np.float32),
-            "rho_avg": (avg.mean_rho.cpu().numpy() * rho_factor).astype(np.float32),
-        }
-        if case.thermal_output and avg.mean_T is not None:
-            fields["T_avg"] = (avg.mean_T.cpu().numpy() * case.units.unit_K
-                               + case.units.unit_K_offset).astype(np.float32)
-        want = tuple(f.lower() for f in s.output_fields)
-        derived = derived_turbulence_fields(
-            mean_u, var_sum, flags, avg_count=avg_samples,
-            u_factor=u_factor, spacing=case.cell_m, want=want)
-        fields["fluid"] = derived.pop("fluid")
-        for key in ("tke", "TI", "TLS"):
-            if key in derived and key.lower() in want:
-                fields[key] = derived[key]
-        avg_path = vtk_dir / vtk_timestep_name(
-            f"{case.vtk_prefix}{case.datetime}_avg", t)
-        write_structured_points(avg_path, fields, spacing=case.cell_m,
-                                origin_shift=case.origin_shift, nz_write=case.nz_out)
-        files.append(avg_path)
+        if avg is not None and avg_samples > 0:
+            mean_u = host(avg.mean_u)
+            with span("output.derived"):
+                var_sum = variance_sum_u(avg)
+            var_sum = host(var_sum)
+            flags = host(state.flags)
+            fields: Dict[str, np.ndarray] = {
+                "u_avg": (mean_u * u_factor).astype(np.float32),
+                "rho_avg": (host(avg.mean_rho) * rho_factor).astype(np.float32),
+            }
+            if case.thermal_output and avg.mean_T is not None:
+                fields["T_avg"] = (host(avg.mean_T) * case.units.unit_K
+                                   + case.units.unit_K_offset).astype(np.float32)
+            want = tuple(f.lower() for f in s.output_fields)
+            with span("output.derived"):
+                derived = derived_turbulence_fields(
+                    mean_u, var_sum, flags, avg_count=avg_samples,
+                    u_factor=u_factor, spacing=case.cell_m, want=want)
+            fields["fluid"] = derived.pop("fluid")
+            for key in ("tke", "TI", "TLS"):
+                if key in derived and key.lower() in want:
+                    fields[key] = derived[key]
+            write_vtk(vtk_dir / vtk_timestep_name(
+                f"{case.vtk_prefix}{case.datetime}_avg", t), fields)
 
-    for p in case.probes:
-        files.append(p.write_csv(case.parent / "RESULTS"))
+        for p in case.probes:
+            files.append(p.write_csv(case.parent / "RESULTS"))
 
-    if s.research_output > 0:
-        info_path = case.parent / "proj_temp" / "transform.info"
-        info_path.parent.mkdir(parents=True, exist_ok=True)
-        info_path.write_text(f"dt = {dt_si:.10f}s\n")
-        files.append(info_path)
+        if s.research_output > 0:
+            info_path = case.parent / "proj_temp" / "transform.info"
+            info_path.parent.mkdir(parents=True, exist_ok=True)
+            info_path.write_text(f"dt = {dt_si:.10f}s\n")
+            files.append(info_path)
     return files

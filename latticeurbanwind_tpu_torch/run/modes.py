@@ -49,6 +49,7 @@ from ..io.progress import ProgressEmitter
 from ..lbm.forcing import build_forcing
 from ..lbm.lattice import omega_from_nu
 from ..lbm.state import DynParams, StepConfig, TYPE_E, TYPE_S, make_initial_state
+from ..utils.trace import span
 from .case import (
     DEFAULT_BASE_HEIGHT, LBM_REF_U, SI_NU_AIR,
     anchor_units, apply_wall_model, coriolis_lbmu, nudge_spec_from_deck,
@@ -400,41 +401,46 @@ def run_datagen_mode(deck_path: Path | str, *,
     pending: List[SolverCase] = []
     results: List[RunResult] = []
     for inflow, angle in cases:
-        if results:   # free the previous case's device memory first
-            results[-1].release_device_state()
-        dir_x, dir_y = direction_from_angle(angle)
-        downstream = downstream_from_direction(dir_x, dir_y)
-        speed_lbm = inflow * u_scale
-        flags = np.where(solid, np.uint8(TYPE_S), np.uint8(0))
-        flags[0] = TYPE_S
-        u = np.zeros((3, *shape), np.float32)
-        u[0] = dir_x * speed_lbm
-        u[1] = dir_y * speed_lbm
-        u[:, (flags & TYPE_S) != 0] = 0.0
-        boundary = np.zeros(shape, dtype=bool)
-        boundary[:, :, 0] = boundary[:, :, -1] = True
-        boundary[:, 0, :] = boundary[:, -1, :] = True
-        boundary[-1] = True
-        boundary[0] = False
-        flags[boundary & ((flags & TYPE_S) == 0)] |= TYPE_E
+        with span("setup.case"):
+            if results:   # free the previous case's device memory first
+                with span("setup.release"):
+                    results[-1].release_device_state()
+            dir_x, dir_y = direction_from_angle(angle)
+            downstream = downstream_from_direction(dir_x, dir_y)
+            with span("setup.flags"):
+                speed_lbm = inflow * u_scale
+                flags = np.where(solid, np.uint8(TYPE_S), np.uint8(0))
+                flags[0] = TYPE_S
+                u = np.zeros((3, *shape), np.float32)
+                u[0] = dir_x * speed_lbm
+                u[1] = dir_y * speed_lbm
+                u[:, (flags & TYPE_S) != 0] = 0.0
+                boundary = np.zeros(shape, dtype=bool)
+                boundary[:, :, 0] = boundary[:, :, -1] = True
+                boundary[:, 0, :] = boundary[:, -1, :] = True
+                boundary[-1] = True
+                boundary[0] = False
+                flags[boundary & ((flags & TYPE_S) == 0)] |= TYPE_E
 
-        nudge = nudge_spec_from_deck(deck, cell_m=plan.cell_m, si_ref_u=si_ref_u,
-                                     grid=shape, downstream_bc=downstream)
-        forcing = build_forcing(shape, nudge=nudge, sponge=None,
-                                device=state_dev)
-        case_config = apply_wall_model(
-            _specialize_force(config, forcing, omega_cor), deck, plan.cell_m)
-        dyn = DynParams(force=torch.zeros(3),
-                        omega_coriolis=torch.as_tensor(omega_cor, dtype=torch.float32))
-        prefix = f"DG_{_format_tag(inflow)}_{_format_tag(angle)}_"
-        case = SolverCase(
-            config=case_config, forcing=forcing,
-            state=make_initial_state(shape, config=case_config, u=u,
-                                     flags=flags, device=state_dev),
-            dyn=dyn, units=units, cell_m=plan.cell_m, parent=parent,
-            datetime=datetime_tag, vtk_prefix=prefix, settings=settings,
-            ngpu=ngpu, device=dev,
-        )
+            with span("setup.forcing"):
+                nudge = nudge_spec_from_deck(deck, cell_m=plan.cell_m, si_ref_u=si_ref_u,
+                                             grid=shape, downstream_bc=downstream)
+                forcing = build_forcing(shape, nudge=nudge, sponge=None,
+                                        device=state_dev)
+                case_config = apply_wall_model(
+                    _specialize_force(config, forcing, omega_cor), deck, plan.cell_m)
+            dyn = DynParams(force=torch.zeros(3),
+                            omega_coriolis=torch.as_tensor(omega_cor, dtype=torch.float32))
+            prefix = f"DG_{_format_tag(inflow)}_{_format_tag(angle)}_"
+            with span("setup.state"):
+                case = SolverCase(
+                    config=case_config, forcing=forcing,
+                    state=make_initial_state(shape, config=case_config, u=u,
+                                             flags=flags, device=state_dev),
+                    dyn=dyn, units=units, cell_m=plan.cell_m, parent=parent,
+                    datetime=datetime_tag, vtk_prefix=prefix, settings=settings,
+                    ngpu=ngpu, device=dev,
+                )
         if not quiet:
             print(f"| DG case         | inflow={inflow} angle={angle} "
                   f"downstream={downstream} grid={plan.nx}x{plan.ny}x{plan.nz} "

@@ -15,7 +15,9 @@ bf16 with random sites on all six faces (this checkout's
 `chip_smoke.all_face_sites`, in both) -- the first step without sites,
 the first step with them (the codes that differ must lie on cells whose
 site mask is set: a checkout whose step matches but whose site pass
-rounds otherwise moves those alone) and 5 steps with them; and the split
+rounds otherwise moves those alone) and 5 steps with them; at the
+benchmark cells' grids (BENCH_SHAPES, bf16 nudge + sponge) the first step
+and 5 steps, with the VK hook's sites at the profile deck's grid; and the split
 runner with every shard on card 0 (K8, SPLIT of SPLIT_SHAPE, bf16, its
 slabs' sites inside their ghost rows) after 1 and 6 steps; and K-AVG's three
 accumulators after 3 samples, bit for bit, without a wall model and with
@@ -26,7 +28,8 @@ bf16, f32 and fp16c (flagship), bf16 with nudge + sponge, bf16 thermal and
 bf16 `wall_sides` (both with nudge + sponge), K-SC thermal at the NWP
 deck's grid with VK sites, K-SC (K1-K3) without and with VK sites at the
 profile deck's grid in bf16 and fp16c (as `vk-bf16-400` and `vk-fp16c-200`
-run it) and at the NWP deck's grid (with less without is the site pass), K8
+run it) and at the NWP deck's grid (with less without is the site pass),
+K-SC bf16 with nudge + sponge at the `.luwdg` deck's grid, K8
 at the split deck's shard, and K-AVG at 256^3 in bf16 and fp16c, at the
 profile deck's grid without a wall model and with `wall_sides` and at the
 NWP deck's grid, by CUDA events, each turn in a fresh process of its
@@ -47,6 +50,8 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 CODES_SHAPE = (40, 120, 200)      # the code comparison's grid
+BENCH_SHAPES = ((118, 424, 424),  # and the benchmark cells' grids: the
+                (68, 270, 270))   # profile deck at 1.5 m, the .luwdg at 2 m
 SPLIT_SHAPE = (24, 72, 136)       # the split runner's grid and its
 SPLIT = (1, 2, 5)                 # [Dx, Dy, Dz]: uneven slabs of 4-5 planes
 
@@ -103,6 +108,25 @@ if CODES:
         saved.update(f=f.cpu(), g=None if g[0] is None else g[0].cpu())
         torch.save(saved, f"{CODES}/{tag}.pt")
         torch.cuda.empty_cache()
+    # the benchmark cells' grids, bf16 nudge + sponge: the first step, then
+    # 5 steps with the VK hook's sites (the profile deck) or without (.luwdg)
+    for shape, hook in zip(BENCH_SHAPES, (True, False)):
+        cfg, st, frc, row = c.make_case(shape, "bf16", inflow=0.05)
+        pre, _ = c.vk_hook(st) if hook else (None, None)
+        fbc = build_face_bc(st.u)
+        aux = pre.ddf.init_aux(0) if hook else None
+        f = st.fi
+        for t in range(5):
+            if hook:
+                fbc, aux = pre.ddf(fbc, t, aux)
+            if t == 0:
+                f0 = stream_collide(f, st.flags, row, cfg, frc, fbc).cpu()
+            f = stream_collide(f, st.flags, row, cfg, frc, fbc,
+                               vk=pre.ddf.kernel_spec if hook else None)
+        torch.save({"f0": f0, "f": f.cpu(), "g": None},
+                   f"{CODES}/bench {'x'.join(map(str, shape))}.pt")
+        del st, f, f0, fbc, pre
+        torch.cuda.empty_cache()
     # K-AVG: 3 samples from successive steps' DDFs
     for storage in c.STORAGES:
         for variant in ("", "wall+sides"):
@@ -155,6 +179,9 @@ if TIMES:
         c.time_step_kernel(c.NWP_SHAPE, "bf16", True, vk=True, thermal=True,
                            plain_reps=1))
     torch.cuda.empty_cache()
+    out["times"]["K-SC sweep grid bf16 nudge+sponge"] = ms(
+        c.time_step_kernel(BENCH_SHAPES[1], "bf16", True, plain_reps=1))
+    torch.cuda.empty_cache()
     for name, shape, storage in (
             ("K-SC main grid bf16 nudge+sponge", c.MAIN_SHAPE, "bf16"),
             ("K-SC main grid fp16c nudge+sponge", c.MAIN_SHAPE, "fp16c"),
@@ -187,7 +214,7 @@ def turn(checkout: Path, times: bool, codes: str = "") -> dict:
     head = (f"TIMES = {times}\nCODES = {codes!r}\n"
             f"HERE_SMOKE = {str(HERE / 'chip_smoke.py')!r}\n"
             f"SHAPE = {CODES_SHAPE!r}\nSPLIT_SHAPE = {SPLIT_SHAPE!r}\n"
-            f"SPLIT = {SPLIT!r}\n")
+            f"SPLIT = {SPLIT!r}\nBENCH_SHAPES = {BENCH_SHAPES!r}\n")
     proc = subprocess.run(
         [sys.executable, "-c", head + _TURN], cwd=checkout,
         capture_output=True, text=True, timeout=1200)
@@ -263,15 +290,19 @@ def main(argv) -> int:
     codes = {}
     cases = ["wall_sides", "thermal", "six faces bf16"] + [
         f"plain {s}" for s in ("f32", "bf16", "f16", "fp16c")]
-    for case in cases + ["split"]:
+    bench = [f"bench {'x'.join(map(str, s))}" for s in BENCH_SHAPES]
+    for case in cases + ["split"] + bench:
         a, b = (torch.load(tmp / tag / f"{case}.pt") for tag in ("other", "this"))
         where = (f"K8 bf16 split {list(SPLIT)} of {SPLIT_SHAPE}"
                  if case == "split" else
+                 f"bf16 nudge+sponge at the benchmark grid {case.split()[1]}"
+                 if case in bench else
                  f"{case if case.startswith(('plain', 'six')) else 'bf16 ' + case} "
                  f"{CODES_SHAPE}")
         for k, what in (("f0", "1 step without sites"),
                         ("f1", "1 step with sites"),
-                        ("f", f"{6 if case == 'split' else 5} steps with sites"),
+                        ("f", f"{6 if case == 'split' else 5} steps with sites"
+                              f"{' where the deck has them' if case in bench else ''}"),
                         ("g", "5 steps with sites")):
             if a.get(k) is None:
                 continue
@@ -289,7 +320,7 @@ def main(argv) -> int:
                 note = (f", {rec['off_sites']} of them off the cells whose "
                         f"site masks are set"
                         f"{'' if rec['off_sites'] == 0 else '  DIFFERS'}")
-            elif k == "f0":
+            elif k == "f0" or case in bench:
                 note = "" if rec["differing"] == 0 else "  DIFFERS"
             codes[f"{case} {k}"] = rec
             print(f"{where}, {what}, final {k[0]}: {rec['differing']} of "

@@ -290,6 +290,8 @@ MAIN_CELL_M = 1.5                           # the example deck's main-path cells
 MAIN_SHAPE = (118, 424, 424)                # its grid at that cell size
 CUBE = (256, 256, 256)                      # the flagship timing shape
 RAGGED = (13, 37, 141)                      # a multiple of no tile edge > 1
+RAGGED_EVEN = (13, 37, 138)                 # the same with X even (paired)
+DG_SHAPE = (68, 270, 270)                   # the .luwdg deck's grid at 2 m
 # K8 slabs of one plane, of two and thinner than a block's 8 planes
 THIN_SLABS = ((1, 37, 141), (2, 37, 141), (5, 37, 141))
 DG_CELL_M = 2.0                             # the .luwdg path's cells (~5M)
@@ -548,9 +550,11 @@ def tiled_families(names) -> dict:
     arguments <codec, force, nudge, sponge, wall, trt, thermal, halo>: the
     plain family (no wall model, SRT, not thermal), the
     wall-model and TRT one and the thermal one, each single-device or halo
-    mode (K8)."""
+    mode (K8); and the plain family's paired instances."""
     out = {}
     for k in names:
+        if k.startswith("stream_collide_tiled_kernel_pair<"):
+            out.setdefault("plain, paired (bf16, f16, X even)", []).append(k)
         if not k.startswith("stream_collide_tiled_kernel<"):
             continue
         a = k.rstrip(">").split("<")[1].split(",")
@@ -568,20 +572,22 @@ def kernel_registers(build_log: str):
     bytes)}) from ptxas's -v output.  An instance is named by its kernel,
     its codec and its other template arguments, e.g.
     stream_collide_tiled_kernel<BF16,1,1,1,0,0,0,0> (force, nudge, sponge,
-    wall, trt, thermal, halo) or avg_update_kernel<BF16,2>."""
+    wall, trt, thermal, halo), stream_collide_tiled_kernel_pair<BF16,1,1,2>
+    (force, nudge, sponge) or avg_update_kernel<BF16,2>."""
     regs, spills, name = {}, {}, None
     for line in build_log.splitlines():
         if "Compiling entry function" in line:
             mangled = line.split("'")[1] if "'" in line else line
             m = re.search(r"(stream_collide_tiled|stream_collide|avg_update|"
-                          r"vk_site|encode|decode)_kernelI(.*)", mangled)
+                          r"vk_site|encode|decode)_kernel(_pair)?I(.*)",
+                          mangled)
             if m is None:
                 name = mangled
                 continue
-            codec = re.search(r"(\d+)(Codec\w+)", m.group(2))
+            codec = re.search(r"(\d+)(Codec\w+)", m.group(3))
             args = [codec.group(2)[5:int(codec.group(1))]] if codec else []
-            args += re.findall(r"L[bi](\d+)E", m.group(2))
-            name = f"{m.group(1)}_kernel<{','.join(args)}>"
+            args += re.findall(r"L[bi](\d+)E", m.group(3))
+            name = f"{m.group(1)}_kernel{m.group(2) or ''}<{','.join(args)}>"
         elif "Used" in line and "registers" in line and name:
             regs[name] = int(line.split("Used")[1].split("registers")[0])
         elif "spill stores" in line and name:
@@ -760,6 +766,53 @@ def compare_ragged() -> tuple:
                                      f"version: {name}: {diffs or e}")
             (therm if thermal else wall if variant else plain)[name] = e
     return plain, wall, therm, shares
+
+
+def compare_pair(big: bool = True) -> dict:
+    """K-SC's paired instance (the plain family in bf16 and f16 with X even:
+    two cells per thread along x) against the plain version, 3 steps from
+    each case: at RAGGED_EVEN with the LUW shell and with solid cells on all
+    six boundary planes (so columns 0 and X - 1 hold solids: the x-wrap and
+    the bounce-back inside a pair), in both storages, with nudge + sponge
+    and random VK sites, without them and without the volume force; with
+    `big` also at the profile deck's grid (the VK hook's sites) and the
+    `.luwdg` deck's, bf16.  RAGGED (X odd) must take the single-cell body:
+    every case counts its paired launches in `stream_collide.launches_pair`
+    and raises where that is not every step with X even and none with X
+    odd.  {config: max decoded difference}."""
+    from latticeurbanwind_tpu_torch.ops.stream_collide import stream_collide
+
+    runs = [(shape, s, forcing, sites, wrap, False)
+            for shape in (RAGGED_EVEN, RAGGED) for s in ("bf16", "f16")
+            for forcing, sites in ((True, True), (True, False), (False, False))
+            for wrap in (False, True)]
+    if big:
+        runs += [(MAIN_SHAPE, "bf16", True, False, False, True),
+                 (DG_SHAPE, "bf16", True, False, False, False)]
+    out = {}
+    for shape, storage, forcing, sites, wrap, hook in runs:
+        p0, l0 = stream_collide.launches_pair, stream_collide.launches
+        e, finite, _, _ = compare_steps(
+            shape, storage, forcing, 3,
+            vk=random_sites(shape) if sites else None, hook=hook,
+            inflow=0.05 if sites or hook else 0.0, wrap=wrap)
+        paired = stream_collide.launches_pair - p0
+        want = stream_collide.launches - l0 if shape[2] % 2 == 0 else 0
+        name = (f"{storage} {'nudge+sponge' if forcing else 'flagship'}"
+                f"{' VK random sites' if sites else ''}"
+                f"{' VK hook sites' if hook else ''}"
+                f"{', solids on the boundary planes' if wrap else ''} {shape}")
+        tol = tolerance(storage)
+        ok = finite and e <= tol and paired == want
+        log(f"K-SC paired {name} 3 steps: max|kernel-plain| = {e:.3e} (tol "
+            f"{tol:.0e}), paired launches {paired} (want {want}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"the paired instance: {name}: {e}, "
+                                 f"{paired} paired launches of {want}")
+        out[name] = e
+        torch.cuda.empty_cache()
+    return out
 
 
 def random_halo(shape, storage, thermal, seed=11, gy=1, gx=1):
@@ -1126,6 +1179,7 @@ def phase_compare() -> dict:
     errs["stream_collide_wall"].update(wall)
     errs["stream_collide_thermal"].update(therm)
     errs["thermal_code_shares"].update(shares)
+    errs["stream_collide_pair"] = compare_pair()
     errs["stream_collide_halo"], errs["halo_code_shares"] = compare_halo(small)
     errs["sharded"] = compare_sharded()
     errs["vk_sites"] = compare_vk_sites()
@@ -1763,6 +1817,7 @@ def zero_launches() -> None:
     stream_collide.launches_wall = 0
     stream_collide.launches_thermal = 0
     stream_collide.launches_halo = 0
+    stream_collide.launches_pair = 0
     avg_update.launches = 0
     avg_update.launches_wall = 0
 
@@ -1776,6 +1831,7 @@ def read_launches() -> dict:
             "stream_collide_wall": stream_collide.launches_wall,
             "stream_collide_thermal": stream_collide.launches_thermal,
             "stream_collide_halo": stream_collide.launches_halo,
+            "stream_collide_pair": stream_collide.launches_pair,
             "avg_update": avg_update.launches,
             "avg_update_wall": avg_update.launches_wall}
 

@@ -1,7 +1,7 @@
 """Sweep the tiled body's compile-time shapes on one NVIDIA card.
 
     python3 chip_sweep.py [--parent OTHER_CHECKOUT]
-                          [--family plain|plain32|other|avg]
+                          [--family plain|pair|plain32|other|avg]
                           [--only NAME[;NAME...]]
 
 The tiled body of the step kernel (`csrc/stream_collide_tiled.cuh`) takes one
@@ -25,9 +25,14 @@ time_halo_kernel, time_avg_kernel), with nudge + sponge and VK hook sites
 unless said:
 
   plain (default; LUW_TILE_PLAIN: no wall model, SRT, not thermal, bf16 and
-      f16): K1-K3 in bf16 at the profile deck's grid (424x424x118) and at
-      the NWP deck's grid without T (1017x887x79), and K8 at the split
-      deck's shard (59x214x424);
+      f16 where X is odd or in halo mode): K1-K3 in bf16 at the NWP deck's
+      grid without T (1017x887x79), and K8 at the split deck's shard
+      (59x214x424);
+  pair (LUW_TILE_PLAIN_PAIR: the plain family's paired instance, bf16 and
+      f16 with X even, two cells per thread along x; checked by
+      chip_smoke.compare_pair at the ragged shapes): K1-K3 in bf16 at the
+      profile deck's grid (its VK hook's sites) and at the `.luwdg` deck's
+      grid (270x270x68, no sites);
   plain32 (LUW_TILE_PLAIN_F32_FP16C: the same family in f32 and fp16c):
       K1-K3 at the profile deck's grid in fp16c (as `vk-fp16c-200` runs it)
       and f32, and the 256^3 flagship (no forcing, no sites) in both;
@@ -55,12 +60,20 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent
 
 # name: {family: (threads x, threads y, planes per block, min blocks per SM,
-# L2 prefetch planes)}; None: the committed shapes
+# L2 prefetch planes)}; None: the committed shapes.  PLAIN_PAIR's threads
+# along x own two cells each.
 VARIANTS = {
     "plain": {
         "kept": None,
         "plain 64x2x8, 5 blocks": {"PLAIN": (64, 2, 8, 5, 0)},
         "plain 128x1x8, 6 blocks, prefetch 1": {"PLAIN": (128, 1, 8, 6, 1)},
+    },
+    "pair": {
+        "kept": None,
+        "pair 32x4x8, 4 blocks": {"PLAIN_PAIR": (32, 4, 8, 4, 0)},
+        "pair 32x4x8, 5 blocks": {"PLAIN_PAIR": (32, 4, 8, 5, 0)},
+        "pair 64x2x8, 4 blocks": {"PLAIN_PAIR": (64, 2, 8, 4, 0)},
+        "pair 32x2x8, 8 blocks": {"PLAIN_PAIR": (32, 2, 8, 8, 0)},
     },
     "plain32": {
         "kept": None,
@@ -94,7 +107,8 @@ VARIANTS = {
     },
 }
 # the storages whose instances a variant's first turn lists
-CODECS = {"plain": ("BF16",), "plain32": ("F32", "FP16C"), "other": ("BF16",),
+CODECS = {"plain": ("BF16",), "pair": ("BF16",), "plain32": ("F32", "FP16C"),
+          "other": ("BF16",),
           "avg": ("F32", "BF16", "F16", "FP16C")}
 
 _TURN = r"""
@@ -113,17 +127,24 @@ if CHECK:
                         and k.split("<")[1].split(",")[0] in CODECS}
     if FAMILY == "avg":
         c.compare_avg_ragged()
+    elif FAMILY == "pair":
+        c.compare_pair(big=False)
     else:
         c.compare_ragged()
     if FAMILY == "plain":
         c.compare_halo((24, 72, 136))
 if FAMILY == "plain":
-    for key, shape in (("K1-K3 main", c.MAIN_SHAPE), ("K1-K3 NWP", c.NWP_SHAPE)):
-        out[key] = c.time_step_kernel(shape, "bf16", True, vk=True,
-                                      plain_reps=1)["ms"]
-        torch.cuda.empty_cache()
+    out["K1-K3 NWP"] = c.time_step_kernel(c.NWP_SHAPE, "bf16", True, vk=True,
+                                          plain_reps=1)["ms"]
+    torch.cuda.empty_cache()
     local = domain_mesh(c.SHARD_SPLIT, c.MAIN_SHAPE, "cpu").local_shape(0)
     out["K8 shard"] = c.time_halo_kernel(local)["ms"]
+elif FAMILY == "pair":
+    for key, shape, vk in (("K1-K3 main", c.MAIN_SHAPE, True),
+                           ("K1-K3 .luwdg", (68, 270, 270), False)):
+        out[key] = c.time_step_kernel(shape, "bf16", True, vk=vk,
+                                      plain_reps=1)["ms"]
+        torch.cuda.empty_cache()
 elif FAMILY == "plain32":
     for storage in ("fp16c", "f32"):
         out[f"K1-K3 main {storage}"] = c.time_step_kernel(

@@ -59,6 +59,7 @@ def launch_counts() -> dict:
             "stream_collide_wall": stream_collide.launches_wall,
             "stream_collide_thermal": stream_collide.launches_thermal,
             "stream_collide_halo": stream_collide.launches_halo,
+            "stream_collide_pair": stream_collide.launches_pair,
             "vk_sites": vk_sites.launches,
             "avg_update": avg_update.launches,
             "avg_update_wall": avg_update.launches_wall}

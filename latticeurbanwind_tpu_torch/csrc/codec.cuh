@@ -5,7 +5,12 @@
 // kernels' f32 / bf16 / f16 / fp16c converters, also used by
 // ops/avg_kernel.py::make_avg_update).  All arithmetic is fp32 whatever the
 // storage; each codec is a struct with the storage type T, `load` (decode one
-// element from device memory), `dec` and `enc`.
+// element from device memory), `dec` and `enc`.  The two 2-byte codecs that
+// the card converts in hardware, bf16 and f16, also take two neighbouring
+// elements as one 4-byte word (the step's paired instance,
+// stream_collide_tiled.cuh): `dec_lo` / `dec_hi` decode its first / second
+// element, `enc2` encodes two values into one word, each rounded as `enc`
+// rounds it.
 //
 //   * f32:   identity.
 //   * bf16:  round-to-nearest-even via the native intrinsic.
@@ -55,6 +60,16 @@ struct CodecBF16 {
   static __device__ __forceinline__ T enc(float v) {
     return __float2bfloat16_rn(v);
   }
+  static __device__ __forceinline__ float dec_lo(uint32_t w) {
+    return __uint_as_float(w << 16);
+  }
+  static __device__ __forceinline__ float dec_hi(uint32_t w) {
+    return __uint_as_float(w & 0xFFFF0000u);
+  }
+  static __device__ __forceinline__ uint32_t enc2(float lo, float hi) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&h);
+  }
 };
 
 struct CodecF16 {
@@ -68,6 +83,16 @@ struct CodecF16 {
   }
   static __device__ __forceinline__ T enc(float v) {
     return __float2half_rn(v * 32768.0f);
+  }
+  static __device__ __forceinline__ float dec_lo(uint32_t w) {
+    return dec(__ushort_as_half((unsigned short)(w & 0xFFFFu)));
+  }
+  static __device__ __forceinline__ float dec_hi(uint32_t w) {
+    return dec(__ushort_as_half((unsigned short)(w >> 16)));
+  }
+  static __device__ __forceinline__ uint32_t enc2(float lo, float hi) {
+    const __half2 h = __floats2half2_rn(lo * 32768.0f, hi * 32768.0f);
+    return *reinterpret_cast<const uint32_t*>(&h);
   }
 };
 

@@ -220,15 +220,32 @@ cudaError_t vk_launch(void* fb, const VkMasks& vm, const float* uw,
   return cudaGetLastError();
 }
 
+// One plain step on the paired instance (stream_collide_tiled.cuh): the
+// nudging band as a compile-time switch there, since its inputs are read
+// per pair; the sponge at run time.
+template <class C>
+cudaError_t sc_dispatch_pair(const ScArgs& a, cudaStream_t stream) {
+  if (!a.volume_force) {
+    if (a.has_nudge || a.has_sponge) return cudaErrorInvalidValue;
+    return sc_launch_pair<C, false, 0, 0>(a, stream);
+  }
+  return a.nudge_sigma != nullptr ? sc_launch_pair<C, true, 1, 2>(a, stream)
+                                  : sc_launch_pair<C, true, 0, 2>(a, stream);
+}
+
 // One SRT step without a wall model (the plain family: nudging and the
 // sponge as run-time switches, which chip_sweep.py measured no slower than
-// compile-time ones); thermal steps go to the instances of
+// compile-time ones); in bf16 and f16 with X even on the paired instance
+// (pair_step); thermal steps go to the instances of
 // stream_collide_thermal.cu, the wall models and TRT to those of
 // stream_collide_wall.cu.
 template <class C>
 cudaError_t sc_dispatch_force(const ScArgs& a, cudaStream_t stream) {
   if (a.thermal) return sc_dispatch_thermal<C>(a, stream);
   if (a.wall || a.trt) return sc_dispatch_wall<C>(a, stream);
+  if constexpr (kPairCodec<C>) {
+    if (pair_step(a)) return sc_dispatch_pair<C>(a, stream);
+  }
   if (!a.volume_force) {
     if (a.has_nudge || a.has_sponge) return cudaErrorInvalidValue;
     return sc_launch_tiled<C, false, 0, 0, 0, false, false>(a, stream);

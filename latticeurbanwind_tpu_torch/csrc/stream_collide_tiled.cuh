@@ -20,7 +20,13 @@
 // adds 2 * 7 values, 105 B (209 B); nudging 5 B.  ~600-660 flops per cell
 // are far below the compute roof at that traffic.  A pull reads every DDF
 // element once (it is a permutation), so what a kernel loses to the bound
-// is instructions and latency.  This body's design:
+// is instructions and latency, measured (cuobjdump, the bf16 instance with
+// nudge and sponge; PERF.md): a fluid cell runs ~1,200 SASS instructions
+// (the flag mask and ring ~300, the pull ~250, collide_cell with the
+// stores ~650, ~390 of them f32), which at the card's issue rate would take
+// ~0.86 ms at 424 x 424 x 118; the step takes ~1.37 ms, so latency (the
+// f32 chains of collide_cell, one DRAM round trip per plane) holds the
+// rest.  This body's design:
 //
 //   * Index arithmetic.  A 2-D block of TX x TY threads covers a tile of a
 //     plane and marches over KZ planes: coordinates come from the block and
@@ -51,6 +57,12 @@
 //     flight, so the body does not stage.  The wall-model and TRT family
 //     asks L2 for the next plane's sources (prefetch.global.L2) instead,
 //     which helps it and no other family.
+//   * The paired instance (stream_collide_tiled_kernel_pair, below): the
+//     plain family in bf16 and f16 with X even, two cells per thread along
+//     x, every DDF access one 4-byte word, so that the pull's and the
+//     stores' instructions and addresses are paid once per pair; each cell
+//     still runs collide_cell, so it stores the single-cell instance's
+//     codes.
 //   * The halo mode (kHalo).  The planes -1 and Z of a slab are the
 //     neighbours' (HaloArgs): the ring fetches their flags there, the pulls
 //     read their channels there through an element accessor (which the
@@ -92,14 +104,16 @@ namespace luw {
 // wall-model and TRT ones as 64 x 2 x 8 with 5 blocks (96 registers; 6
 // would spill) and one plane prefetched; the plain ones in bf16 and f16 as
 // 128 x 1 x 8 with 6 blocks (75-80 registers, no spills; 64 x 2 x 8 with 5
-// blocks was 1-4% slower), and in f32 and fp16c, where that shape cost 9%
-// and 21% more than the old body, as 64 x 2 x 8 with 6 blocks (76-80
-// registers; 5 blocks was 5% slower in fp16c); none with a prefetch
-// (+8-11%).  A build may set a family's five numbers,
+// blocks was 1-4% slower; these run where X is odd and in halo mode, the
+// paired instance below everywhere else), and in f32 and fp16c, where that
+// shape cost 9% and 21% more than the old body, as 64 x 2 x 8 with 6
+// blocks (76-80 registers; 5 blocks was 5% slower in fp16c); none with a
+// prefetch (+8-11%).  A build may set a family's five numbers,
 // `tx, ty, kz, min_blocks, prefetch`, as LUW_TILE_THERMAL,
-// LUW_TILE_THERMAL_F32, LUW_TILE_OTHER, LUW_TILE_PLAIN or
-// LUW_TILE_PLAIN_F32_FP16C in a header it pre-includes; that is how the
-// sweep builds its variants (nvcc's -D would split the list at its commas).
+// LUW_TILE_THERMAL_F32, LUW_TILE_OTHER, LUW_TILE_PLAIN,
+// LUW_TILE_PLAIN_F32_FP16C or LUW_TILE_PLAIN_PAIR in a header it
+// pre-includes; that is how the sweep builds its variants (nvcc's -D would
+// split the list at its commas).
 struct TileShape {
   int tx, ty, kz, min_blocks, prefetch;
 };
@@ -669,6 +683,395 @@ cudaError_t sc_launch_tiled(const ScArgs& a, cudaStream_t stream) {
       a.sponge_z, a.Z, a.Y, a.X, a.nudge_vertical, a.subgrid, a.omega,
       a.tau0, a.tau0_sq, a.wall_cd, a.wall_cd_sides, a.th, a.halo);
   return cudaGetLastError();
+}
+
+// ---- The paired instance of the plain family --------------------------------
+//
+// The plain family (no wall model, SRT, not thermal, not halo mode) in the
+// 2-byte storages the card converts in hardware, bf16 and f16, on a grid whose
+// X is even: each thread owns the two neighbouring cells (x, x + 1), x even,
+// so every element pair it pulls or stores is one aligned 4-byte word (the
+// channel offset d N + n of an even x is even).  Per pair of cells: one
+// load per direction (the 9 with cx = 0 bring both sources; for the 10 with
+// cx = +-1 the pair's sources straddle a word, so each lane loads its own
+// word of that row and takes the neighbour lane's by a shuffle, and only a
+// warp's edge lanes and the x-wrap load the word beside theirs), a
+// bounce-back word (the cell's own f_opp) only where either cell's source is
+// solid, the own words of all 19 channels only where either cell is TYPE_E,
+// one 4-byte store per direction, nudge_sigma as one float2 and nudge_face
+// as one 2-byte load; the flag mask of both cells from the same ring words.
+// Each cell then runs collide_cell as the single-cell instances do, one
+// after the other, and the two encoded results of a direction are packed
+// into the word stored, so every code equals the single-cell instance's.
+
+// The paired instance's shape: tx threads along x (a multiple of 32, so a
+// warp lies in one row), each with two cells, ty along y, kz planes per
+// block, min_blocks per SM; no L2 prefetch.  LUW_TILE_PLAIN_PAIR sets it as
+// the other families' shapes are set.  Chosen on the card (chip_sweep.py
+// --family pair; PERF.md): 32 x 8 x 8 with 2 blocks (128 registers, no
+// spill in bf16); 5 blocks spill, 3 (168 registers) were 10% slower.
+#ifndef LUW_TILE_PLAIN_PAIR
+#define LUW_TILE_PLAIN_PAIR 32, 8, 8, 2, 0
+#endif
+__host__ __device__ constexpr TileShape pair_shape() {
+  return TileShape{LUW_TILE_PLAIN_PAIR};
+}
+// The tile of cells it covers, whose flag ring (2 tx + 2 columns) it keeps.
+__host__ __device__ constexpr TileShape pair_cells(TileShape t) {
+  return TileShape{2 * t.tx, t.ty, t.kz, t.min_blocks, t.prefetch};
+}
+// A paired shape the ring takes: a thread per word of a rim row of the
+// cell tile and 8 per rim row (ring_fetch), and tile_ok's shared memory.
+__host__ __device__ constexpr bool pair_tile_ok(TileShape t) {
+  return t.tx >= 32 && t.tx % 32 == 0 && t.ty >= 1 && t.kz >= 1 &&
+         t.min_blocks >= 1 && t.prefetch == 0 && t.tx * t.ty <= 1024 &&
+         (t.ty + 2) * (t.tx / 2) <= t.tx * t.ty &&
+         (t.ty + 2) * 8 <= t.tx * t.ty &&
+         ring_bytes(pair_cells(t)) <= kSmemStatic &&
+         t.min_blocks * (ring_bytes(pair_cells(t)) + kSmemReserved) <=
+             kSmemPerSm;
+}
+static_assert(pair_tile_ok(pair_shape()),
+              "a paired shape the ring does not take");
+
+// p as the compiler must keep it: the offsets added to it later are not
+// folded into the one that made it, so that each word's address is one
+// register pair plus a channel's offset.
+template <class T>
+__device__ __forceinline__ T* pinned(T* p) {
+#ifdef __CUDA_ARCH__
+  asm("" : "+l"(p));
+#endif
+  return p;
+}
+
+// v, which the compiler must take as computed where this is called (not
+// hoisted out of a loop).
+__device__ __forceinline__ int remade(int v) {
+#ifdef __CUDA_ARCH__
+  asm volatile("" : "+r"(v));
+#endif
+  return v;
+}
+
+// The bits of the neighbourhood mask (nb_bit) that some direction's pull
+// source takes: the 6 face and 12 edge neighbours, not the centre or the
+// corners.
+__host__ __device__ constexpr uint32_t source_bits() {
+  uint32_t m = 0;
+  for (int dz = -1; dz <= 1; ++dz)
+    for (int dy = -1; dy <= 1; ++dy)
+      for (int dx = -1; dx <= 1; ++dx) {
+        const int k = (dz != 0) + (dy != 0) + (dx != 0);
+        if (k == 1 || k == 2) m |= 1u << ((dz + 1) * 9 + (dy + 1) * 3 + dx + 1);
+      }
+  return m;
+}
+static_assert(source_bits() == 0x02EBDEBAu, "D3Q19 has 18 pull sources");
+
+// The codecs the paired instance takes: 2-byte, converted in hardware.
+template <class C>
+constexpr bool kPairCodec = std::is_same<C, CodecBF16>::value ||
+                            std::is_same<C, CodecF16>::value;
+
+// kNudge 1: the nudging band is on (its two inputs are read per pair and
+// handed to collide_cell from registers), 0: off; kSponge as the tiled body's.
+template <class C, bool kForce, int kNudge, int kSponge>
+__global__ void __launch_bounds__(pair_shape().tx * pair_shape().ty,
+                                  pair_shape().min_blocks)
+stream_collide_tiled_kernel_pair(
+    const uint32_t* __restrict__ fa, uint32_t* __restrict__ fb,
+    const uint8_t* __restrict__ flags, const float* __restrict__ dyn,
+    const float* __restrict__ nudge_sigma,
+    const uint8_t* __restrict__ nudge_face, const float* __restrict__ uw,
+    const float* __restrict__ ue, const float* __restrict__ us,
+    const float* __restrict__ un, const float* __restrict__ ut,
+    const float* __restrict__ ub, const float* __restrict__ sponge_z, int Z,
+    int Y, int X, int nudge_vertical, int subgrid, float omega, float tau0,
+    float tau0_sq) {
+  static_assert(kPairCodec<C> && kNudge >= 0 && kNudge <= 1,
+                "the paired instance takes bf16 or f16, nudging 0 or 1");
+  constexpr TileShape kShape = pair_shape(), kCells = pair_cells(kShape);
+  constexpr int TX = kShape.tx, TY = kShape.ty, KZ = kShape.kz;
+  constexpr int CW = kCells.tx;
+  const int CX[19] = {0, 1, -1, 0, 0, 1, -1, 1, -1, 0, 1, -1, 0, 0, 0, -1, 1, 0, 0};
+  const int CY[19] = {0, 0, 0, 1, -1, 1, -1, -1, 1, 0, 0, 0, 1, -1, 0, 0, 0, -1, 1};
+  const int CZ[19] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1, 1, 1, -1, -1, -1, -1, -1};
+  const int OPP[19] = {0, 2, 1, 4, 3, 6, 5, 8, 7, 14, 15, 16, 17, 18, 9, 10, 11, 12, 13};
+
+  const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * TX + tx;
+  const int lane = tx & 31;
+  const int x0 = blockIdx.x * CW, y0 = blockIdx.y * TY;
+  const int z0 = blockIdx.z * KZ, z1 = min(z0 + KZ, Z);
+  const int txn = min(CW, X - x0), tyn = min(TY, Y - y0);
+  const int R = CW + 8;
+  const bool live = 2 * tx < txn && ty < tyn;
+  const int x = x0 + 2 * tx, y = y0 + ty;
+  // every lane loads, so that no load waits on a test: a lane beyond the
+  // grid's ragged edge reads the last pair of the row or plane (xc, yc)
+  // and stores nothing
+  const int xc = min(x, X - 2), yc = min(y, Y - 1);
+  // offsets in words (element pairs): X, and so every cell offset below, is
+  // even
+  const int plane = Y * X;
+  const long long N2 = (long long)Z * plane / 2;
+  const int oym = (yc == 0 ? (Y - 1) * X : -X) / 2;
+  const int oyp = (yc == Y - 1 ? (1 - Y) * X : X) / 2;
+  // the words beside the pair's own, wrapped, which a warp's first lane (for
+  // cx = +1) and its last lane or the last pair of a row (cx = -1) load
+  const int oxm = xc == 0 ? X / 2 - 1 : -1, oxp = xc + 2 == X ? 1 - X / 2 : 1;
+  const bool left = lane == 0, right = lane == 31 || xc + 2 == X;
+  // channel d's offset in bytes, and a word that far past p
+  const unsigned long long chan_bytes = 4ull * (unsigned long long)N2;
+  auto at = [&](auto* p, int d) {
+    using W = std::remove_pointer_t<decltype(p)>;
+    return reinterpret_cast<W*>(
+        reinterpret_cast<std::conditional_t<std::is_const<W>::value,
+                                            const char*, char*>>(p) +
+        d * chan_bytes);
+  };
+
+  __shared__ __align__(16) uint8_t ring[3][ring_plane_bytes(kCells)];
+  __shared__ uint8_t shift[3][TY + 2];
+
+  // the ring's first three planes: z0 - 1, z0, z0 + 1 (wrapped)
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    uint8_t v;
+    const int pos = ring_fetch(ring[j], shift[j], flags, wrap(z0 - 1 + j, Z),
+                               tid, x0, y0, txn, tyn, CW, X, Y, v);
+    if (pos >= 0) ring[j][pos] = v;
+  }
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncthreads();
+
+  int sm = 0, s0 = 1, sp = 2;  // ring planes of z - 1, z, z + 1
+  for (int z = z0; z < z1; ++z) {
+    // both cells' flags and the solid bits of their neighbourhoods (nb_bit),
+    // from the four ring columns x - 1 .. x + 2 of each of the nine rows
+    uint32_t nba = 0, nbb = 0, fla = 0, flb = 0;
+    if (live) {
+      const int sl[3] = {sm, s0, sp};
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+#pragma unroll
+        for (int b = 0; b < 3; ++b) {
+          const int row = ty + b;
+          const int o = row * R + shift[sl[a]][row] + 2 * tx;
+          const uint32_t* wp =
+              reinterpret_cast<const uint32_t*>(ring[sl[a]]) + (o >> 2);
+          const uint32_t w = __funnelshift_r(wp[0], wp[1], (o & 3) * 8);
+          // kTypeS of the four columns into bits 0 .. 3
+          const uint32_t q = ((w & 0x01010101u) * 0x00204081u) >> 21;
+          const int bit = a * 9 + b * 3;
+          nba |= (q & 7u) << bit;
+          nbb |= ((q >> 1) & 7u) << bit;
+          if (a == 1 && b == 1) {
+            fla = (w >> 8) & 0xFFu;
+            flb = (w >> 16) & 0xFFu;
+          }
+        }
+      }
+    }
+    __syncthreads();  // the plane of z - 1 is free: fetch z + 2 into it
+    const bool more = z + 1 < z1;
+    int pos = -1;
+    uint8_t v = 0;
+    if (more) {
+      pos = ring_fetch(ring[sm], shift[sm], flags, wrap(z + 2, Z), tid, x0,
+                       y0, txn, tyn, CW, X, Y, v);
+      __pipeline_commit();
+    }
+
+    // ---- the pull: every word chosen from the masks, every load issued
+    // ---- before any arithmetic; the shuffles run on every lane
+    const int n = ((z * Y + yc) * X + xc) / 2;  // the pair's word in a channel
+    const int ozm = (z == 0 ? (Z - 1) * plane : -plane) / 2;
+    const int ozp = (z == Z - 1 ? (1 - Z) * plane : plane) / 2;
+    const bool sa = fla & kTypeS, sb = flb & kTypeS;
+    const bool ea = !sa && (fla & kTypeE), eb = !sb && (flb & kTypeE);
+    const bool ca = live && !sa && !ea, cb = live && !sb && !eb;  // collide
+    // the pair's own word of channel 0 and the row of each source, so that
+    // every word a lane reads or writes is a row's pointer plus a channel's
+    // offset (at)
+    const uint32_t* __restrict__ own_row = pinned(fa + n);
+    const uint32_t* __restrict__ rows[3][3];  // [dz + 1][dy + 1]
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+#pragma unroll
+      for (int b = 0; b < 3; ++b)
+        rows[a][b] = pinned(own_row + ((a == 0 ? ozm : a == 2 ? ozp : 0) +
+                                       (b == 0 ? oym : b == 2 ? oyp : 0)));
+    auto row = [&](int d) { return rows[1 - CZ[d]][1 - CY[d]]; };
+    uint32_t w[19], side[19];
+#pragma unroll
+    for (int d = 0; d < 19; ++d) w[d] = __ldg(at(row(d), d));
+#pragma unroll
+    for (int d = 1; d < 19; ++d) {
+      side[d] = 0u;
+      if (CX[d] != 0 && (CX[d] > 0 ? left : right))
+        side[d] = __ldg(at(row(d) + (CX[d] > 0 ? oxm : oxp), d));
+    }
+    // the cells whose source in some direction is solid take f_opp of their
+    // own there: where any lane of the warp has one, its own words
+    constexpr uint32_t kSources = source_bits();
+    const uint32_t srca = ca ? nba & kSources : 0u;
+    const uint32_t srcb = cb ? nbb & kSources : 0u;
+    const bool bounce = __any_sync(0xFFFFFFFFu, (srca | srcb) != 0u);
+    uint32_t own[19];
+#pragma unroll
+    for (int d = 0; d < 19; ++d) own[d] = 0u;
+    if (bounce) {
+#pragma unroll
+      for (int d = 1; d < 19; ++d) {
+        const int bit = nb_bit(-CZ[d], -CY[d], -CX[d]);
+        if (((srca | srcb) >> bit) & 1u) own[OPP[d]] = __ldg(at(own_row, OPP[d]));
+      }
+    }
+    float sg[2] = {0.0f, 0.0f};
+    uint8_t fc[2] = {0, 0};
+    if (kNudge == 1) {
+      const float2 s2 = __ldg(reinterpret_cast<const float2*>(nudge_sigma) + n);
+      const unsigned short f2 =
+          __ldg(reinterpret_cast<const unsigned short*>(nudge_face) + n);
+      sg[0] = s2.x;
+      sg[1] = s2.y;
+      fc[0] = (uint8_t)(f2 & 0xFFu);
+      fc[1] = (uint8_t)(f2 >> 8);
+    }
+    uint32_t p[19];  // the pulled pairs: cell x in the low half
+#pragma unroll
+    for (int d = 0; d < 19; ++d) {
+      if (CX[d] == 0) {
+        p[d] = w[d];
+      } else if (CX[d] > 0) {  // sources x - 1, x
+        uint32_t l = __shfl_up_sync(0xFFFFFFFFu, w[d], 1);
+        if (left) l = side[d];
+        p[d] = __byte_perm(l, w[d], 0x5432);
+      } else {  // sources x + 1, x + 2
+        uint32_t r = __shfl_down_sync(0xFFFFFFFFu, w[d], 1);
+        if (right) r = side[d];
+        p[d] = __byte_perm(w[d], r, 0x5432);
+      }
+    }
+    if (bounce) {
+#pragma unroll
+      for (int d = 1; d < 19; ++d) {
+        const int bit = nb_bit(-CZ[d], -CY[d], -CX[d]);
+        const uint32_t m = (0u - ((srca >> bit) & 1u)) & 0x0000FFFFu |
+                           (0u - ((srcb >> bit) & 1u)) & 0xFFFF0000u;
+        p[d] = (p[d] & ~m) | (own[OPP[d]] & m);
+      }
+    }
+
+    // ---- each cell's collision, one after the other; a direction's two
+    // ---- codes are stored as one word
+    // (y, x) anew in each plane, so that the compiler does not keep the
+    // forcing's addresses of a column across the march (registers)
+    const int yz = remade(y), xz = remade(x);
+    auto collide = [&](const float(&f)[19], int h, auto&& store) {
+      collide_cell<C, kForce, kNudge, kSponge, false, false>(
+          f, h, z, yz, xz + h, Y, X, dyn, kNudge == 1 ? sg : nullptr,
+          kNudge == 1 ? fc : nullptr, uw, ue, us, un, ut, ub, sponge_z,
+          nudge_vertical, subgrid, omega, tau0, tau0_sq, ThermArgs{},
+          [](float&, float&, float&, float, float, float, float) {},
+          [](float, float, float) { return 0.0f; }, store);
+    };
+    // while one cell collides, the other's codes wait two to a register:
+    // x + 1's pulled codes (pb) during x's collision, then x's results
+    // (oa) during x + 1's
+    float f[19];
+#pragma unroll
+    for (int d = 0; d < 19; ++d) f[d] = C::dec_lo(p[d]);
+    uint32_t pb[10], oa[10];
+#pragma unroll
+    for (int k = 0; k < 10; ++k) {
+      pb[k] = __byte_perm(p[2 * k], 2 * k + 1 < 19 ? p[2 * k + 1] : 0u, 0x7632);
+      oa[k] = 0u;
+    }
+    if (ca) {
+      float prev = 0.0f;
+      collide(f, 0, [&](int d, float v) {
+        if (d & 1) oa[d / 2] = C::enc2(prev, v);
+        else if (d == 18) oa[9] = C::enc2(v, 0.0f);
+        else prev = v;
+      });
+    }
+    if (live) {
+      // the halves that do not collide store 0 here: TYPE_S's code, and
+      // TYPE_E's until its own code goes over it below
+      uint32_t* __restrict__ out = pinned(fb + n);
+      const uint32_t keep = (ca ? 0x0000FFFFu : 0u) | (cb ? 0xFFFF0000u : 0u);
+      auto put = [&](int d, float vb) {
+        *at(out, d) = __byte_perm(oa[d / 2], C::enc2(vb, 0.0f),
+                                  d & 1 ? 0x5432 : 0x5410) & keep;
+      };
+      if (cb) {
+#pragma unroll
+        for (int k = 0; k < 10; ++k) {
+          f[2 * k] = C::dec_lo(pb[k]);
+          if (2 * k + 1 < 19) f[2 * k + 1] = C::dec_hi(pb[k]);
+        }
+        collide(f, 1, put);
+      } else {
+#pragma unroll
+        for (int d = 0; d < 19; ++d) put(d, 0.0f);
+      }
+      if (ea || eb) {  // TYPE_E: the cell's stored codes go back unchanged
+        // (its words' pointer made anew: none is held across the collisions)
+        const uint32_t* __restrict__ own = pinned(fa + n);
+        uint32_t e[19];
+#pragma unroll
+        for (int d = 0; d < 19; ++d) e[d] = __ldg(at(own, d));
+#pragma unroll
+        for (int d = 0; d < 19; ++d) {
+          uint16_t* __restrict__ h = reinterpret_cast<uint16_t*>(at(out, d));
+          if (ea) h[0] = (uint16_t)(e[d] & 0xFFFFu);
+          if (eb) h[1] = (uint16_t)(e[d] >> 16);
+        }
+      }
+    }
+    if (more) {
+      if (pos >= 0) ring[sm][pos] = v;
+      __pipeline_wait_prior(0);
+    }
+    __syncthreads();
+    const int t = sm;
+    sm = s0;
+    s0 = sp;
+    sp = t;
+  }
+}
+
+// One plain step of a paired-codec configuration on the paired instance
+// (the caller checks pair_step).
+template <class C, bool kForce, int kNudge, int kSponge>
+cudaError_t sc_launch_pair(const ScArgs& a, cudaStream_t stream) {
+  constexpr TileShape t = pair_cells(pair_shape());
+  if ((long long)a.Z * a.Y * a.X > INT_MAX) return cudaErrorInvalidValue;
+  const dim3 grid((a.X + t.tx - 1) / t.tx, (a.Y + t.ty - 1) / t.ty,
+                  (a.Z + t.kz - 1) / t.kz);
+  stream_collide_tiled_kernel_pair<C, kForce, kNudge, kSponge>
+      <<<grid, dim3(pair_shape().tx, pair_shape().ty), 0, stream>>>(
+          static_cast<const uint32_t*>(a.fa), static_cast<uint32_t*>(a.fb),
+          a.flags, a.dyn, a.nudge_sigma, a.nudge_face, a.uw, a.ue, a.us, a.un,
+          a.ut, a.ub, a.sponge_z, a.Z, a.Y, a.X, a.nudge_vertical, a.subgrid,
+          a.omega, a.tau0, a.tau0_sq);
+  return cudaGetLastError();
+}
+
+// Whether a plain step (no wall model, SRT, not thermal, not halo mode) in
+// a paired codec takes the paired instance: X even, and the words it loads
+// and stores aligned (the DDFs to 4 bytes, nudge_sigma to 8 and nudge_face
+// to 2, as every allocation of torch is).  ops/stream_collide.py's
+// paired_step is the same test.
+inline bool pair_step(const ScArgs& a) {
+  auto aligned = [](const void* p, uintptr_t n) {
+    return ((uintptr_t)p & (n - 1)) == 0;
+  };
+  return a.X % 2 == 0 && aligned(a.fa, 4) && aligned(a.fb, 4) &&
+         aligned(a.nudge_sigma, 8) && aligned(a.nudge_face, 2);
 }
 
 }  // namespace luw

@@ -531,7 +531,8 @@ def stream_collide(fi: torch.Tensor, flags: torch.Tensor, dyn: torch.Tensor,
     `stream_collide.launches_wall`; thermal, an instance of
     `csrc/stream_collide_thermal.cu`, in `stream_collide.launches_thermal`;
     halo mode, an instance of `csrc/stream_collide_halo.cu`, in
-    `stream_collide.launches_halo`).  Every instance is the tiled body
+    `stream_collide.launches_halo`; on the paired instance, `paired_step`,
+    in `stream_collide.launches_pair`).  Every instance is the tiled body
     (`csrc/stream_collide_tiled.cuh`)."""
     check_config(config, forcing, vk)
     if fi.device.type not in ("cpu", "cuda"):
@@ -608,16 +609,48 @@ def stream_collide(fi: torch.Tensor, flags: torch.Tensor, dyn: torch.Tensor,
             config.t_avg, *hp, stream)
     if rc != 0:
         raise RuntimeError(f"luw_stream_collide launch failed: CUDA error {rc}")
+    count_launch(config, vk, halo,
+                 paired_step(fi, out, flags, config, forcing, halo))
+    return out
+
+
+PAIRED_STORAGES = ("bf16", "f16")
+
+
+def paired_step(fi: torch.Tensor, out: torch.Tensor, flags: torch.Tensor,
+                config: StepConfig, forcing: Forcing,
+                halo: Optional[ZHalo] = None) -> bool:
+    """Whether K-SC steps `fi` on its paired instance (two cells per
+    thread along x, every DDF access one 4-byte word;
+    `csrc/stream_collide_tiled.cuh`): the plain family (no wall model, SRT,
+    not thermal, not halo mode) in bf16 or f16, with X even and the words
+    aligned (the DDFs to 4 bytes, the nudge band's sigma to 8 and face ids
+    to 2, as torch allocates them).  The same test as the entry point's
+    `pair_step`, so every other step keeps its instance."""
+    plain = (not config.thermal and wall_mode(config) == 0
+             and config.collision == "srt" and halo is None)
+    nudge = [] if forcing.nudge_sigma is None else [
+        (forcing.nudge_sigma, 8), (forcing.nudge_face, 2)]
+    return (plain and config.storage in PAIRED_STORAGES
+            and int(flags.shape[-1]) % 2 == 0
+            and all(t.data_ptr() % n == 0
+                    for t, n in [(fi, 4), (out, 4)] + nudge))
+
+
+def count_launch(config: StepConfig, vk, halo: Optional[ZHalo],
+                 paired: bool) -> None:
+    """Count one K-SC launch in `stream_collide`'s counters."""
     stream_collide.launches += 1
     if vk is not None:
         stream_collide.launches_vk += 1
     if config.wall_model:
         stream_collide.launches_wall += 1
-    if thermal:
+    if config.thermal:
         stream_collide.launches_thermal += 1
     if halo is not None:
         stream_collide.launches_halo += 1
-    return out
+    if paired:
+        stream_collide.launches_pair += 1
 
 
 def _face_pointers(fbc: Optional[FaceBC], shape, dev) -> dict:
@@ -726,4 +759,5 @@ stream_collide.launches_vk = 0
 stream_collide.launches_wall = 0
 stream_collide.launches_thermal = 0
 stream_collide.launches_halo = 0
+stream_collide.launches_pair = 0
 vk_sites.launches = 0

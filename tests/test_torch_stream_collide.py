@@ -595,29 +595,122 @@ def _tile_shapes() -> dict:
 
 
 @pytest.mark.parametrize("family", ["THERMAL", "THERMAL_F32", "OTHER", "PLAIN",
-                                    "PLAIN_F32_FP16C", "AVG", "AVG_WALL"])
+                                    "PLAIN_F32_FP16C", "AVG", "AVG_WALL",
+                                    "PLAIN_PAIR"])
 def test_every_tile_shape_fits_its_rings_and_the_sm(family):
     """Each family's compile-time shape (stream_collide_tiled.cuh's
     LUW_TILE_*; AVG, AVG_WALL: K-AVG's without and with a wall model,
-    avg_update.cu) keeps tile_ok's rules -- the
-    flag ring's words and plain bytes each have a thread -- and its flag
-    ring of three planes with their row shifts (static shared memory) fits
+    avg_update.cu; PLAIN_PAIR: the paired instance, two cells per thread
+    along x) keeps tile_ok's rules -- the
+    flag ring's words and plain bytes each have a thread (the paired
+    instance's ring is that of its 2 tx x ty cells, and a warp lies in one
+    row) -- and its flag
+    ring of three planes with their row shifts (static shared memory; the
+    paired instance's 2 tx + 2 columns wide) fits
     a block's 48 KB, and min_blocks blocks of it, with the 1 KB each that
     the system keeps, fit the SM's 228 KB."""
     shapes, consts = _tile_shapes()
     assert set(shapes) == {"THERMAL", "THERMAL_F32", "OTHER", "PLAIN",
-                           "PLAIN_F32_FP16C", "AVG", "AVG_WALL"}
+                           "PLAIN_F32_FP16C", "AVG", "AVG_WALL", "PLAIN_PAIR"}
     assert consts == {"kSmemStatic": 49152, "kSmemPerSm": 233472,
                       "kSmemReserved": 1024}
     tx, ty, kz, min_blocks, prefetch = shapes[family]
     threads = tx * ty
     assert tx >= 4 and tx % 4 == 0 and ty >= 1 and kz >= 1
     assert min_blocks >= 1 and prefetch >= 0
-    assert (ty + 2) * (tx // 4) <= threads and (ty + 2) * 8 <= threads
     assert threads <= 1024 and threads % 32 == 0
+    if family == "PLAIN_PAIR":
+        assert tx % 32 == 0 and prefetch == 0
+        tx = 2 * tx    # the cells a row of the tile covers
+    assert (ty + 2) * (tx // 4) <= threads and (ty + 2) * 8 <= threads
     ring = 3 * ((ty + 2) * (tx + 8) + ty + 2)
     assert ring <= consts["kSmemStatic"]
     assert min_blocks * (ring + consts["kSmemReserved"]) <= consts["kSmemPerSm"]
+
+
+_PAIR_CASES = {
+    "bf16": (dict(storage="bf16"), {}, True),
+    "f16": (dict(storage="f16"), {}, True),
+    "bf16 no volume force": (dict(storage="bf16", volume_force=False), {},
+                             True),
+    "bf16 nudge": (dict(storage="bf16"), dict(nudge=True), True),
+    "f32": (dict(storage="f32"), {}, False),
+    "fp16c": (dict(storage="fp16c"), {}, False),
+    "wall model": (dict(storage="bf16", wall_model=True, wall_cd=0.01), {},
+                   False),
+    "wall_sides": (dict(storage="f16", wall_model=True, wall_cd=0.01,
+                        wall_sides=True), {}, False),
+    "trt": (dict(storage="bf16", collision="trt"), {}, False),
+    "thermal": (dict(storage="bf16", thermal=True, omega_t=1.2), {}, False),
+    "halo": (dict(storage="bf16"), dict(halo=True), False),
+    "odd X": (dict(storage="bf16"), dict(X=9), False),
+    "misaligned DDFs": (dict(storage="bf16"), dict(offset=1), False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_PAIR_CASES))
+def test_paired_instance_takes_plain_two_byte_steps_with_even_x(case,
+                                                                monkeypatch):
+    """The wrapper's `paired_step` (the entry point's `pair_step`) picks
+    K-SC's paired instance for the plain family (no wall model, SRT, not
+    thermal, not halo mode) in bf16 and f16 with X even and aligned words,
+    and for nothing else; `count_launch` (the bookkeeping of every CUDA
+    step) counts exactly those steps in `stream_collide.launches_pair`,
+    beside `.launches`."""
+    from latticeurbanwind_tpu_torch.lbm.forcing import NudgeSpec, build_forcing
+    from latticeurbanwind_tpu_torch.lbm.state import (
+        Forcing, StepConfig, ZHalo, storage_dtype,
+    )
+    from latticeurbanwind_tpu_torch.ops.stream_collide import (
+        count_launch, paired_step, stream_collide,
+    )
+
+    change, how, want = _PAIR_CASES[case]
+    cfg = StepConfig(omega=1.5, **change)
+    Z, Y, X = 4, 6, how.get("X", 8)
+    dtype = storage_dtype(cfg.storage)
+    offset = how.get("offset", 0)
+    fi = torch.zeros(19 * Z * Y * X + offset, dtype=dtype)[offset:].view(
+        19, Z, Y, X)
+    out = torch.zeros((19, Z, Y, X), dtype=dtype)
+    flags = torch.zeros((Z, Y, X), dtype=torch.uint8)
+    forcing = (build_forcing((Z, Y, X), nudge=NudgeSpec(n_cells=2,
+                                                       inv_tau=0.02))
+               if how.get("nudge") else Forcing())
+    halo = None
+    if how.get("halo"):
+        plane = torch.zeros((5, Y, X), dtype=dtype)
+        fl = torch.zeros((Y, X), dtype=torch.uint8)
+        halo = ZHalo(fp=plane, fm=plane, flb=fl, fla=fl)
+    got = paired_step(fi, out, flags, cfg, forcing, halo)
+    assert got is want
+    for name in ("launches", "launches_vk", "launches_wall",
+                 "launches_thermal", "launches_halo", "launches_pair"):
+        monkeypatch.setattr(stream_collide, name, 0)
+    for _ in range(3):
+        count_launch(cfg, None, halo, got)
+    assert stream_collide.launches == 3
+    assert stream_collide.launches_pair == (3 if want else 0)
+    assert stream_collide.launches_halo == (3 if halo is not None else 0)
+    assert stream_collide.launches_thermal == (3 if cfg.thermal else 0)
+    assert stream_collide.launches_wall == (3 if cfg.wall_model else 0)
+
+
+def test_the_paired_instance_and_its_entry_agree_on_the_storages():
+    """The kernels' paired codecs (`kPairCodec`: bf16 and f16, the 2-byte
+    storages the card converts in hardware) and the wrapper's
+    `PAIRED_STORAGES` are the same set; fp16c's software codec and f32
+    keep their instances."""
+    import re
+
+    from latticeurbanwind_tpu_torch.ops.stream_collide import PAIRED_STORAGES
+    from latticeurbanwind_tpu_torch.utils import cuda_build
+
+    text = (cuda_build.CSRC_DIR / "stream_collide_tiled.cuh").read_text()
+    body = re.search(r"constexpr bool kPairCodec =([^;]*);", text).group(1)
+    codecs = set(re.findall(r"std::is_same<C, Codec(\w+)>::value", body))
+    assert {c.lower() for c in codecs} == set(PAIRED_STORAGES) == {"bf16",
+                                                                   "f16"}
 
 
 @pytest.mark.parametrize("name", ["stream_collide_kernel", "sc_launch",

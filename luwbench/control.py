@@ -5,12 +5,13 @@
 For each seed, in one process: the cell's set-up and a short window at its
 own size and load, then the check stretch through the program (the sound
 reading of each compared number) and the control in the program's place:
-the reference a precision below what the configuration states (DDFs stored
-in 8-bit floats instead of bf16; face targets, accumulators, the initial
-fields and the output fields rounded to bf16; the window's last averaging
-sample with its accumulators rounded to bf16).  Each seed prints one JSON
-line `{"seed", "program": {...}, "control": {...}}`.  The benchmark's own
-runs do not run the control.
+the configuration's reference (`cases/<reference>.py`) a precision below
+what the configuration states (DDFs stored in 8-bit floats instead of bf16;
+face targets, accumulators, the initial fields and the output fields
+rounded to bf16; the window's last averaging sample with its accumulators
+rounded to bf16).  Each seed prints one JSON line `{"seed", "program":
+{...}, "control": {...}}`.  The benchmark's own runs do not run the
+control.
 """
 
 import time
@@ -32,16 +33,19 @@ def readings(cell, run, stash, keys, work_dir, *, device):
     from luwbench import check
 
     prod = check.program_products(cell, stash, keys)
-    tables = check.reference_tables(cell, prod, device)
+    tables = cell.reference.tables(prod, device)
     ref = check.reference_products(cell, prod, tables, device)
     program = check.numbers(cell, prod, tables, ref, device)
-    fi, fbc, avg = check.reference_products(cell, prod, tables, device, low=True)
+    fi, gi, fbc, avg = check.reference_products(cell, prod, tables, device,
+                                                low=True)
     ctl = replace(
-        prod, fi_out=fi.cpu(),
-        fbc_out=None if prod.fbc_out is None else [v.cpu() for v in fbc[:6]],
-        avg_out=None if prod.avg_out is None else tuple(v.cpu() for v in avg[1:4]),
+        prod, fi_out=fi.cpu(), gi_out=None if gi is None else gi.cpu(),
+        fbc_out=None if prod.fbc_out is None else
+        [v.cpu() for v in fbc if v is not None],
+        avg_out=None if prod.avg_out is None else
+        tuple(v.cpu() for v in avg[1:] if v is not None),
         sample=None if prod.sample is None else dict(
-            prod.sample, after=check.reference_sample(
+            prod.sample, after=cell.reference.sample(
                 prod.sample, tables, device, low=True)))
     control = check.numbers(cell, ctl, tables, ref, device, low_inputs=True)
     control.pop("samples_gap")          # a count: no precision to lower

@@ -16,6 +16,12 @@ step, belongs to the step: its re-reads of the face cells are not work the
 step needs, and its 120 operations per site are below 0.3% of the step's,
 which are themselves 5-10 times under the bytes bound.
 
+A thermal step (the case's configuration is thermal: the D3Q7 temperature
+DDFs stepped in the same launch) adds the 7 D3Q7 DDFs by the D3Q19 rule
+(each written once, those of the cells that are not solid read once) and
+the sponge's temperature target (one float32 plane, Y x X) read once; 660
+float32 operations per cell that is not solid in place of 600.
+
 K-AVG, one sample: the DDFs of the cells that are not solid read once and
 the five float32 accumulators of those cells read and written (40 B), the
 flags read once; 150 float32 operations per such cell.
@@ -33,6 +39,7 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 
 KSC_FLOPS_PER_CELL = 600
+KSC_THERMAL_FLOPS_PER_CELL = 660
 KAVG_FLOPS_PER_CELL = 150
 KAVG_ACC_BYTES = 40          # mean_u (3), m2_u, mean_rho: f32, read + written
 F32 = 4
@@ -49,20 +56,22 @@ def _site_mask_bytes(shape: Tuple[int, int, int], faces: Sequence[str]) -> int:
 
 def ksc_step_bytes(shape: Tuple[int, int, int], live: int, *,
                    storage_bytes: int, nudge: bool, sponge: bool,
-                   site_faces: Sequence[str] = ()) -> int:
+                   site_faces: Sequence[str] = (), thermal: bool = False) -> int:
     """Bytes one K-SC step must move at `shape` with `live` cells that are
     not solid."""
     Z, Y, X = shape
     cells = Z * Y * X
-    ddf = 19 * storage_bytes * (cells + live)
+    ddf = (26 if thermal else 19) * storage_bytes * (cells + live)
     flags = cells
     forcing = (5 * cells if nudge else 0) + (F32 * Z if sponge else 0)
     fbc = F32 * 3 * (2 * Z * Y + 2 * Z * X + 2 * Y * X)
+    if thermal:
+        fbc += F32 * Y * X
     return ddf + flags + forcing + fbc + _site_mask_bytes(shape, site_faces)
 
 
-def ksc_step_flops(live: int) -> int:
-    return KSC_FLOPS_PER_CELL * live
+def ksc_step_flops(live: int, thermal: bool = False) -> int:
+    return (KSC_THERMAL_FLOPS_PER_CELL if thermal else KSC_FLOPS_PER_CELL) * live
 
 
 def kavg_sample_bytes(shape: Tuple[int, int, int], live: int, *,
@@ -86,14 +95,16 @@ def least_seconds(nbytes: float, flops: float) -> Dict[str, object]:
 
 
 def work(shape: Tuple[int, int, int], live: int, *, storage_bytes: int,
-         nudge: bool, sponge: bool, site_faces: Sequence[str]) -> dict:
+         nudge: bool, sponge: bool, site_faces: Sequence[str],
+         thermal: bool = False) -> dict:
     """The least seconds of one K-SC step and one K-AVG sample at `shape`
     with `live` cells that are not solid."""
     return {
         "ksc_step_s": least_seconds(
             ksc_step_bytes(shape, live, storage_bytes=storage_bytes,
-                           nudge=nudge, sponge=sponge, site_faces=site_faces),
-            ksc_step_flops(live))["seconds"],
+                           nudge=nudge, sponge=sponge, site_faces=site_faces,
+                           thermal=thermal),
+            ksc_step_flops(live, thermal))["seconds"],
         "kavg_sample_s": least_seconds(
             kavg_sample_bytes(shape, live, storage_bytes=storage_bytes),
             kavg_sample_flops(live))["seconds"],
@@ -103,11 +114,12 @@ def work(shape: Tuple[int, int, int], live: int, *, storage_bytes: int,
 def work_of(tables) -> dict:
     """`work` of the case that the reference rebuilt from the deck
     (`reference.setup.Tables`): its shape, its flags, its storage, the
-    forcing it has and the faces its inlet sets."""
+    forcing it has, the faces its inlet sets and whether it is thermal."""
     spec = None if tables.vk is None else tables.vk.kernel_spec
     return work(
         tuple(tables.shape), int(((tables.flags & TYPE_S) == 0).sum()),
         storage_bytes=storage_dtype(tables.config.storage).itemsize,
         nudge=tables.forcing.nudge_sigma is not None,
         sponge=tables.forcing.sponge_sigma_z is not None,
-        site_faces=sorted(spec["masks"]) if spec else ())
+        site_faces=sorted(spec["masks"]) if spec else (),
+        thermal=bool(tables.config.thermal))

@@ -123,12 +123,6 @@ def sample_steps(keys: dict, t: Optional[int] = None) -> range:
                  max(1, int(keys.get("purge_avg_stride", 1))))
 
 
-def parse_prefix(prefix: str):
-    """(inflow, angle) of a `DG_<u>_<a>_` case prefix."""
-    parts = prefix.split("_")
-    return float(parts[1]), float(parts[2])
-
-
 # -- the wrappers around the program ----------------------------------------
 
 @dataclass
@@ -224,15 +218,15 @@ def _host_copy(t: torch.Tensor) -> torch.Tensor:
 def wrap_sample(real, probe: Probe, fused: bool):
     """The averaging pass as `run_case` reaches it (the fused pass or
     `welford_update`), counted; the window's last sample is kept for the
-    check: its DDFs, its weight, the benchmark's count of the samples
-    before it, the accumulators before (copied to the host) and after.  In
-    a window of steps that is the first sample after `--seconds` (the
-    window closes at the next runner call, so its DDFs are the state the
-    window leaves); in a window of cases, the last sample of a case,
+    check: its DDFs (and thermal DDFs), its weight, the benchmark's count of
+    the samples before it, the accumulators before (copied to the host) and
+    after.  In a window of steps that is the first sample after `--seconds`
+    (the window closes at the next runner call, so its DDFs are the state
+    the window leaves); in a window of cases, the last sample of a case,
     taken after `--seconds` (its DDFs copied too: a step follows)."""
 
     def sample(*a, **kw):
-        fi, avg = (a[0], a[4]) if fused else (a[1].fi, a[0])
+        fi, gi, avg = (a[0], None, a[4]) if fused else (a[1].fi, a[1].gi, a[0])
         k = probe.case_samples
         probe.samples += 1
         probe.case_samples += 1
@@ -241,11 +235,12 @@ def wrap_sample(real, probe: Probe, fused: bool):
                 and (probe.window == "steps" or k + 1 == probe.last_sample))
         if not keep:
             return real(*a, **kw)
-        before = tuple(_host_copy(v) for v in avg[1:4])
+        before = tuple(_host_copy(v) for v in avg[1:] if v is not None)
         out = real(*a, **kw)
+        if probe.window != "steps":
+            fi, gi = _host_copy(fi), None if gi is None else _host_copy(gi)
         probe.stash["sample"] = dict(
-            k=k, fi=fi if probe.window == "steps" else _host_copy(fi),
-            before=before, after=out, fused=fused,
+            k=k, fi=fi, gi=gi, before=before, after=out, fused=fused,
             inv_n=float(a[3]) if fused else 1.0 / (avg.count + 1))
         return out
 
@@ -255,11 +250,15 @@ def wrap_sample(real, probe: Probe, fused: bool):
 @contextmanager
 def instrumented(probe: Probe, *, capture=None):
     """The program's `make_runner` and averaging passes (as `run_case`
-    reaches them), `run_case` (as the modes reach it) and
+    reaches them), `run_case` (as every run mode reaches it) and
     `write_final_outputs` wrapped for this run.  With `capture`, `run_case`
     hands the case to `capture(case)` and raises `Captured` instead."""
-    from latticeurbanwind_tpu_torch.run import driver, modes
+    from latticeurbanwind_tpu_torch.run import driver, modes, standard
 
+    # the run modes that bound `run_case` by name; not run/batch.py, whose
+    # threads would share one Probe (a case-parallel cell brings a wrapper
+    # of its own there)
+    bound = (modes, standard)
     real_make, real_run, real_write = (driver.make_runner, driver.run_case,
                                        driver.write_final_outputs)
     real_avg, real_welford = driver.avg_update, driver.welford_update
@@ -303,7 +302,8 @@ def instrumented(probe: Probe, *, capture=None):
             return real_write(*a, **kw)
 
     driver.make_runner = make_runner
-    modes.run_case = run_case
+    for mod in bound:
+        mod.run_case = run_case
     driver.write_final_outputs = write_final_outputs
     driver.avg_update = wrap_sample(real_avg, probe, True)
     driver.welford_update = wrap_sample(real_welford, probe, False)
@@ -311,7 +311,8 @@ def instrumented(probe: Probe, *, capture=None):
         yield
     finally:
         driver.make_runner = real_make
-        modes.run_case = real_run
+        for mod in bound:
+            mod.run_case = real_run
         driver.write_final_outputs = real_write
         driver.avg_update, driver.welford_update = real_avg, real_welford
         probe.runner = None
@@ -356,40 +357,67 @@ def sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def averaging_pass(case, shape, device):
+    """(empty accumulators, `sample(state, avg) -> (state, avg)`): the
+    averaging pass that `run_case` takes at each sample of `case`
+    (run/driver.py): the fused pass (K-AVG), or, where the case is thermal
+    or has probes (whose columns read the fields at every sample), the
+    fields pass and Welford's step on accumulators with mean T where the
+    case outputs T."""
+    from latticeurbanwind_tpu_torch.lbm.fields import update_fields
+    from latticeurbanwind_tpu_torch.lbm.state import dyn_row
+    from latticeurbanwind_tpu_torch.ops.avg_kernel import avg_update
+    from latticeurbanwind_tpu_torch.run.welford import init_avg, welford_update
+
+    if not case.config.thermal and not case.probes:
+        row = dyn_row(case.dyn, device)
+
+        def fused(st, avg):
+            return st, avg_update(st.fi, st.flags, row, 1.0 / (avg.count + 1),
+                                  avg, case.config)
+
+        return init_avg(shape, False, device), fused
+
+    def fields(st, avg):
+        st = update_fields(st, case.config, case.dyn)
+        return st, welford_update(avg, st)
+
+    return init_avg(shape, case.thermal_output, device), fields
+
+
 def warm_up(case, w: dict, devices: List[torch.device]) -> None:
     """A few dozen steps (and averaging samples) of the case on each card,
-    through the program's runner and averaging pass, writing nothing; the
-    case's own DDFs are put back as they were."""
-    from latticeurbanwind_tpu_torch.lbm.state import LBMState, dyn_row, to_device
+    through the program's runner and the case's averaging pass, writing
+    nothing; the case's own DDFs (and thermal DDFs) are put back as they
+    were."""
+    from latticeurbanwind_tpu_torch.lbm.state import LBMState, to_device
     from latticeurbanwind_tpu_torch.lbm.stepper import make_runner
-    from latticeurbanwind_tpu_torch.ops.avg_kernel import avg_update
-    from latticeurbanwind_tpu_torch.run.welford import init_avg
 
     st0 = case.state
     shape = tuple(st0.rho.shape)
     for dev in devices:
         with on(dev):
             if st0.fi.device == dev:
-                keep = st0.fi.cpu()
+                keep = [(t, _host_copy(t)) for t in (st0.fi, st0.gi)
+                        if t is not None]
                 st = st0
             else:
-                keep = None
+                keep = []
                 st = LBMState(*(to_device(a, dev) for a in st0))
             forcing = type(case.forcing)(*(to_device(v, dev) for v in case.forcing))
             run, _ = make_runner(case.config, forcing, shape=shape, device=dev,
                                  pre_step=case.pre_step)
             st = run(st, case.dyn, 0, int(w["steps"]))
             if w.get("samples"):
-                avg = init_avg(shape, False, dev)
-                row = dyn_row(case.dyn, dev)
-                for i in range(int(w["samples"])):
-                    avg = avg_update(st.fi, st.flags, row, 1.0 / (i + 1), avg,
-                                     case.config)
+                avg, sample = averaging_pass(case, shape, dev)
+                for _ in range(int(w["samples"])):
+                    st, avg = sample(st, avg)
                 del avg
             sync(dev)
             del run, st, forcing
-            if keep is not None:
-                st0.fi.copy_(keep)
+            for t, saved in keep:
+                t.copy_(saved)
+            if keep:
                 sync(dev)
     gc.collect()
 

@@ -6,10 +6,11 @@ followed by the plain step in a run's time) and steps them with the
 reference's own tables: its flags, forcing, face targets refreshed by its
 own inlet at the same steps, its own step.  `average` runs the reference's
 averaging pass over the DDFs the program sampled, so the accumulators are
-judged apart from the steps' rounding.  With `low` each is the control: the
-same work a precision below what the configuration states (DDFs stored in
-8-bit floats instead of bf16; face targets and accumulators rounded to
-bf16).
+judged apart from the steps' rounding; `sample_step` is one Welford step of
+that pass from the accumulators and DDFs of the program's sample.  With
+`low` each is the control: the same work a precision below what the
+configuration states (DDFs stored in 8-bit floats instead of bf16; face
+targets and accumulators rounded to bf16).
 """
 
 from __future__ import annotations
@@ -73,3 +74,15 @@ def average(tables, samples, device, low: bool = False) -> AvgState:
         if low:
             avg = AvgState(avg.count, *(bf16_round(v) for v in avg[1:]))
     return avg
+
+
+def sample_step(sample: dict, tables, device, *, low: bool = False) -> tuple:
+    """(mean_u, m2_u, mean_rho) after the reference's Welford step from the
+    sample's accumulators and DDFs, weight 1 / (k + 1); with `low` the
+    control's: the accumulators rounded to bf16 after the step."""
+    flags = torch.from_numpy(tables.flags).to(device)
+    k = int(sample["k"])
+    avg = AvgState(k, *(v.to(device).clone() for v in sample["before"]))
+    avg_update_plain(sample["fi"].to(device), flags, tables.dyn, 1.0 / (k + 1),
+                     avg, tables.config)
+    return tuple((bf16_round(v) if low else v).cpu() for v in avg[1:4])

@@ -56,6 +56,7 @@ class Tables:
     rho_factor: float
     cell_m: float
     nz_out: int
+    T0: Optional[np.ndarray] = None  # (Z, Y, X) float32, a thermal case's initial T
 
 
 def _find_stl(parent: Path, casename: str, suffix: str) -> Path:

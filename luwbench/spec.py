@@ -2,8 +2,15 @@
 mixes and the metric readers, each found by its name.
 
   * `configs/<name>.json`: a configuration (the deck's keys as run, its
-    source, what was changed from it) with its raw inputs in
+    source, what was changed from it, the reference that rebuilds its case,
+    its sizes for the CPU tests) with its raw inputs in
     `configs/<inputs>/`;
+  * `cases/<reference>.py`: the plain reference of one kind of deck, named
+    by a configuration's `reference` key: `tables(prod, device)` (the case
+    worked out again from the raw deck), `follow(tables, prod, rounds,
+    steps, device, low)` -> (DDFs, thermal DDFs or None, face targets),
+    `average(tables, samples, device, low)` and `sample(sample, tables,
+    device, low)` (the window's last averaging sample's Welford step);
   * `workloads/<name>.json`: a cell's traffic mix, read by the one general
     runner in `harness.py` (which window it runs, the deck keys it sets,
     how the seed enters, the check stretch, the traced stretch, the limits
@@ -20,6 +27,7 @@ from __future__ import annotations
 import importlib.util
 import json
 from dataclasses import dataclass
+from functools import cached_property
 from pathlib import Path
 from types import ModuleType
 from typing import Dict, List
@@ -45,14 +53,22 @@ def workload(name: str, root: Path = ROOT) -> dict:
     return load_json(root / "workloads" / f"{name}.json")
 
 
-def reader(name: str, root: Path = ROOT) -> ModuleType:
-    """The reader module of metric `name` (`metrics/<name>.py`)."""
-    path = root / "metrics" / f"{name}.py"
+def _load(kind: str, name: str, path: Path) -> ModuleType:
     spec = importlib.util.spec_from_file_location(
-        "luwbench_metric_" + name.replace(".", "_").replace("-", "_"), path)
+        f"luwbench_{kind}_" + name.replace(".", "_").replace("-", "_"), path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def reader(name: str, root: Path = ROOT) -> ModuleType:
+    """The reader module of metric `name` (`metrics/<name>.py`)."""
+    return _load("metric", name, root / "metrics" / f"{name}.py")
+
+
+def reference(name: str, root: Path = ROOT) -> ModuleType:
+    """The reference module of a kind of deck (`cases/<name>.py`)."""
+    return _load("case", name, root / "cases" / f"{name}.py")
 
 
 @dataclass
@@ -68,6 +84,11 @@ class Cell:
     @property
     def chips(self) -> int:
         return int(self.entry["chips"])
+
+    @cached_property
+    def reference(self) -> ModuleType:
+        """The plain reference of the configuration's kind of deck."""
+        return reference(self.config["reference"], self.root)
 
 
 def _reports(metric: dict, cell: str, e2e_of_cell: List[str]) -> bool:

@@ -4,10 +4,9 @@ unchanged harness.  The example is a sweep of the rose at one inflow, its
 averaging every step."""
 
 import json
-import shutil
 
 from luwbench import spec
-from tiny import run_tiny, shrink
+from tiny import data_copy, run_tiny, shrink
 
 ONE_INFLOW = {
     "config": "datagen-2m",
@@ -25,9 +24,7 @@ ONE_INFLOW = {
 
 
 def test_cell_added_from_files(tmp_path):
-    root = tmp_path / "luwbench"
-    for sub in ("configs", "workloads", "metrics"):
-        shutil.copytree(spec.ROOT / sub, root / sub)
+    root = data_copy(tmp_path)
     (root / "workloads" / "datagen-2m.inflow8.json").write_text(
         json.dumps(ONE_INFLOW))
     bench = json.loads((spec.REPO / "BENCHMARK.json").read_text())

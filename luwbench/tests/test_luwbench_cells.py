@@ -37,3 +37,28 @@ def test_seed_sets_the_inputs_not_the_sizes():
     assert sorted(a["angle"]) == sorted(b["angle"]) == sorted(cell.config["deck"]["angle"])
     steady = tiny_cell("profile-1p5m.steady")
     assert harness.deck_keys(steady, 2 ** 31 + 99)["vk_inlet_seed"] == 2 ** 31 + 99
+
+
+def test_instrumented_swaps_run_case_in_every_run_mode():
+    """Every module of the port's `run` package that binds `run_case` by
+    name has it swapped while a run is instrumented, and put back after;
+    `run/batch.py` alone keeps the program's (its threads would share one
+    probe)."""
+    import importlib
+    import pkgutil
+
+    from latticeurbanwind_tpu_torch import run as run_pkg
+    from latticeurbanwind_tpu_torch.run import driver
+
+    real = driver.run_case
+    binders = {}
+    for info in pkgutil.iter_modules(run_pkg.__path__):
+        mod = importlib.import_module(f"{run_pkg.__name__}.{info.name}")
+        if mod is not driver and getattr(mod, "run_case", None) is real:
+            binders[info.name] = mod
+    assert {"batch", "modes", "standard"} <= set(binders)
+    with harness.instrumented(harness.Probe()):
+        swapped = {n for n, m in binders.items() if m.run_case is not real}
+        assert driver.run_case is real
+    assert swapped == set(binders) - {"batch"}
+    assert all(m.run_case is real for m in binders.values())

@@ -32,6 +32,10 @@ def test_config_loads_by_name(c):
     assert data["name"] == c["name"] and data["source"] == c["source"]
     assert sorted(data["reduced"]) == sorted(c["reduced"])
     assert (spec.ROOT / "configs" / data["inputs"] / data["deck_file"]).exists()
+    ref = spec.reference(data["reference"])
+    assert all(callable(getattr(ref, f)) for f in
+               ("tables", "follow", "average", "sample"))
+    assert set(data["tiny"]) <= {"deck", "check"}
     for text in (c["why"], c["source"]):
         assert 1 <= len(text) <= 200 and "\n" not in text and "\t" not in text
 
@@ -94,6 +98,9 @@ def test_reference_imports_nothing_of_the_program():
     code = ("import sys; sys.path.insert(0, %r)\n"
             "import luwbench.reference.setup, luwbench.reference.follow, "
             "luwbench.counts, luwbench.trace\n"
+            "from luwbench import spec\n"
+            "for c in spec.benchmark()['configs']:\n"
+            "    spec.reference(spec.config(c['name'])['reference'])\n"
             "bad = sorted({m.split('.')[0] for m in sys.modules} & "
             "{'jax', 'jaxlib', 'flax', 'latticeurbanwind_tpu', "
             "'latticeurbanwind_tpu_torch'})\n"

@@ -1,23 +1,30 @@
-"""A cell at a size the CPU tests can hold: the same decks at coarse cells,
-short runs and short check stretches."""
+"""A cell at a size the CPU tests can hold: the configuration's own `tiny`
+sizes (deck keys set, check stretch keys capped), so a new configuration
+brings its own."""
 
+import shutil
 import time
 from pathlib import Path
 
 from luwbench import check, harness, spec
 
-TINY_CELL_M = {"profile": 16.0, "datagen": 20.0}
-
 
 def shrink(cell: spec.Cell) -> spec.Cell:
-    deck = cell.config["deck"]
-    if cell.config["deck_file"].endswith(".luwpf"):
-        deck["cell_size"] = TINY_CELL_M["profile"]
-        cell.workload["check"]["steps"] = min(cell.workload["check"]["steps"], 6)
-    else:
-        deck.update(cell_size=TINY_CELL_M["datagen"], run_nstep=120, purge_avg=40)
-        cell.workload["check"]["rounds"] = 2
+    tiny = cell.config["tiny"]
+    cell.config["deck"].update(tiny.get("deck", {}))
+    chk = cell.workload["check"]
+    for key, most in tiny.get("check", {}).items():
+        chk[key] = min(chk[key], most)
     return cell
+
+
+def data_copy(tmp_path: Path) -> Path:
+    """A copy of the benchmark's data files (`luwbench/` without its code),
+    to which a test adds a cell by files and entries alone."""
+    root = tmp_path / "luwbench"
+    for sub in ("configs", "workloads", "metrics", "cases"):
+        shutil.copytree(spec.ROOT / sub, root / sub)
+    return root
 
 
 def tiny_cell(name: str, bench=None, root: Path = spec.ROOT) -> spec.Cell:
